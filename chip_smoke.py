@@ -1,0 +1,492 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
+
+    python3 chip_smoke.py                       # on the card, full width
+    python3 chip_smoke.py --device cpu --tiny   # rehearsal with plain versions
+
+Phases, each of which raises on failure (nothing is caught):
+
+1. Card and build: the card's name, capability (must be 9.0) and power
+   limit; the kernels built from ``src/repro_torch/csrc/*.cu`` with nvcc,
+   with ptxas' register / shared-memory / spill lines per kernel.
+2. Every kernel against its plain PyTorch version on the same CUDA tensors
+   at the shapes the main path gives it, with its time, its bound and the
+   plain version's time.
+3. The main path at full width (``FFMConfig()``, V = 2^18, DeepFFM, random
+   weights from a seed): an int8 and an f32 ``InferenceEngine`` with
+   ``backend="cuda"`` warm up and answer 4 microbatches of 8 requests with
+   16-64 candidates each, then ``score_uncached(use_backend=True)`` runs on
+   every request. Every score must match ``score_uncached(use_backend=False)``
+   within rtol 2e-4, atol 2e-5, and every kernel's launch counter must have
+   risen during the run.
+4. Where the time goes: one more microbatch per engine under torch.profiler
+   (kernels launched, device-busy time against wall time, top kernels).
+
+The second-to-last lines are the kernels' JSON record and the nvidia-smi
+line; the last line is ``{"ok": true, "device": {...}}``. Without a card (or
+run from a directory without ``src/repro_torch``) it exits non-zero and
+prints no result; the CPU rehearsal ends with exit code 3 for the same
+reason.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 FLOP/s
+# outside the tensor cores — the K=8 dots of these kernels are plain FMA
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+TIMING_ITERS = 200
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def bound(bytes_moved: float, flops: float):
+    """Least time (ms) the card needs for the work, and what bounds it."""
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def make_traffic(cfg, rng, n_batches=4, per_batch=8, lo=16, hi=64):
+    """Microbatches of (ctx_idx, ctx_val, cand_idx, cand_val) requests.
+
+    Contexts come from three base contexts with a varied tail (so the prefix
+    cache hits at checkpoint depths and, across batches, at full depth);
+    every fourth request repeats the previous request's context and half of
+    its slate (so dedup fires). The last two candidate fields are numeric
+    (log-transformed values), the rest categorical."""
+    import numpy as np
+
+    fc = cfg.context_fields
+    fcand = cfg.n_fields - fc
+    v = cfg.hash_space
+    bases = [rng.integers(0, v, fc).astype(np.int32) for _ in range(3)]
+    cuts = [fc] + [d for d in (12, 8, 4) if d < fc]
+
+    def slate(n):
+        ki = rng.integers(0, v, (n, fcand)).astype(np.int32)
+        kv = np.ones((n, fcand), np.float32)
+        kv[:, -2:] = np.log1p(rng.lognormal(0.0, 1.0, (n, 2)))
+        return ki, kv
+
+    batches = []
+    for _ in range(n_batches):
+        reqs = []
+        for j in range(per_batch):
+            n = int(rng.integers(lo, hi + 1))
+            if j % 4 == 3:
+                ci, cv, pki, pkv = reqs[-1]
+                take = min(n // 2, pki.shape[0])
+                ki, kv = slate(n - take)
+                reqs.append((ci, cv, np.concatenate([pki[:take], ki]),
+                             np.concatenate([pkv[:take], kv])))
+                continue
+            ci = bases[int(rng.integers(0, 3))].copy()
+            cut = cuts[int(rng.integers(0, len(cuts)))]
+            ci[cut:] = rng.integers(0, v, fc - cut)
+            reqs.append((ci, np.ones(fc, np.float32), *slate(n)))
+        batches.append(reqs)
+    return batches
+
+
+def where_the_time_goes(name, eng, batch, smi, top=6):
+    """One more ``score_batch`` of ``batch`` under torch.profiler: the card's
+    kernel time against the call's wall time (profiler included), the number
+    of kernels the call launched, and the kernels with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.score_batch(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    if not kern:
+        print(f"time {name}: device time not measured (the profiler saw no "
+              f"kernel); wall {wall_ms:.3f} ms | {smi}")
+        return
+    by_name = {}
+    for e in kern:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    print(f"time {name}: one microbatch under the profiler: wall "
+          f"{wall_ms:.3f} ms, kernels {len(kern)}, device busy {dev_ms:.3f} ms "
+          f"({100 * dev_ms / wall_ms:.1f}% of wall) | {smi}")
+    for kname, (n, t) in ranked:
+        print(f"  {t:.4f} ms in {n} launches: {kname[:90]}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--tiny", action="store_true",
+                    help="small config for the CPU rehearsal")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; no result", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}; "
+              "no result", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.common import device as device_mod
+    from repro_torch.common.config import FFMConfig
+    from repro_torch.core import deepffm
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ffm_interaction import ops as fi_ops
+    from repro_torch.kernels.ffm_interaction import ref as fi_ref
+    from repro_torch.kernels.row_gather import ops as rg_ops
+    from repro_torch.kernels.row_gather import ref as rg_ref
+    from repro_torch.serving.engine import InferenceEngine
+
+    # results are held to f32 references: no TF32 anywhere
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(args.device)
+    on_card = dev.type == "cuda"
+    cfg = (FFMConfig(n_fields=8, context_fields=5, hash_space=2**10, k=4,
+                     mlp_hidden=(16, 8)) if args.tiny else FFMConfig())
+
+    # -- phase 1: card and build -------------------------------------------
+    smi = "not measured (no card)"
+    if on_card:
+        info = device_mod.describe(dev)
+        smi = info["nvidia_smi"]
+        print(f"card: {info['name']} | capability {info['capability']} | "
+              f"count {info['count']} | name, power limit: {smi}")
+        check(tuple(info["capability"]) == (9, 0),
+              f"need compute capability 9.0, got {info['capability']}")
+        lib = _build.load()
+        print(f"build: {lib.build_seconds:.2f} s (nvcc, one command over "
+              f"csrc/*.cu) -> {lib.path.name}")
+        for line in lib.log.splitlines():
+            if "ptxas info" in line or "spill" in line:
+                print("  " + line.strip())
+        # the kernels' shared memory is dynamic (ptxas reports static only)
+        f_, fc_, k_ = cfg.n_fields, cfg.context_fields, cfg.k
+        print("  dynamic shared memory per block at main-path shapes: "
+              f"gather_dequant_rows_q8 0 B, ffm_candidate_matrices(_q8) "
+              f"{(fc_ * (f_ - fc_) * k_ + fc_) * 4} B, ffm_interaction_matrix "
+              f"{(f_ * f_ * k_ + f_) * 4} B")
+    else:
+        print("card: none (CPU rehearsal: plain versions, no timings)")
+
+    # -- phase 2: each kernel against its plain version ----------------------
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def uniform(lo, hi, *shape):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def device_ms(fn):
+        """Mean device time (ms) of one ``fn()``: TIMING_ITERS calls captured
+        in a CUDA graph and replayed, timed with CUDA events (no Python
+        launch overhead in the number)."""
+        if not on_card:
+            return None
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(TIMING_ITERS):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        graph.replay()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / TIMING_ITERS
+
+    def call_ms(fn):
+        """Mean time (ms) of one eager ``fn()`` call, Python wrapper
+        included: CUDA events around TIMING_ITERS back-to-back calls."""
+        if not on_card:
+            return None
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(TIMING_ITERS):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / TIMING_ITERS
+
+    def max_err(got, want):
+        if isinstance(got, tuple):
+            return max(max_err(g, w) for g, w in zip(got, want))
+        return float((got.float() - want.float()).abs().max())
+
+    def allclose(got, want, rtol, atol):
+        if isinstance(got, tuple):
+            return all(allclose(g, w, rtol, atol) for g, w in zip(got, want))
+        return bool(torch.allclose(got.float(), want.float(), rtol=rtol,
+                                   atol=atol))
+
+    r_rows, n_cand = 8, 64  # warmup(max_requests=8, max_candidates=64)
+    f, fc, k = cfg.n_fields, cfg.context_fields, cfg.k
+    fcand = f - fc
+    v = cfg.hash_space
+    kernels = []
+
+    def kernel_case(name, source, replaces, fn, plain, tol, bytes_moved,
+                    flops, shape, library=None):
+        got, want = fn(), plain()
+        if on_card:
+            torch.cuda.synchronize()
+        err = max_err(got, want)
+        if tol == "exact":
+            ok = all(torch.equal(g, w) for g, w in
+                     zip(got if isinstance(got, tuple) else (got,),
+                         want if isinstance(want, tuple) else (want,)))
+        else:
+            ok = allclose(got, want, *tol)
+        check(ok, f"{name}: kernel disagrees with its plain version "
+                  f"(max abs err {err:.3e}, tolerance {tol})")
+        b_ms, b_by = bound(bytes_moved, flops)
+        rec = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": 0, "max_abs_err": err,
+               "ms": device_ms(fn), "plain_ms": device_ms(plain),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": device_ms(library) if library else None,
+               "call_ms": call_ms(fn), "plain_call_ms": call_ms(plain),
+               "shape": shape, "tolerance": tol}
+        kernels.append(rec)
+        print(f"kernel {name} {shape}: max abs err {err:.3e} (tol {tol}) | "
+              f"device {rec['ms']} ms, per call {rec['call_ms']} ms | plain "
+              f"{rec['plain_ms']} ms | bound {b_ms:.3e} ms ({b_by})")
+
+    # K1: the gather of score_uncached's (N, F) feature block (context tails
+    # gather up to Fc rows through the same kernel)
+    tbl = (codes(v, f, k), uniform(1e-4, 1e-2, v), randn(v, scale=0.05))
+    idx = torch.randint(0, v, (n_cand, f), generator=gen, device=dev,
+                        dtype=torch.int32)
+    m, rowlen = idx.numel(), f * k
+    kernel_case(
+        "gather_dequant_rows_q8", "src/repro_torch/csrc/row_gather.cu",
+        "src/repro/kernels/row_gather/row_gather.py:40",
+        lambda: rg_ops.gather_dequant_rows_q8(*tbl, idx),
+        lambda: rg_ref.gather_dequant_rows_q8_ref(*tbl, idx), "exact",
+        m * (rowlen + 4 + 8) + m * rowlen * 4, 2 * m * rowlen,
+        [list(tbl[0].shape), list(idx.shape)])
+
+    # K2/K3: one (rb=8, nb=64) bucket of the candidate forward; context and
+    # candidate column halves are views of one block, as the engine passes them
+    emb_ctx = randn(r_rows, fc, f, k, scale=0.1)
+    val_ctx = uniform(0.5, 1.5, r_rows, fc)
+    vcand = uniform(0.5, 1.5, r_rows, n_cand, fcand)
+    ec = randn(r_rows, n_cand, fcand, f, k, scale=0.1)
+    qc = codes(r_rows, n_cand, fcand, f, k)
+    qs = uniform(1e-4, 1e-3, r_rows, n_cand, fcand)
+    qz = randn(r_rows, n_cand, fcand, scale=0.01)
+    rnc = r_rows * n_cand * fcand
+    outs = r_rows * n_cand * (fc * fcand + fcand * fcand)
+    ctx_bytes = r_rows * (fc * fcand * k + fc) * 4 + rnc * 4
+    args_f32 = (emb_ctx[:, :, fc:], val_ctx, ec[..., :fc, :], ec[..., fc:, :],
+                vcand)
+    kernel_case(
+        "ffm_candidate_matrices", "src/repro_torch/csrc/ffm_interaction.cu",
+        "src/repro/kernels/ffm_interaction/ffm_interaction.py:75",
+        lambda: fi_ops.ffm_candidate_matrices(*args_f32),
+        lambda: fi_ref.ffm_candidate_matrices_ref(*args_f32), (1e-5, 1e-6),
+        ctx_bytes + rnc * f * k * 4 + outs * 4, outs * (2 * k + 2),
+        [r_rows, n_cand, fc, fcand, k])
+    args_q8 = (emb_ctx[:, :, fc:], val_ctx, qc[..., :fc, :], qc[..., fc:, :],
+               qs, qz, vcand)
+    kernel_case(
+        "ffm_candidate_matrices_q8", "src/repro_torch/csrc/ffm_interaction.cu",
+        "src/repro/kernels/ffm_interaction/ffm_interaction.py:339",
+        lambda: fi_ops.ffm_candidate_matrices_q8(*args_q8),
+        lambda: fi_ref.ffm_candidate_matrices_q8_ref(*args_q8), (1e-5, 1e-6),
+        ctx_bytes + rnc * (f * k + 8) + outs * 4,
+        outs * (2 * k + 2) + rnc * f * k * 2,
+        [r_rows, n_cand, fc, fcand, k])
+
+    # K4: score_uncached(use_backend=True) over one request's N candidates,
+    # f32 as the engine runs it; bf16 checked as the JAX sweep exercises it
+    e4 = randn(n_cand, f, f, k, scale=0.3)
+    v4 = uniform(0.5, 1.5, n_cand, f)
+    e4h, v4h = e4.to(torch.bfloat16), v4.to(torch.bfloat16)
+    got = fi_ops.ffm_interaction_matrix(e4h, v4h)
+    want = fi_ref.ffm_interaction_matrix_ref(e4h, v4h)
+    check(allclose(got, want, 5e-2, 5e-2),
+          f"ffm_interaction_matrix bf16: max abs err {max_err(got, want):.3e}")
+    print(f"kernel ffm_interaction_matrix bf16 {[n_cand, f, k]}: max abs err "
+          f"{max_err(got, want):.3e} (tol 5e-2)")
+    kernel_case(
+        "ffm_interaction_matrix", "src/repro_torch/csrc/ffm_interaction.cu",
+        "src/repro/kernels/ffm_interaction/ffm_interaction.py:35",
+        lambda: fi_ops.ffm_interaction_matrix(e4, v4),
+        lambda: fi_ref.ffm_interaction_matrix_ref(e4, v4), (1e-5, 1e-4),
+        n_cand * (f * f * k + f + f * f) * 4, n_cand * f * f * (2 * k + 2),
+        [n_cand, f, k],
+        library=lambda: torch.einsum("bijk,bjik,bi,bj->bij", e4, e4, v4, v4))
+
+    # the kernels' general paths, off the main path's shapes: rows that are
+    # not a multiple of 16 bytes (K1's byte loop) and K != 8 (K2/K3/K4's
+    # runtime-K loop)
+    idx_e = torch.randint(0, 50, (7, 3), generator=gen, device=dev,
+                          dtype=torch.int32)
+    tbl_e = (codes(50, 3, 5), uniform(1e-3, 1e-2, 50), randn(50, scale=0.05))
+    check(torch.equal(rg_ops.gather_dequant_rows_q8(*tbl_e, idx_e),
+                      rg_ref.gather_dequant_rows_q8_ref(*tbl_e, idx_e)),
+          "gather_dequant_rows_q8 (byte path) disagrees")
+    ke, fce, fe = 4, 5, 9
+    ctx_e, val_e = randn(2, fce, fe, ke), uniform(0.5, 1.5, 2, fce)
+    ec_e, vc_e = randn(2, 7, fe - fce, fe, ke), uniform(0.5, 1.5, 2, 7, fe - fce)
+    qc_e = codes(2, 7, fe - fce, fe, ke)
+    qg_e = (uniform(1e-3, 1e-2, 2, 7, fe - fce), randn(2, 7, fe - fce, scale=0.05))
+    for fn, plain, a in (
+            (fi_ops.ffm_candidate_matrices, fi_ref.ffm_candidate_matrices_ref,
+             (ctx_e[:, :, fce:], val_e, ec_e[..., :fce, :], ec_e[..., fce:, :],
+              vc_e)),
+            (fi_ops.ffm_candidate_matrices_q8,
+             fi_ref.ffm_candidate_matrices_q8_ref,
+             (ctx_e[:, :, fce:], val_e, qc_e[..., :fce, :], qc_e[..., fce:, :],
+              *qg_e, vc_e)),
+            (fi_ops.ffm_interaction_matrix, fi_ref.ffm_interaction_matrix_ref,
+             (randn(5, fe, fe, ke), uniform(0.5, 1.5, 5, fe)))):
+        check(allclose(fn(*a), plain(*a), 1e-5, 1e-5),
+              f"{fn.__name__} (K={ke}) disagrees: {max_err(fn(*a), plain(*a))}")
+    print("kernels' general paths (byte rows, K=4): agree with plain versions")
+
+    # -- phase 3: the main path at full width --------------------------------
+    t0 = time.perf_counter()
+    params = deepffm.init_params(cfg, args.seed, "deepffm", dev)
+    last = f"w{len(cfg.mlp_hidden)}"
+    params["mlp"][last] = randn(*params["mlp"][last].shape, scale=0.5)
+    params["lr"]["w"] = randn(v, scale=0.1)
+    engines = {
+        "int8": InferenceEngine(cfg, "deepffm", backend="cuda", params=params,
+                                device=dev, quantized=True),
+        "f32": InferenceEngine(cfg, "deepffm", backend="cuda", params=params,
+                               device=dev),
+    }
+    for eng in engines.values():
+        eng.warmup(max_requests=r_rows, max_candidates=n_cand)
+    print(f"main path: config {cfg} | engines built and warmed in "
+          f"{time.perf_counter() - t0:.1f} s | resident bytes "
+          + ", ".join(f"{n} {e.resident_weight_bytes}"
+                      for n, e in engines.items()))
+
+    batches = make_traffic(cfg, np.random.default_rng(args.seed))
+    main_launches = dict.fromkeys(_build.launches, 0)
+    phase_launches = {}
+
+    def run_phase(label, fn):
+        _build.reset_launches()
+        out = fn()
+        if on_card:
+            torch.cuda.synchronize()
+        phase_launches[label] = dict(_build.launches)
+        for name, c in _build.launches.items():
+            main_launches[name] += c
+        return out
+
+    scores, uncached = {}, {}
+    for name, eng in engines.items():
+        scores[name] = run_phase(
+            f"{name} score_batch x{len(batches)}",
+            lambda eng=eng: [eng.score_batch(mb) for mb in batches])
+        uncached[name] = run_phase(
+            f"{name} score_uncached(use_backend=True)",
+            lambda eng=eng: [eng.score_uncached(*req, use_backend=True)
+                             for mb in batches for req in mb])
+    for label, counts in phase_launches.items():
+        print(f"launches {label}: {counts}")
+
+    # oracle: the same engine's plain full forward on the same (quantized)
+    # tables; these launches are not part of the main-path counts
+    rtol, atol = 2e-4, 2e-5
+    for name, eng in engines.items():
+        worst_batch = worst_unc = 0.0
+        reqs = [req for mb in batches for req in mb]
+        got_batch = [s for mb_scores in scores[name] for s in mb_scores]
+        for req, got, unc in zip(reqs, got_batch, uncached[name]):
+            oracle = eng.score_uncached(*req).cpu().numpy()
+            unc = unc.cpu().numpy()
+            check(got.shape == (req[2].shape[0],) and np.isfinite(got).all(),
+                  f"{name}: bad scores shape {got.shape} or non-finite")
+            check(np.allclose(got, oracle, rtol=rtol, atol=atol),
+                  f"{name}: score_batch vs score_uncached max abs err "
+                  f"{np.abs(got - oracle).max():.3e}")
+            check(np.allclose(unc, oracle, rtol=rtol, atol=atol),
+                  f"{name}: score_uncached(use_backend=True) vs plain max "
+                  f"abs err {np.abs(unc - oracle).max():.3e}")
+            worst_batch = max(worst_batch, float(np.abs(got - oracle).max()))
+            worst_unc = max(worst_unc, float(np.abs(unc - oracle).max()))
+        st = eng.stats
+        check(eng.hits > 0 and eng.misses > 0,
+              f"{name}: cache hits {eng.hits}, misses {eng.misses}")
+        check(st.dedup_saved > 0, f"{name}: dedup saved no rows")
+        print(f"engine {name}: {st.requests} requests, {st.candidates} "
+              f"candidates, {st.rows_scored} rows scored (dedup saved "
+              f"{st.dedup_saved}), hits {eng.hits} misses {eng.misses}, "
+              f"max abs err vs oracle: score_batch {worst_batch:.3e}, "
+              f"uncached kernel path {worst_unc:.3e} (rtol {rtol}, atol {atol})")
+        if on_card:
+            print(f"engine {name}: p50 {st.p50_ms:.3f} ms per microbatch, "
+                  f"p99 {st.p99_ms:.3f} ms, {st.predictions_per_s:.0f} "
+                  f"predictions/s | {smi}")
+    if on_card:
+        for name, c in main_launches.items():
+            check(c > 0, f"kernel {name} was not launched on the main path")
+        for name, eng in engines.items():
+            where_the_time_goes(name, eng, batches[-1], smi)
+    for rec in kernels:
+        rec["launches"] = main_launches[rec["name"]]
+
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    if not on_card:
+        print("chip_smoke: CPU rehearsal passed; no device result",
+              file=sys.stderr)
+        return 3
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,75 @@
+"""Declarative parameter specs (port of ``repro/common/pspec.py``).
+
+Each model declares its parameters once as a nested dict of
+:class:`ParamSpec`; :func:`materialize` turns the tree into tensors on a
+device, drawing from one seeded ``torch.Generator``. The numbers differ from
+the JAX package's (another generator); parity tests therefore hand the same
+numpy weights to both packages (``repro_torch.convert``).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.common.device import DeviceLike, resolve_device
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]  # logical axis per dim; "null" = never sharded
+    init: str = "normal"  # normal | zeros | ones | embed | scaled | uniform_conv
+    dtype: Any = torch.bfloat16
+    fan_in: int = 0  # for "scaled" init; 0 -> shape[-2] if ndim>=2 else shape[-1]
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+def _init_tensor(spec: ParamSpec, gen: torch.Generator,
+                 device: torch.device) -> torch.Tensor:
+    shape, dtype = spec.shape, spec.dtype
+    if spec.init == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    def normal():
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.float32)
+
+    if spec.init == "scaled":
+        fan_in = spec.fan_in or (shape[-2] if len(shape) >= 2 else shape[-1])
+        return (normal() / np.sqrt(max(fan_in, 1))).to(dtype)
+    if spec.init == "uniform_conv":
+        lim = 1.0 / np.sqrt(max(shape[-1], 1))
+        u = torch.rand(shape, generator=gen, device=device,
+                       dtype=torch.float32)
+        return (u * (2 * lim) - lim).to(dtype)
+    # "embed" and the default: normal(0, 0.02)
+    return (normal() * 0.02).to(dtype)
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def materialize(specs, seed: int = 0, device: DeviceLike = None):
+    """Initialize real parameter tensors from the spec tree on ``device``.
+
+    Leaves draw in sorted-key order from one generator seeded with
+    ``seed``, so a tree is reproducible per (seed, device type)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+
+    def walk(node):
+        if is_spec(node):
+            return _init_tensor(node, gen, dev)
+        return {k: walk(node[k]) for k in sorted(node)}
+
+    return walk(specs)
+

@@ -1,0 +1,321 @@
+// K2/K3: candidate-block FFM interactions against cached context partials,
+// K4: the full field x field FFM interaction matrix.
+//
+// Replaces (src/repro/kernels/ffm_interaction/ffm_interaction.py):
+//   K2 ffm_candidate_matrices    (Pallas body _cand_kernel)
+//   K3 ffm_candidate_matrices_q8 (Pallas body _cand_kernel_q8)
+//   K4 ffm_interaction_matrix    (Pallas body _ffm_kernel)
+//
+//   K2/K3: xc[r,n,i,jc]  = <ectx[r,i,jc,:], ecx[r,n,jc,i,:]> * vctx[r,i] * vc[r,n,jc]
+//          aa[r,n,ic,jc] = <ecc[r,n,ic,jc,:], ecc[r,n,jc,ic,:]> * vc[r,n,ic] * vc[r,n,jc]
+//          K3 takes the candidate rows as int8 codes with one (scale, zero)
+//          grid per candidate row (r, n, jc) and dequantizes in registers.
+//   K4:    D[b,i,j] = <E[b,i,j,:], E[b,j,i,:]> * v[b,i] * v[b,j]
+//
+// What bounds them on the H100: bytes, and at serving shapes the launch
+//   itself. Every output is one K=8 dot (16 flops) over 32-64 bytes of
+//   inputs, far below any tensor-core shape, so the arithmetic is plain FMA.
+//   At R=8 rows x N=64 candidates K3 reads ~0.87 MB and writes ~0.39 MB
+//   (~0.38 us at 3.35 TB/s), less than a kernel launch costs.
+//
+// Design: the Pallas kernels keep a request's context block resident in VMEM
+//   while the grid walks candidate tiles. Here one CTA takes one (request row,
+//   tile of kTileN candidates): it stages the row's context block
+//   (Fc, Fcand, K) f32 — 4 KiB at the default width — and its values in
+//   shared memory once, then its threads walk the tile's (n, i, jc) and
+//   (n, ic, jc) outputs, one output per thread per step. Candidate rows are
+//   each read once straight from global memory (K=8: two float4, or one 8-byte
+//   load of int8 codes), so nothing else is staged. The int8 rows are
+//   dequantized in registers with __fmul_rn/__fadd_rn, bit-identical to the
+//   plain version's dequantized rows; the f32 candidate block of K3 never
+//   exists in device memory. Strided candidate blocks are read in place (the
+//   context/candidate column halves of one gathered block are views), only
+//   the K axis must be contiguous. K4 gives each example one CTA that stages
+//   its (F, F, K) block (18 KiB f32 at F=24, K=8) in shared memory, so each
+//   E[b,i,j,:] crosses device memory once although two outputs read it; it
+//   reads f32 or bf16, accumulates in f32 and writes the input type.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTileN = 4;
+constexpr int kDefaultSmem = 48 * 1024;
+
+template <bool Q8>
+__device__ __forceinline__ float dq(float c, float s, float z) {
+  if constexpr (Q8) {
+    return __fadd_rn(__fmul_rn(c, s), z);
+  } else {
+    return c;
+  }
+}
+
+// Eight consecutive candidate elements as floats (codes not yet dequantized).
+__device__ __forceinline__ void load8(const float* p, float* out) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const int8_t* p, float* out) {
+  const int2 w = __ldg(reinterpret_cast<const int2*>(p));
+  const int8_t* c = reinterpret_cast<const int8_t*>(&w);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) out[k] = static_cast<float>(c[k]);
+}
+
+// <a, dq(q)>: a is a context row in shared memory, q a candidate row.
+// KC == 8 reads q with vector loads; KC == 0 loops over a runtime K.
+template <typename CandT, int KC>
+__device__ __forceinline__ float dot_ctx(const float* a, const CandT* q, int K,
+                                         float s, float z) {
+  constexpr bool Q8 = std::is_same<CandT, int8_t>::value;
+  float acc = 0.f;
+  if constexpr (KC == 8) {
+    float c[8];
+    load8(q, c);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc = fmaf(a[k], dq<Q8>(c[k], s, z), acc);
+  } else {
+    for (int k = 0; k < K; ++k)
+      acc = fmaf(a[k], dq<Q8>(static_cast<float>(q[k]), s, z), acc);
+  }
+  return acc;
+}
+
+// <dq(p), dq(q)> for two candidate rows, each with its own grid.
+template <typename CandT, int KC>
+__device__ __forceinline__ float dot_cand(const CandT* p, const CandT* q, int K,
+                                          float sp, float zp, float sq,
+                                          float zq) {
+  constexpr bool Q8 = std::is_same<CandT, int8_t>::value;
+  float acc = 0.f;
+  if constexpr (KC == 8) {
+    float a[8], b[8];
+    load8(p, a);
+    load8(q, b);
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      acc = fmaf(dq<Q8>(a[k], sp, zp), dq<Q8>(b[k], sq, zq), acc);
+  } else {
+    for (int k = 0; k < K; ++k)
+      acc = fmaf(dq<Q8>(static_cast<float>(p[k]), sp, zp),
+                 dq<Q8>(static_cast<float>(q[k]), sq, zq), acc);
+  }
+  return acc;
+}
+
+// Element strides (the K axis is contiguous in all three blocks):
+//   ectx (r, i, jc), ecx (r, n, jc, i), ecc (r, n, ic, jc).
+struct CandStrides {
+  int64_t ctx_r, ctx_i, ctx_j;
+  int64_t x_r, x_n, x_j, x_i;
+  int64_t c_r, c_n, c_i, c_j;
+};
+
+template <typename CandT, int KC>
+__global__ void __launch_bounds__(kThreads)
+ffm_candidate_matrices_kernel(const float* __restrict__ ectx,
+                              const float* __restrict__ vctx,
+                              const CandT* __restrict__ ecx,
+                              const CandT* __restrict__ ecc,
+                              const float* __restrict__ scale,
+                              const float* __restrict__ zero,
+                              const float* __restrict__ vcand,
+                              float* __restrict__ xc, float* __restrict__ aa,
+                              CandStrides st, int N, int Fc, int Fcand, int K) {
+  constexpr bool Q8 = std::is_same<CandT, int8_t>::value;
+  extern __shared__ float4 smem4[];
+  float* sctx = reinterpret_cast<float*>(smem4);  // (Fc, Fcand, K)
+  float* sv = sctx + Fc * Fcand * K;              // (Fc,)
+  const int r = blockIdx.y;
+  const int n0 = blockIdx.x * kTileN;
+  const int nn = min(kTileN, N - n0);
+
+  const int ctx_len = Fc * Fcand * K;
+  for (int t = threadIdx.x; t < ctx_len; t += blockDim.x) {
+    const int i = t / (Fcand * K);
+    const int rem = t - i * Fcand * K;
+    const int j = rem / K;
+    const int k = rem - j * K;
+    sctx[t] = ectx[r * st.ctx_r + i * st.ctx_i + j * st.ctx_j + k];
+  }
+  for (int t = threadIdx.x; t < Fc; t += blockDim.x)
+    sv[t] = vctx[static_cast<int64_t>(r) * Fc + t];
+  __syncthreads();
+
+  const int64_t rn0 = static_cast<int64_t>(r) * N + n0;  // first (r, n) row
+
+  // ctx-cand block: (nn, Fc, Fcand) outputs
+  const int nxc = Fc * Fcand;
+  for (int o = threadIdx.x; o < nn * nxc; o += blockDim.x) {
+    const int dn = o / nxc;
+    const int rem = o - dn * nxc;
+    const int i = rem / Fcand;
+    const int jc = rem - i * Fcand;
+    const int64_t g = (rn0 + dn) * Fcand + jc;  // candidate row (r, n, jc)
+    float s = 0.f, z = 0.f;
+    if constexpr (Q8) {
+      s = scale[g];
+      z = zero[g];
+    }
+    const CandT* q = ecx + r * st.x_r + (n0 + dn) * st.x_n + jc * st.x_j +
+                     i * st.x_i;
+    const float d = dot_ctx<CandT, KC>(sctx + (i * Fcand + jc) * K, q, K, s, z);
+    xc[(rn0 + dn) * nxc + rem] = d * sv[i] * vcand[g];
+  }
+
+  // cand-cand block: (nn, Fcand, Fcand) outputs
+  const int naa = Fcand * Fcand;
+  for (int o = threadIdx.x; o < nn * naa; o += blockDim.x) {
+    const int dn = o / naa;
+    const int rem = o - dn * naa;
+    const int ic = rem / Fcand;
+    const int jc = rem - ic * Fcand;
+    const int64_t gi = (rn0 + dn) * Fcand + ic;
+    const int64_t gj = (rn0 + dn) * Fcand + jc;
+    float si = 0.f, zi = 0.f, sj = 0.f, zj = 0.f;
+    if constexpr (Q8) {
+      si = scale[gi];
+      zi = zero[gi];
+      sj = scale[gj];
+      zj = zero[gj];
+    }
+    const CandT* base = ecc + r * st.c_r + (n0 + dn) * st.c_n;
+    const CandT* p = base + ic * st.c_i + jc * st.c_j;
+    const CandT* q = base + jc * st.c_i + ic * st.c_j;
+    const float d = dot_cand<CandT, KC>(p, q, K, si, zi, sj, zj);
+    aa[(rn0 + dn) * naa + rem] = d * vcand[gi] * vcand[gj];
+  }
+}
+
+template <typename CandT, int KC>
+int launch_candidates(const void* ectx, const void* vctx, const void* ecx,
+                      const void* ecc, const void* scale, const void* zero,
+                      const void* vcand, void* xc, void* aa,
+                      const int64_t* strides, int64_t R, int64_t N, int64_t Fc,
+                      int64_t Fcand, int64_t K, cudaStream_t stream) {
+  CandStrides st;
+  st.ctx_r = strides[0]; st.ctx_i = strides[1]; st.ctx_j = strides[2];
+  st.x_r = strides[3]; st.x_n = strides[4]; st.x_j = strides[5]; st.x_i = strides[6];
+  st.c_r = strides[7]; st.c_n = strides[8]; st.c_i = strides[9]; st.c_j = strides[10];
+  const size_t smem = (Fc * Fcand * K + Fc) * sizeof(float);
+  auto kernel = ffm_candidate_matrices_kernel<CandT, KC>;
+  if (smem > kDefaultSmem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid(static_cast<unsigned>((N + kTileN - 1) / kTileN),
+                  static_cast<unsigned>(R));
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(ectx), static_cast<const float*>(vctx),
+      static_cast<const CandT*>(ecx), static_cast<const CandT*>(ecc),
+      static_cast<const float*>(scale), static_cast<const float*>(zero),
+      static_cast<const float*>(vcand), static_cast<float*>(xc),
+      static_cast<float*>(aa), st, static_cast<int>(N), static_cast<int>(Fc),
+      static_cast<int>(Fcand), static_cast<int>(K));
+  return static_cast<int>(cudaGetLastError());
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ffm_interaction_matrix_kernel(const T* __restrict__ e, const T* __restrict__ v,
+                              T* __restrict__ out, int F, int K) {
+  extern __shared__ float4 smem4[];
+  float* se = reinterpret_cast<float*>(smem4);  // (F, F, K) as f32
+  const int blk = F * F * K;
+  float* sv = se + blk;                         // (F,)
+  const int64_t b = blockIdx.x;
+  const T* eb = e + b * blk;
+  for (int t = threadIdx.x; t < blk; t += blockDim.x) se[t] = to_f32(eb[t]);
+  for (int t = threadIdx.x; t < F; t += blockDim.x) sv[t] = to_f32(v[b * F + t]);
+  __syncthreads();
+  for (int o = threadIdx.x; o < F * F; o += blockDim.x) {
+    const int i = o / F;
+    const int j = o - i * F;
+    const float* a = se + (i * F + j) * K;
+    const float* c = se + (j * F + i) * K;
+    float acc = 0.f;
+    for (int k = 0; k < K; ++k) acc = fmaf(a[k], c[k], acc);
+    store(out + b * F * F + o, acc * (sv[i] * sv[j]));
+  }
+}
+
+template <typename T>
+int launch_interaction(const void* e, const void* v, void* out, int64_t B,
+                       int64_t F, int64_t K, cudaStream_t stream) {
+  const size_t smem = (F * F * K + F) * sizeof(float);
+  auto kernel = ffm_interaction_matrix_kernel<T>;
+  if (smem > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<static_cast<unsigned>(B), kThreads, smem, stream>>>(
+      static_cast<const T*>(e), static_cast<const T*>(v), static_cast<T*>(out),
+      static_cast<int>(F), static_cast<int>(K));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int ffm_candidate_matrices(const void* ectx, const void* vctx,
+                                      const void* ecx, const void* ecc,
+                                      const void* vcand, void* xc, void* aa,
+                                      const void* strides, int64_t R, int64_t N,
+                                      int64_t Fc, int64_t Fcand, int64_t K,
+                                      int64_t vec8, void* stream) {
+  if (R <= 0 || N <= 0) return 0;
+  const auto* st = static_cast<const int64_t*>(strides);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (vec8)
+    return launch_candidates<float, 8>(ectx, vctx, ecx, ecc, nullptr, nullptr,
+                                       vcand, xc, aa, st, R, N, Fc, Fcand, K, s);
+  return launch_candidates<float, 0>(ectx, vctx, ecx, ecc, nullptr, nullptr,
+                                     vcand, xc, aa, st, R, N, Fc, Fcand, K, s);
+}
+
+extern "C" int ffm_candidate_matrices_q8(const void* ectx, const void* vctx,
+                                         const void* qcx, const void* qcc,
+                                         const void* vcand, const void* scale,
+                                         const void* zero, void* xc, void* aa,
+                                         const void* strides, int64_t R,
+                                         int64_t N, int64_t Fc, int64_t Fcand,
+                                         int64_t K, int64_t vec8, void* stream) {
+  if (R <= 0 || N <= 0) return 0;
+  const auto* st = static_cast<const int64_t*>(strides);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (vec8)
+    return launch_candidates<int8_t, 8>(ectx, vctx, qcx, qcc, scale, zero,
+                                        vcand, xc, aa, st, R, N, Fc, Fcand, K, s);
+  return launch_candidates<int8_t, 0>(ectx, vctx, qcx, qcc, scale, zero, vcand,
+                                      xc, aa, st, R, N, Fc, Fcand, K, s);
+}
+
+extern "C" int ffm_interaction_matrix(const void* e, const void* v, void* out,
+                                      int64_t B, int64_t F, int64_t K,
+                                      int64_t bf16, void* stream) {
+  if (B <= 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (bf16) return launch_interaction<__nv_bfloat16>(e, v, out, B, F, K, s);
+  return launch_interaction<float>(e, v, out, B, F, K, s);
+}

@@ -1,0 +1,150 @@
+"""Build, load and launch the port's CUDA kernels.
+
+At first use, one ``nvcc`` command compiles every ``csrc/*.cu`` for
+``sm_90a`` into one shared library with a plain C interface, which is
+loaded with ``ctypes`` (no PyTorch headers are compiled, so the build takes
+seconds). The library lands in ``src/repro_torch/_build/`` (gitignored),
+named by a hash of the sources and flags, so an edited source rebuilds and
+an unchanged one is reused within a checkout.
+
+Each C entry point launches on the stream it is given (PyTorch's current
+stream), allocates nothing, and returns ``cudaGetLastError()``;
+:func:`launch` raises on a non-zero code and counts the launch in
+:data:`launches` — the counters a run reads to show that its main path went
+through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+PKG = Path(__file__).resolve().parents[1]
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int64
+# C entry points and their argument types (pointers and the stream as
+# c_void_p, sizes and flags as int64)
+SIGNATURES = {
+    # codes, scale, zero, idx, out, m, rowlen, vec, stream
+    "gather_dequant_rows_q8": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # e, v, out, B, F, K, bf16, stream
+    "ffm_interaction_matrix": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # ectx, vctx, ecx, ecc, vcand, xc, aa, strides[11], R, N, Fc, Fcand, K,
+    # vec8, stream
+    "ffm_candidate_matrices": (_P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _P),
+    # as above with scale, zero after vcand
+    "ffm_candidate_matrices_q8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _P),
+}
+
+# launches per kernel since the last reset (plain integers; set them to 0 to
+# reset). Only a launch of the CUDA kernel counts, never the plain version.
+launches: Dict[str, int] = dict.fromkeys(SIGNATURES, 0)
+
+
+@dataclass
+class Library:
+    lib: ctypes.CDLL
+    path: Path
+    build_seconds: float  # 0.0 when a built library was reused
+    log: str              # nvcc / ptxas output of the build
+
+
+_lock = threading.Lock()
+_library: Optional[Library] = None
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (CUDA_HOME, /usr/local/cuda, PATH)")
+    return found
+
+
+def _compile() -> Library:
+    sources = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode() + src.read_bytes())
+    so = BUILD_DIR / f"repro_torch_kernels_{h.hexdigest()[:16]}.so"
+    log_path = so.with_suffix(".log")
+    seconds = 0.0
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+            capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        log_path.write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    log = log_path.read_text() if log_path.exists() else ""
+    return Library(lib, so, seconds, log)
+
+
+def load() -> Library:
+    """The built kernel library (compiled on first call in the process)."""
+    global _library
+    with _lock:
+        if _library is None:
+            _library = _compile()
+        return _library
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry point ``name`` on PyTorch's current stream (appended as
+    the last argument); raise on a CUDA error, else count the launch."""
+    lib = load().lib
+    err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+    launches[name] += 1
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype,
+          shape: Optional[tuple] = None, contiguous: bool = True) -> None:
+    """Raise unless ``t`` is a CUDA tensor of ``dtype`` (and ``shape`` and
+    contiguity when asked) — what every kernel wrapper checks."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if contiguous and not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,166 @@
+"""FFM interactions through the kernels (port of
+``repro/kernels/ffm_interaction/ops.py:27-73`` and the three Pallas entry
+points of ``ffm_interaction.py`` it calls).
+
+* :func:`ffm_interaction_matrix`, :func:`ffm_candidate_matrices` and
+  :func:`ffm_candidate_matrices_q8` keep the Pallas functions' layouts. A
+  CPU tensor gets the plain version (``ref.py``); a CUDA tensor gets kernel
+  K4, K2 or K3 (``csrc/ffm_interaction.cu``) or an exception. The kernels
+  mask the ragged candidate tile themselves, so nothing is padded.
+* :func:`interactions`, :func:`candidate_interactions` and
+  :func:`candidate_interactions_q8` keep the JAX ops' signatures: the first
+  is a drop-in ``interactions_fn`` for ``deepffm.forward``, the other two
+  compute the candidate-dependent pair columns from cached context partials.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import ffm as ffm_core
+from repro_torch.kernels import _build
+from repro_torch.kernels.ffm_interaction.ref import (
+    ffm_candidate_matrices_q8_ref, ffm_candidate_matrices_ref,
+    ffm_interaction_matrix_ref)
+
+_SMEM_MAX = 232_448  # bytes of shared memory one block may use on sm_90
+
+
+def ffm_interaction_matrix(e: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """e: (B, F, F, K) f32 or bf16 gathered embeddings; v: (B, F) ->
+    (B, F, F) dot matrix in e.dtype (f32 accumulation)."""
+    if not e.is_cuda:
+        return ffm_interaction_matrix_ref(e, v)
+    if e.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"e must be float32 or bfloat16, got {e.dtype}")
+    b, f, f2, k = e.shape
+    if f2 != f:
+        raise ValueError(f"e must be (B, F, F, K), got {tuple(e.shape)}")
+    _build.check(e, "e", e.dtype)
+    _build.check(v, "v", e.dtype, (b, f))
+    if (f * f * k + f) * 4 > _SMEM_MAX:
+        raise ValueError(f"(F, F, K) = {(f, f, k)} exceeds shared memory")
+    out = torch.empty((b, f, f), dtype=e.dtype, device=e.device)
+    if b:
+        _build.launch("ffm_interaction_matrix", e.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), b, f, k, int(e.dtype == torch.bfloat16))
+    return out
+
+
+def _candidate_launch(name, ectx, vctx, ecx, ecc, grids, vcand):
+    """Shared checks and launch of K2 (``grids`` None) and K3."""
+    r, fc, fcand, k = ectx.shape
+    n = ecx.shape[1]
+    cand_dtype = torch.int8 if grids is not None else torch.float32
+    _build.check(ectx, "ectx", torch.float32, contiguous=False)
+    _build.check(vctx, "vctx", torch.float32, (r, fc))
+    _build.check(ecx, "ecx", cand_dtype, (r, n, fcand, fc, k), contiguous=False)
+    _build.check(ecc, "ecc", cand_dtype, (r, n, fcand, fcand, k),
+                 contiguous=False)
+    _build.check(vcand, "vcand", torch.float32, (r, n, fcand))
+    for t, nm in ((ectx, "ectx"), (ecx, "ecx"), (ecc, "ecc")):
+        if k > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{nm} must be contiguous along K")
+    if (fc * fcand * k + fc) * 4 > _SMEM_MAX:
+        raise ValueError(f"(Fc, Fcand, K) = {(fc, fcand, k)} exceeds "
+                         "shared memory")
+    xc = torch.empty((r, n, fc, fcand), dtype=torch.float32,
+                     device=ectx.device)
+    aa = torch.empty((r, n, fcand, fcand), dtype=torch.float32,
+                     device=ectx.device)
+    if r == 0 or n == 0:
+        return xc, aa
+    strides = ectx.stride()[:3] + ecx.stride()[:4] + ecc.stride()[:4]
+    # K=8 rows load as two float4 (f32) or one 8-byte word (int8): every row
+    # start must be aligned to 16 bytes (f32) or 8 bytes (int8)
+    align = 16 if grids is None else 8
+    vec8 = (k == 8 and all(s % 8 == 0 for s in strides[3:])
+            and ecx.data_ptr() % align == 0 and ecc.data_ptr() % align == 0)
+    c_strides = (ctypes.c_int64 * len(strides))(*strides)
+    grid_ptrs = ()
+    if grids is not None:
+        scale, zero = grids
+        _build.check(scale, "scale", torch.float32, (r, n, fcand))
+        _build.check(zero, "zero", torch.float32, (r, n, fcand))
+        grid_ptrs = (scale.data_ptr(), zero.data_ptr())
+    _build.launch(name, ectx.data_ptr(), vctx.data_ptr(), ecx.data_ptr(),
+                  ecc.data_ptr(), vcand.data_ptr(), *grid_ptrs, xc.data_ptr(),
+                  aa.data_ptr(), ctypes.addressof(c_strides), r, n, fc, fcand,
+                  k, int(vec8))
+    return xc, aa
+
+
+def ffm_candidate_matrices(ectx, vctx, ecx, ecc, vcand):
+    """Candidate-block interactions consuming cached context partials (§5).
+
+    ectx:  (R, Fc, Fcand, K)    cached context embeddings for candidate fields
+    vctx:  (R, Fc)              cached context values
+    ecx:   (R, N, Fcand, Fc, K) candidate embeddings for context fields
+    ecc:   (R, N, Fcand, Fcand, K) candidate embeddings for candidate fields
+    vcand: (R, N, Fcand)        candidate values
+    ->     xc (R, N, Fc, Fcand), aa (R, N, Fcand, Fcand) f32 dot matrices
+    """
+    if not ectx.is_cuda:
+        return ffm_candidate_matrices_ref(ectx, vctx, ecx, ecc, vcand)
+    return _candidate_launch("ffm_candidate_matrices", ectx, vctx, ecx, ecc,
+                             None, vcand)
+
+
+def ffm_candidate_matrices_q8(ectx, vctx, qcx, qcc, scale, zero, vcand):
+    """Dequantize-in-registers twin of :func:`ffm_candidate_matrices`: the
+    candidate rows arrive as int8 codes ``qcx`` (R, N, Fcand, Fc, K) and
+    ``qcc`` (R, N, Fcand, Fcand, K) with one ``(scale, zero)`` f32 pair per
+    candidate row (R, N, Fcand); the f32 candidate block never exists in
+    device memory."""
+    if not ectx.is_cuda:
+        return ffm_candidate_matrices_q8_ref(ectx, vctx, qcx, qcc, scale,
+                                             zero, vcand)
+    return _candidate_launch("ffm_candidate_matrices_q8", ectx, vctx, qcx,
+                             qcc, (scale, zero), vcand)
+
+
+def interactions(cfg, emb, idx, val):
+    """(B, n_pairs) DiagMask'd interactions from the kernel's dot matrix.
+    ``emb`` may be an int8 row-quantized table dict (``ffm.gather_rows``)."""
+    e = ffm_core.gather_rows(emb, idx)  # (B, F, F, K)
+    d = ffm_interaction_matrix(e, val)
+    pi, pj = ffm_core.on_device(ffm_core.pair_indices, (cfg.n_fields,),
+                                d.device)
+    return d[:, pi, pj]
+
+
+def _pair_columns(cfg, xc_mat, aa_mat):
+    fc = cfg.context_fields
+    (pi, pj), _, xc, aa = ffm_core.on_device(ffm_core.pair_split, (cfg,),
+                                             xc_mat.device)
+    pairs_xc = xc_mat[:, :, pi[xc], pj[xc] - fc]
+    pairs_aa = aa_mat[:, :, pi[aa] - fc, pj[aa] - fc]
+    return pairs_xc, pairs_aa
+
+
+def candidate_interactions(cfg, emb_ctx, val_ctx, ec, cand_val):
+    """Candidate-block pair columns from cached context partials.
+
+    emb_ctx: (R, Fc, F, K) cached context embeddings; val_ctx: (R, Fc);
+    ec: (R, N, Fcand, F, K) candidate embeddings; cand_val: (R, N, Fcand)
+    -> (pairs_xc (R, N, n_xc), pairs_aa (R, N, n_aa)) in the positions given
+    by ``ffm.pair_split(cfg)``.
+    """
+    fc = cfg.context_fields
+    xc_mat, aa_mat = ffm_candidate_matrices(
+        emb_ctx[:, :, fc:], val_ctx, ec[..., :fc, :], ec[..., fc:, :],
+        cand_val)
+    return _pair_columns(cfg, xc_mat, aa_mat)
+
+
+def candidate_interactions_q8(cfg, emb_ctx, val_ctx, qc, scale, zero,
+                              cand_val):
+    """Quantized-serving twin of :func:`candidate_interactions`: ``qc`` is
+    the int8 code block ``(R, N, Fcand, F, K)`` gathered from the
+    row-quantized table, ``scale``/``zero`` ``(R, N, Fcand)`` its grids."""
+    fc = cfg.context_fields
+    xc_mat, aa_mat = ffm_candidate_matrices_q8(
+        emb_ctx[:, :, fc:], val_ctx, qc[..., :fc, :], qc[..., fc:, :],
+        scale, zero, cand_val)
+    return _pair_columns(cfg, xc_mat, aa_mat)

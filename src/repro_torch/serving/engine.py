@@ -1,0 +1,691 @@
+"""Serving engine, staged path (port of ``repro/serving/engine.py``).
+
+One request is a context plus N candidates and yields N logits. The engine
+composes the paper's tricks in one scoring path:
+
+* **§5 context cache** — a prefix tree over ``(idx, val)`` field tokens
+  (:mod:`repro_torch.serving.prefix_cache`). A lookup reuses the deepest
+  cached prefix partial and only the context *tail* is computed, on the
+  device, with :func:`ffm.extend_context_prefix` (int8 tables gather their
+  tail rows through the row-gather kernel). Entries carry the weight
+  generation they were computed under.
+* **§5 candidate dedup** — :meth:`InferenceEngine.score_batch` scores each
+  unique ``(context, candidate)`` row of a microbatch once and scatters the
+  scores back per request.
+* **§5 hot loop** — with ``backend="cuda"`` the candidate pair columns come
+  from the candidate-block kernels (``kernels/ffm_interaction``), which
+  consume the cached context partials; ``backend="reference"`` computes them
+  with plain tensor code (the oracle path, as in the JAX engine).
+* **§6 quantized serving** — ``quantized=True`` keeps the embedding table as
+  int8 rows with per-row ``(scale, zero)`` grids and the LR table as blocked
+  int8; the candidate kernel dequantizes in registers, so the f32 candidate
+  block never exists in device memory.
+
+Candidate counts pad to power-of-two buckets and the requests of a
+microbatch stack into one forward. Host-side request bookkeeping (tokens,
+dedup, chunking, scatter-back) is numpy, exactly as in the JAX engine; the
+tables, cached states and all scoring arithmetic live on the device.
+
+Waiting for later slices: the fused path, the host pre-gather, the parallel
+span pipeline, the update pipe and weight publish, engine rotation, and
+``deadline_ms``.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.common.config import FFMConfig
+from repro_torch.common.device import DeviceLike, resolve_device
+from repro_torch.convert import to_device
+from repro_torch.core import deepffm, ffm
+from repro_torch.core import quantization as Q
+from repro_torch.serving.prefix_cache import PrefixCache, context_tokens
+
+
+# ---------------------------------------------------------------------------
+# Stats
+# ---------------------------------------------------------------------------
+
+@dataclass
+class ServeStats:
+    """Serving counters + a bounded window of per-request latencies.
+
+    ``candidates`` counts *requested* rows; ``rows_scored`` counts rows that
+    actually went through the forward after cross-request dedup (pre-padding).
+    ``ctx_partials_full`` counts contexts computed from scratch (no cached
+    prefix) and ``ctx_tail_fields`` the total context fields actually
+    computed.
+    """
+
+    requests: int = 0
+    candidates: int = 0
+    rows_scored: int = 0
+    seconds: float = 0.0
+    ctx_partials_full: int = 0
+    ctx_tail_fields: int = 0
+    latency_window: int = 4096
+    _latencies_s: Optional[deque] = field(default=None, repr=False)
+
+    def __post_init__(self):
+        self._latencies_s = deque(maxlen=self.latency_window)
+
+    def record(self, seconds: float, candidates: int, requests: int = 1) -> None:
+        self.requests += requests
+        self.candidates += candidates
+        self.seconds += seconds
+        # every request in a microbatch completes when the batch does, so the
+        # batch wall time is each request's latency; maxlen evicts the oldest
+        self._latencies_s.extend([seconds] * requests)
+
+    def merge(self, other: "ServeStats") -> None:
+        """Fold another accumulator into this one (one merge per
+        caller-visible batch, under the engine lock)."""
+        self.requests += other.requests
+        self.candidates += other.candidates
+        self.rows_scored += other.rows_scored
+        self.seconds += other.seconds
+        self.ctx_partials_full += other.ctx_partials_full
+        self.ctx_tail_fields += other.ctx_tail_fields
+        self._latencies_s.extend(other._latencies_s)
+
+    @property
+    def dedup_saved(self) -> int:
+        """Candidate rows the cross-request dedup avoided scoring."""
+        return self.candidates - self.rows_scored
+
+    @property
+    def predictions_per_s(self) -> float:
+        return self.candidates / max(self.seconds, 1e-9)
+
+    def latency_ms(self, pct: float) -> float:
+        snap = list(self._latencies_s)
+        if not snap:
+            return 0.0
+        return float(np.percentile(np.asarray(snap), pct) * 1e3)
+
+    @property
+    def p50_ms(self) -> float:
+        return self.latency_ms(50.0)
+
+    @property
+    def p95_ms(self) -> float:
+        return self.latency_ms(95.0)
+
+    @property
+    def p99_ms(self) -> float:
+        return self.latency_ms(99.0)
+
+
+# ---------------------------------------------------------------------------
+# Scoring plan
+# ---------------------------------------------------------------------------
+
+BACKENDS = ("reference", "cuda")
+
+
+class ScoringPlan:
+    """Request-independent scoring choices: the validated context/candidate
+    field split, the power-of-two candidate padding buckets, and the
+    backend. Built once per engine."""
+
+    def __init__(self, cfg: FFMConfig, model: str = "deepffm",
+                 backend: str = "cuda", min_bucket: int = 8):
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+        if not 1 <= cfg.context_fields < cfg.n_fields:
+            raise ValueError("context cache needs 1 <= context_fields < n_fields")
+        self.cfg, self.model, self.backend = cfg, model, backend
+        self.min_bucket = max(1, min_bucket)
+
+    def bucket(self, n: int, minimum: Optional[int] = None) -> int:
+        """Smallest power-of-two >= n (floored at ``min_bucket``)."""
+        b = max(1, self.min_bucket if minimum is None else minimum)
+        while b < n:
+            b *= 2
+        return b
+
+    def buckets_upto(self, n: int, minimum: Optional[int] = None) -> List[int]:
+        """All buckets the engine can emit for sizes in [1, n] — the closed
+        shape set :meth:`InferenceEngine.warmup` runs."""
+        out, b = [], self.bucket(1, minimum)
+        top = self.bucket(n, minimum)
+        while b <= top:
+            out.append(b)
+            b *= 2
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Scoring path
+# ---------------------------------------------------------------------------
+
+def compute_context(cfg: FFMConfig, params, ctx_idx: torch.Tensor,
+                    ctx_val: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Context-only pass (§5). ctx_idx/val: (Fc,). Returns the cacheable
+    partial in *prefix state* format (see ``ffm.extend_context_prefix``);
+    any prefix depth of the state is a pure slice of it."""
+    emb = params["ffm"]["emb"]
+    prefix = ffm.empty_context_prefix(cfg, ffm.table_dtype(emb),
+                                      ctx_idx.device)
+    return ffm.extend_context_prefix(cfg, emb, params["lr"]["w"], prefix,
+                                     ctx_idx, ctx_val)
+
+
+def _reference_candidate_pairs(cfg: FFMConfig, emb_ctx, val_ctx, ec, cand_val):
+    """ctx-cand / cand-cand pair columns from gathered f32 candidate rows —
+    the plain math of the reference backend."""
+    f0 = cfg.context_fields
+    (pi, pj), _, xc, aa = ffm.on_device(ffm.pair_split, (cfg,), ec.device)
+    # ctx-cand: pair (i ctx, j cand): dot(emb_ctx[i, j], ec[j-f0, i]) * v_i * v_j
+    exi = emb_ctx[:, pi[xc], pj[xc]]                  # (R, n_xc, k) ctx side
+    exj = ec[:, :, pj[xc] - f0, pi[xc]]               # (R, N, n_xc, k) cand side
+    vx = val_ctx[:, pi[xc]][:, None, :] * cand_val[:, :, pj[xc] - f0]
+    pairs_xc = torch.einsum("rxk,rnxk->rnx", exi, exj) * vx
+
+    # cand-cand
+    eai = ec[:, :, pi[aa] - f0, pj[aa]]               # (R, N, n_aa, k)
+    eaj = ec[:, :, pj[aa] - f0, pi[aa]]
+    va = cand_val[:, :, pi[aa] - f0] * cand_val[:, :, pj[aa] - f0]
+    pairs_aa = torch.einsum("rnxk,rnxk->rnx", eai, eaj) * va
+    return pairs_xc, pairs_aa
+
+
+def _finish_candidates(cfg: FFMConfig, model: str, params, cached,
+                       pairs_xc, pairs_aa, lr_cand):
+    """Assemble the canonical pair vector and run the model head.
+    ``lr_cand``: (R, N) candidate LR sums."""
+    r, n = lr_cand.shape
+    dev = lr_cand.device
+    _, cc, xc, aa = ffm.on_device(ffm.pair_split, (cfg,), dev)
+    perm = ffm.on_device(ffm.prefix_to_cc_perm, (cfg,), dev)
+    pairs_cc = cached["pairs"][:, perm]
+    lr_ctx = torch.sum(cached["lr_terms"], dim=-1)
+
+    vec = torch.zeros((r, n, cfg.n_pairs), dtype=pairs_aa.dtype, device=dev)
+    vec[:, :, cc] = pairs_cc[:, None, :].expand(r, n, cc.numel())
+    vec[:, :, xc] = pairs_xc
+    vec[:, :, aa] = pairs_aa
+
+    lr_out = lr_ctx[:, None] + lr_cand + params["lr"]["b"]
+    logits = deepffm.head_from_parts(
+        cfg, params, lr_out.reshape(-1), vec.reshape(r * n, cfg.n_pairs), model)
+    return logits.reshape(r, n)
+
+
+def batched_candidates_forward(cfg: FFMConfig, model: str, backend: str,
+                               params, cached, cand_idx: torch.Tensor,
+                               cand_val: torch.Tensor) -> torch.Tensor:
+    """Candidate completion for a stack of R request rows.
+
+    ``cached`` leaves carry a leading row axis R (stacked prefix states from
+    :func:`compute_context`); cand_idx/val: (R, N, F-Fc). Returns logits
+    (R, N). With ``backend == "cuda"`` the pair columns come from the
+    candidate kernels: an int8 table's codes are gathered as they are and
+    dequantized inside the kernel."""
+    emb = params["ffm"]["emb"]
+    emb_ctx, val_ctx = cached["emb"], cached["val"]
+
+    if backend == "cuda":
+        from repro_torch.kernels.ffm_interaction import ops as ffm_ops
+
+        if isinstance(emb, dict):  # int8 rows: gather codes, dequant in-kernel
+            qc = emb["codes"][cand_idx]
+            s = emb["scale"][cand_idx]
+            z = emb["zero"][cand_idx]
+            pairs_xc, pairs_aa = ffm_ops.candidate_interactions_q8(
+                cfg, emb_ctx, val_ctx, qc, s, z, cand_val)
+        else:
+            ec = emb[cand_idx]  # (R, N, Fcand, F, k)
+            pairs_xc, pairs_aa = ffm_ops.candidate_interactions(
+                cfg, emb_ctx, val_ctx, ec, cand_val)
+    else:
+        # gather_rows dequantizes right after the gather when emb is int8
+        ec = ffm.gather_rows(emb, cand_idx)               # (R, N, Fcand, F, k)
+        pairs_xc, pairs_aa = _reference_candidate_pairs(
+            cfg, emb_ctx, val_ctx, ec, cand_val)
+
+    lr_cand = torch.sum(ffm.gather_lr(params["lr"]["w"], cand_idx) * cand_val,
+                        dim=-1)
+    return _finish_candidates(cfg, model, params, cached,
+                              pairs_xc, pairs_aa, lr_cand)
+
+
+# ---------------------------------------------------------------------------
+# The engine
+# ---------------------------------------------------------------------------
+
+class InferenceEngine:
+    """Staged scoring path of the serving stack: prefix-sharing context cache
+    x cross-request candidate dedup x candidate kernels x bucketed request
+    batching, on one device.
+
+    * ``device`` — ``None`` means the card; pass ``"cpu"`` to run the plain
+      versions of the kernels (the tests do).
+    * ``backend`` — ``"cuda"`` (default) scores candidates through the
+      kernels; ``"reference"`` is the plain-tensor oracle path.
+    * ``prefix_stride`` / ``prefix_depths`` — checkpoint depths of the
+      prefix cache (``None`` stride: full-depth entries only).
+    * ``dedup`` — score each unique ``(context, candidate)`` row once per
+      microbatch and scatter results back per request.
+    * ``warmup_buckets`` — ``(max_requests, max_candidates)``; when given
+      (and params are installed) :meth:`warmup` runs at construction.
+    * ``quantized`` — serve from int8 tables: installed f32 params are
+      quantized on the host (bit-identical to the JAX package's tables) and
+      moved to the device.
+    """
+
+    def __init__(self, cfg: FFMConfig, model: str = "deepffm", *,
+                 backend: str = "cuda", params=None,
+                 device: DeviceLike = None,
+                 cache_entries: int = 4096, min_bucket: int = 8,
+                 prefix_stride: Optional[int] = 4, dedup: bool = True,
+                 warmup_buckets: Optional[Tuple[int, int]] = None,
+                 quantized: bool = False,
+                 prefix_depths: Optional[Sequence[int]] = None):
+        self.device = resolve_device(device)
+        self.plan = ScoringPlan(cfg, model, backend=backend,
+                                min_bucket=min_bucket)
+        self.cache_entries = cache_entries
+        self.dedup = dedup
+        self.quantized = quantized
+        self._weights: Tuple[Optional[Dict], int] = (  # guarded-by: _lock
+            self._maybe_quantize(params), 0)
+        self._cache = PrefixCache(  # guarded-by(calls): _lock
+            cfg.context_fields, cache_entries,
+            stride=prefix_stride, depths=prefix_depths)
+        self._lock = threading.Lock()  # cache structure + counters + weights
+        self.hits = 0    # guarded-by: _lock
+        self.misses = 0  # guarded-by: _lock
+        self.stats = ServeStats()  # guarded-by: _lock
+        if warmup_buckets is not None and params is not None:
+            self.warmup(max_requests=warmup_buckets[0],
+                        max_candidates=warmup_buckets[1])
+
+    # -- configuration passthroughs ----------------------------------------
+    @property
+    def cfg(self) -> FFMConfig:
+        return self.plan.cfg
+
+    @property
+    def model(self) -> str:
+        return self.plan.model
+
+    @property
+    def backend(self) -> str:
+        return self.plan.backend
+
+    @property
+    def params(self):
+        return self._weights[0]
+
+    @property
+    def generation(self) -> int:
+        return self._weights[1]
+
+    @property
+    def cache_hit_rate(self) -> float:
+        total = self.hits + self.misses
+        return self.hits / total if total else 0.0
+
+    @property
+    def resident_weight_bytes(self) -> int:
+        """Device bytes of the published weight tree — ~4x smaller with
+        ``quantized=True`` (emb: int8 codes + two f32 scalars per row; LR:
+        int8 codes + two f32 scalars per block)."""
+        def nbytes(node):
+            if isinstance(node, dict):
+                return sum(nbytes(v) for v in node.values())
+            if isinstance(node, torch.Tensor):
+                return node.numel() * node.element_size()
+            return 0
+
+        return nbytes(self.params)
+
+    # -- weight management ---------------------------------------------------
+    def _maybe_quantize(self, params):
+        """Move ``params`` to the engine's device and, on a quantized engine,
+        replace the f32 gather tables with int8 tables (a no-op for tables
+        that are already quantized)."""
+        if params is None:
+            return None
+        params = to_device(params, self.device)
+        if not self.quantized:
+            return params
+        return Q.quantize_params_rows(params)
+
+    def install_params(self, params) -> None:
+        """Swap the weight tree in place. The (params, generation) pair is
+        published atomically, so concurrent scorers see either the old or
+        the new version, never a mix."""
+        params = self._maybe_quantize(params)
+        with self._lock:  # serialize the generation bump
+            self._weights = (params, self._weights[1] + 1)
+
+    # -- context cache (§5, prefix tree) ------------------------------------
+    def _resolve_contexts(self, ctxs: List[Tuple[Tuple[bytes, ...],
+                                                 np.ndarray, np.ndarray]],
+                          params, generation: int
+                          ) -> Tuple[List[Dict], List[bool]]:
+        """Full-depth prefix states for each unique (tokens, idx, val)
+        context, plus a full-depth-hit flag per context.
+
+        Prefix-tree lookups find the deepest cached partial per context; the
+        remaining tails are computed on the device per miss group, one group
+        per distinct cached depth. Resolution runs in rounds so prefix
+        sharing works *within* a miss burst too: when several uncached
+        contexts share a checkpoint prefix, one representative per distinct
+        prefix is computed (and inserted) first, and the rest re-look-up in
+        the next round to reuse it.
+        """
+        fc = self.cfg.context_fields
+        with self._lock:
+            checkpoints = [d for d in self._cache.checkpoint_depths()
+                           if d < fc]
+        states: List[Optional[Dict]] = [None] * len(ctxs)
+        full_hit: List[bool] = [False] * len(ctxs)
+        emb, lr_w = params["ffm"]["emb"], params["lr"]["w"]
+        empty = ffm.empty_context_prefix(self.cfg, ffm.table_dtype(emb),
+                                         self.device)
+        ctx_idx = ctx_val = None  # uploaded once, on the first miss
+
+        pending = list(range(len(ctxs)))
+        first_round = True
+        while pending:
+            with self._lock:
+                looked = {i: self._cache.lookup(ctxs[i][0], generation)
+                          for i in pending}
+            claimed: set = set()
+            miss_groups: Dict[int, List[int]] = {}
+            deferred: List[int] = []
+            for i in pending:
+                depth, state = looked[i]
+                if depth == fc:
+                    # only possible in the first round: contexts are unique
+                    # within a burst, so later rounds never find a full match
+                    states[i] = state
+                    full_hit[i] = first_round
+                    with self._lock:
+                        self._cache.hit_depths[fc] += 1
+                    continue
+                above = [(d, ctxs[i][0][:d]) for d in checkpoints if d > depth]
+                if any(c in claimed for c in above):
+                    deferred.append(i)  # another context computes this prefix
+                else:
+                    claimed.update(above)
+                    miss_groups.setdefault(depth, []).append(i)
+            first_round = False
+
+            if miss_groups and ctx_idx is None:
+                ctx_idx = torch.from_numpy(
+                    np.stack([c[1] for c in ctxs])).to(self.device)
+                ctx_val = torch.from_numpy(
+                    np.stack([c[2] for c in ctxs])).to(self.device)
+            for depth, members in sorted(miss_groups.items()):
+                t = fc - depth
+                fresh = []
+                for i in members:
+                    base = (ffm.slice_context_prefix(looked[i][1], depth)
+                            if looked[i][1] is not None else empty)
+                    fresh.append(ffm.extend_context_prefix(
+                        self.cfg, emb, lr_w, base,
+                        ctx_idx[i, depth:], ctx_val[i, depth:]))
+                with self._lock:
+                    self.stats.ctx_partials_full += sum(
+                        1 for i in members if looked[i][0] == 0)
+                    self.stats.ctx_tail_fields += t * len(members)
+                    for i, state in zip(members, fresh):
+                        self._cache.hit_depths[depth] += 1
+                        states[i] = state
+                        self._cache.insert(ctxs[i][0], generation, state)
+            pending = deferred
+        return states, full_hit
+
+    # -- scoring ------------------------------------------------------------
+    def _require_params(self):
+        if self.params is None:
+            raise RuntimeError("no weights yet — install_params first")
+
+    def _check_indices(self, *arrays: np.ndarray) -> None:
+        """Feature indices arrive from outside the program; an out-of-range
+        one would fault a gather on the card, so refuse it on the host."""
+        v = self.cfg.hash_space
+        for a in arrays:
+            if a.size and (a.min() < 0 or a.max() >= v):
+                raise ValueError(f"feature index out of range [0, {v})")
+
+    def score(self, ctx_idx, ctx_val, cand_idx, cand_val) -> np.ndarray:
+        """Score one request's candidates against its context. Returns logits (N,)."""
+        return self.score_batch([(ctx_idx, ctx_val, cand_idx, cand_val)])[0]
+
+    def score_batch(self, requests: Sequence[Tuple]) -> List[np.ndarray]:
+        """Microbatch several (ctx_idx, ctx_val, cand_idx, cand_val) requests.
+
+        Contexts are resolved through the prefix cache; identical
+        ``(context, candidate)`` rows across the microbatch are scored once
+        and scattered back (``dedup=True``). The scored rows are padded to
+        one power-of-two candidate bucket and a power-of-two row axis, so the
+        whole batch is one forward over a closed set of shapes. Scores are
+        computed against exactly one atomically published (params,
+        generation) snapshot.
+        """
+        self._require_params()
+        if not requests:
+            return []
+        t0 = time.perf_counter()
+        params, generation = self._weights
+
+        fcand = self.cfg.n_fields - self.cfg.context_fields
+
+        def slate(a, dtype):
+            # normalize empty slates (any shape) to (0, Fcand) so empty and
+            # non-empty requests concatenate in one microbatch; anything
+            # non-empty must already be (N, Fcand)
+            a = np.asarray(a, dtype)
+            if a.size == 0:
+                return a.reshape(0, fcand)
+            if a.ndim != 2 or a.shape[1] != fcand:
+                raise ValueError(
+                    f"candidate slate must be (N, {fcand}), got {a.shape}")
+            return a
+
+        reqs = [(np.asarray(ci, np.int32), np.asarray(cv, np.float32),
+                 slate(ki, np.int32), slate(kv, np.float32))
+                for ci, cv, ki, kv in requests]
+        fc = self.cfg.context_fields
+        for ci, cv, ki, _ in reqs:
+            if ci.shape != (fc,) or cv.shape != (fc,):
+                raise ValueError(f"context must be ({fc},), got {ci.shape}")
+            self._check_indices(ci, ki)
+
+        # unique contexts across the microbatch
+        u_of: List[int] = []
+        u_index: Dict[Tuple[bytes, ...], int] = {}
+        u_ctxs: List[Tuple[Tuple[bytes, ...], np.ndarray, np.ndarray]] = []
+        for ci, cv, ki, kv in reqs:
+            toks = context_tokens(ci, cv)
+            u = u_index.get(toks)
+            if u is None:
+                u = u_index[toks] = len(u_ctxs)
+                u_ctxs.append((toks, ci, cv))
+            u_of.append(u)
+
+        states, full_hit = self._resolve_contexts(u_ctxs, params, generation)
+        # hit/miss bookkeeping matches the flat cache: first request of an
+        # uncached context is the miss, every other request this batch (and
+        # every full-depth match) is a hit
+        seen_full = dict(enumerate(full_hit))
+        with self._lock:
+            for u in u_of:
+                if seen_full[u]:
+                    self.hits += 1
+                else:
+                    self.misses += 1
+                    seen_full[u] = True
+
+        # candidate rows: dedup identical (context, candidate) pairs across
+        # requests, or keep one row-group per request
+        if self.dedup:
+            group_of_req = u_of
+            n_groups = len(u_ctxs)
+            group_state = states
+        else:
+            group_of_req = list(range(len(reqs)))
+            n_groups = len(reqs)
+            group_state = [states[u] for u in u_of]
+        counts = np.asarray([r[2].shape[0] for r in reqs], np.int64)
+        total = int(counts.sum())
+        if total == 0:  # every request carried an empty slate
+            with self._lock:
+                self.stats.record(time.perf_counter() - t0, 0,
+                                  requests=len(reqs))
+            return [np.zeros((0,), np.float32) for _ in reqs]
+        group_of_row = np.repeat(np.asarray(group_of_req, np.int64), counts)
+        ki_all = np.concatenate([r[2] for r in reqs])      # (total, Fcand)
+        kv_all = np.concatenate([r[3] for r in reqs])
+        if self.dedup:
+            # packed-array dedup: one contiguous (group | idx | val-bits)
+            # int32 matrix viewed as void rows for np.unique
+            mat = np.empty((total, 1 + 2 * fcand), np.int32)
+            mat[:, 0] = group_of_row
+            mat[:, 1:1 + fcand] = ki_all
+            mat[:, 1 + fcand:] = kv_all.view(np.int32)
+            packed = np.ascontiguousarray(mat).view(
+                np.dtype((np.void, mat.itemsize * mat.shape[1])))[:, 0]
+            _, first, inverse = np.unique(packed, return_index=True,
+                                          return_inverse=True)
+        else:
+            first = inverse = np.arange(total)
+        u_group = group_of_row[first]
+        n_rows = int(first.size)
+
+        # a dedup group unions candidates from several requests and can exceed
+        # the per-request bucket; chunk groups to the request-level bucket so
+        # padded work never exceeds the no-dedup layout and the shape set
+        # stays the closed per-request one (see warmup)
+        nb = self.plan.bucket(int(counts.max()))
+        order = np.argsort(u_group, kind="stable")
+        gcounts = np.bincount(u_group, minlength=n_groups)
+        gstarts = np.concatenate([[0], np.cumsum(gcounts)[:-1]])
+        pos = np.empty(n_rows, np.int64)  # rank of each unique row in its group
+        pos[order] = np.arange(n_rows) - np.repeat(gstarts, gcounts)
+        chunks_per_g = -(-gcounts // nb)
+        chunk_base = np.concatenate([[0], np.cumsum(chunks_per_g)[:-1]])
+        n_chunks = int(chunks_per_g.sum())
+        row_of_u = chunk_base[u_group] + pos // nb
+        slot_of_u = pos % nb
+
+        # (rb, nb, Fcand) candidate blocks padded to the power-of-two row
+        # bucket; padded rows and slots are inert (their outputs are never read)
+        rb = self.plan.bucket(n_chunks, minimum=1)
+        ki_c = np.zeros((rb, nb, fcand), np.int32)
+        kv_c = np.zeros((rb, nb, fcand), np.float32)
+        ki_c[row_of_u, slot_of_u] = ki_all[first]
+        kv_c[row_of_u, slot_of_u] = kv_all[first]
+        chunk_group = np.repeat(np.arange(n_groups), chunks_per_g)
+        stacked = self._stack_states([group_state[g] for g in chunk_group], rb)
+        out = self._candidates_forward(params, stacked, ki_c, kv_c)
+        out = out.cpu().numpy()[:n_chunks]
+        # plain numpy scatter-back
+        flat = out[row_of_u[inverse], slot_of_u[inverse]]
+        offs = np.concatenate([[0], np.cumsum(counts)])
+        results = [flat[offs[i]:offs[i + 1]] for i in range(len(reqs))]
+        batch_stats = ServeStats()
+        batch_stats.rows_scored = n_rows
+        batch_stats.record(time.perf_counter() - t0, total, requests=len(reqs))
+        with self._lock:
+            self.stats.merge(batch_stats)
+        return results
+
+    def _stack_states(self, chunk_state: List[Dict], rb: int) -> Dict:
+        """Stack per-chunk prefix states along a new row axis, zero-padded to
+        ``rb`` rows."""
+        pad = rb - len(chunk_state)
+        out = {}
+        for key in chunk_state[0]:
+            x = torch.stack([s[key] for s in chunk_state])
+            if pad:
+                x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+            out[key] = x
+        return out
+
+    def _candidates_forward(self, params, stacked, ki_b: np.ndarray,
+                            kv_b: np.ndarray) -> torch.Tensor:
+        """One padded candidate block through :func:`batched_candidates_forward`."""
+        return batched_candidates_forward(
+            self.cfg, self.model, self.backend, params, stacked,
+            torch.from_numpy(ki_b).to(self.device),
+            torch.from_numpy(kv_b).to(self.device))
+
+    def _warmup_dummies(self, rb: int, nb: int):
+        """Dummy (cached-state, cand-idx, cand-val) arguments for one
+        (row-bucket, candidate-bucket) shape."""
+        cfg = self.cfg
+        fc, fcand = cfg.context_fields, cfg.n_fields - cfg.context_fields
+        emb_dt = ffm.table_dtype(self.params["ffm"]["emb"])
+
+        def zeros(*shape, dt=torch.float32):
+            return torch.zeros(shape, dtype=dt, device=self.device)
+
+        cached = {
+            "emb": zeros(rb, fc, cfg.n_fields, cfg.k, dt=emb_dt),
+            "val": zeros(rb, fc),
+            "pairs": zeros(rb, ffm.prefix_pair_count(fc)),
+            "lr_terms": zeros(rb, fc),
+        }
+        return (cached, np.zeros((rb, nb, fcand), np.int32),
+                np.zeros((rb, nb, fcand), np.float32))
+
+    def warmup(self, *, max_requests: int = 8, max_candidates: int = 64) -> int:
+        """Run every (row-bucket, candidate-bucket) shape the engine can
+        emit for microbatches of up to ``max_requests`` requests with up to
+        ``max_candidates`` candidates each, so the kernel build and every
+        first launch happen before traffic. Returns the number of calls."""
+        self._require_params()
+        params, _ = self._weights
+        calls = 0
+        for rb in self.plan.buckets_upto(max_requests, minimum=1):
+            for nb in self.plan.buckets_upto(max_candidates):
+                self._candidates_forward(params, *self._warmup_dummies(rb, nb))
+                calls += 1
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return calls
+
+    def score_uncached(self, ctx_idx, ctx_val, cand_idx, cand_val,
+                       use_backend: bool = False) -> torch.Tensor:
+        """Baseline: full forward per candidate (context recomputed each time).
+
+        ``use_backend=True`` routes the interaction hot loop through the
+        interaction kernel when the backend is ``"cuda"``; the default stays
+        on the plain path so it can serve as the equivalence oracle. On a
+        quantized engine this scores against the *quantized* tables (rows
+        dequantized per gather) — the roundtrip oracle for the quantized
+        cached path. Returns logits (N,) on the engine's device.
+        """
+        self._require_params()
+        ci = np.asarray(ctx_idx, np.int32)
+        ki = np.asarray(cand_idx, np.int32)
+        self._check_indices(ci, ki)
+        n = ki.shape[0]
+        fc = self.cfg.context_fields
+        idx = np.concatenate([np.broadcast_to(ci, (n, fc)), ki], axis=1)
+        val = np.concatenate(
+            [np.broadcast_to(np.asarray(ctx_val, np.float32), (n, fc)),
+             np.asarray(cand_val, np.float32)], axis=1)
+        interactions_fn = None
+        if use_backend and self.backend == "cuda":
+            from repro_torch.kernels.ffm_interaction import ops as ffm_ops
+
+            interactions_fn = ffm_ops.interactions
+        return deepffm.forward(
+            self.cfg, self.params,
+            torch.from_numpy(idx).to(self.device),
+            torch.from_numpy(val).to(self.device),
+            self.model, interactions_fn=interactions_fn)

@@ -1,0 +1,149 @@
+"""Rules the port keeps (checked on the CPU).
+
+* ``src/repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor the
+  JAX package ``repro``;
+* the port's ``FFMConfig`` equals ``repro.common.config.FFMConfig`` field
+  for field;
+* the card is the default: an entry point without ``device`` raises when
+  CUDA is absent;
+* every kernel wrapper sends CPU tensors to its plain version and counts no
+  launch.
+"""
+import ast
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro.common.config import FFMConfig as JFFMConfig
+from repro_torch.common.config import FFMConfig
+from repro_torch.common.device import resolve_device
+from repro_torch.core import deepffm
+from repro_torch.kernels import _build
+from repro_torch.kernels.ffm_interaction import ops as fi_ops
+from repro_torch.kernels.ffm_interaction import ref as fi_ref
+from repro_torch.kernels.row_gather import ops as rg_ops
+from repro_torch.kernels.row_gather import ref as rg_ref
+from repro_torch.serving.engine import InferenceEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_port_imports_neither_jax_nor_repro(path):
+    bad = {m for m in _imported_roots(path) if m in ("jax", "jaxlib", "repro")}
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_port_file_list_is_complete():
+    names = {p.relative_to(ROOT / "src").as_posix() for p in PORT_FILES[:-1]}
+    for mod in ("repro_torch/common/config.py", "repro_torch/common/device.py",
+                "repro_torch/common/pspec.py", "repro_torch/convert.py",
+                "repro_torch/core/quantization.py", "repro_torch/core/ffm.py",
+                "repro_torch/core/deepffm.py", "repro_torch/kernels/_build.py",
+                "repro_torch/kernels/row_gather/ops.py",
+                "repro_torch/kernels/ffm_interaction/ops.py",
+                "repro_torch/serving/prefix_cache.py",
+                "repro_torch/serving/engine.py"):
+        assert mod in names
+    sources = {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu")}
+    assert sources == {"row_gather.cu", "ffm_interaction.cu"}
+
+
+@pytest.mark.parametrize("kw", [{}, {"n_fields": 8, "context_fields": 5,
+                                     "hash_space": 2**10, "k": 4,
+                                     "mlp_hidden": (16, 8)}])
+def test_ffm_config_matches_reference(kw):
+    ours, theirs = dataclasses.fields(FFMConfig), dataclasses.fields(JFFMConfig)
+    assert [(f.name, f.type, f.default) for f in ours] == \
+        [(f.name, f.type, f.default) for f in theirs]
+    assert dataclasses.asdict(FFMConfig(**kw)) == \
+        dataclasses.asdict(JFFMConfig(**kw))
+    assert FFMConfig(**kw).n_pairs == JFFMConfig(**kw).n_pairs
+
+
+def test_card_is_the_default():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves")
+    cfg = FFMConfig(n_fields=8, context_fields=5, hash_space=2**10, k=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceEngine(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        deepffm.init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _cases():
+    rng = np.random.default_rng(0)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    codes = t(rng.integers(-127, 128, (40, 6, 4)).astype(np.int8))
+    scale = t(rng.uniform(1e-3, 1e-2, 40).astype(np.float32))
+    zero = t(rng.normal(0, 0.05, 40).astype(np.float32))
+    idx = t(rng.integers(0, 40, (3, 5)).astype(np.int32))
+    ectx = t(rng.normal(size=(2, 4, 2, 4)).astype(np.float32))
+    vctx = t(rng.normal(size=(2, 4)).astype(np.float32))
+    vcand = t(rng.normal(size=(2, 3, 2)).astype(np.float32))
+    ecx = t(rng.normal(size=(2, 3, 2, 4, 4)).astype(np.float32))
+    ecc = t(rng.normal(size=(2, 3, 2, 2, 4)).astype(np.float32))
+    qcx = t(rng.integers(-127, 128, (2, 3, 2, 4, 4)).astype(np.int8))
+    qcc = t(rng.integers(-127, 128, (2, 3, 2, 2, 4)).astype(np.int8))
+    grid = (t(rng.uniform(1e-3, 1e-2, (2, 3, 2)).astype(np.float32)),
+            t(rng.normal(0, 0.05, (2, 3, 2)).astype(np.float32)))
+    e = t(rng.normal(size=(3, 5, 5, 4)).astype(np.float32))
+    v = t(rng.normal(size=(3, 5)).astype(np.float32))
+    return {
+        "gather_dequant_rows_q8": (rg_ops.gather_dequant_rows_q8,
+                                   rg_ref.gather_dequant_rows_q8_ref,
+                                   (codes, scale, zero, idx)),
+        "ffm_candidate_matrices": (fi_ops.ffm_candidate_matrices,
+                                   fi_ref.ffm_candidate_matrices_ref,
+                                   (ectx, vctx, ecx, ecc, vcand)),
+        "ffm_candidate_matrices_q8": (fi_ops.ffm_candidate_matrices_q8,
+                                      fi_ref.ffm_candidate_matrices_q8_ref,
+                                      (ectx, vctx, qcx, qcc, *grid, vcand)),
+        "ffm_interaction_matrix": (fi_ops.ffm_interaction_matrix,
+                                   fi_ref.ffm_interaction_matrix_ref, (e, v)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_cpu_tensors_take_the_plain_version(name, monkeypatch):
+    """On CPU tensors a wrapper returns its plain version's result, never
+    builds the library and counts no launch."""
+    def no_build():
+        raise AssertionError("the CUDA library was asked for on CPU tensors")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    wrapper, plain, args = _cases()[name]
+    before = dict(_build.launches)
+    got, want = wrapper(*args), plain(*args)
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(g, w)
+    assert _build.launches == before
+
+
+def test_build_command_targets_sm90a():
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
+    assert _build.BUILD_DIR.relative_to(ROOT).as_posix() + "/" in \
+        (ROOT / ".gitignore").read_text().split()
