@@ -11,16 +11,26 @@ Phases, each of which raises on failure (nothing is caught):
    with ptxas' register / shared-memory / spill lines per kernel.
 2. Every kernel against its plain PyTorch version on the same CUDA tensors
    at the shapes the main path gives it, with its time, its bound and the
-   plain version's time.
-3. The main path at full width (``FFMConfig()``, V = 2^18, DeepFFM, random
-   weights from a seed): an int8 and an f32 ``InferenceEngine`` with
-   ``backend="cuda"`` warm up and answer 4 microbatches of 8 requests with
-   16-64 candidates each, then ``score_uncached(use_backend=True)`` runs on
-   every request. Every score must match ``score_uncached(use_backend=False)``
-   within rtol 2e-4, atol 2e-5, and every kernel's launch counter must have
-   risen during the run.
-4. Where the time goes: one more microbatch per engine under torch.profiler
-   (kernels launched, device-busy time against wall time, top kernels).
+   plain version's time; then the kernels' general paths (K != 8, ragged
+   tiles, rows without candidates) and the fused kernels' bit-invariance
+   across row and candidate buckets.
+3. The main paths at full width (``FFMConfig()``, V = 2^18, random weights
+   from a seed), all driven by the same microbatches (4 of 8 requests with
+   16-64 candidates each):
+   - staged: an int8 and an f32 DeepFFM ``InferenceEngine`` with
+     ``backend="cuda"`` answer the microbatches, then
+     ``score_uncached(use_backend=True)`` runs on every request. Every score
+     must match ``score_uncached(use_backend=False)`` within rtol 2e-4,
+     atol 2e-5.
+   - fused: an int8 and an f32 ``"ffm"`` engine with ``fused=True`` answer
+     them, each within ``quantization.fused_logit_tolerance`` of its staged
+     ``"ffm"`` twin on the same params; each microbatch must launch the
+     fused kernel once and neither candidate-matrix kernel; a second pass
+     over the last microbatch's contexts must hit the cache at full depth.
+   Every kernel's launch counter must have risen during these runs.
+4. Where the time goes: one more microbatch per engine (and per staged
+   ``"ffm"`` twin) under torch.profiler (kernels launched, device-busy time
+   against wall time, top kernels).
 
 The second-to-last lines are the kernels' JSON record and the nvidia-smi
 line; the last line is ``{"ok": true, "device": {...}}``. Without a card (or
@@ -60,27 +70,34 @@ def bound(bytes_moved: float, flops: float):
                                        else "operations")
 
 
+def make_slate(cfg, rng, n):
+    """(cand_idx, cand_val) of n candidates: the last two candidate fields
+    are numeric (log-transformed values), the rest categorical."""
+    import numpy as np
+
+    fcand = cfg.n_fields - cfg.context_fields
+    ki = rng.integers(0, cfg.hash_space, (n, fcand)).astype(np.int32)
+    kv = np.ones((n, fcand), np.float32)
+    kv[:, -2:] = np.log1p(rng.lognormal(0.0, 1.0, (n, 2)))
+    return ki, kv
+
+
 def make_traffic(cfg, rng, n_batches=4, per_batch=8, lo=16, hi=64):
     """Microbatches of (ctx_idx, ctx_val, cand_idx, cand_val) requests.
 
     Contexts come from three base contexts with a varied tail (so the prefix
     cache hits at checkpoint depths and, across batches, at full depth);
     every fourth request repeats the previous request's context and half of
-    its slate (so dedup fires). The last two candidate fields are numeric
-    (log-transformed values), the rest categorical."""
+    its slate (so dedup fires). Slates come from :func:`make_slate`."""
     import numpy as np
 
     fc = cfg.context_fields
-    fcand = cfg.n_fields - fc
     v = cfg.hash_space
     bases = [rng.integers(0, v, fc).astype(np.int32) for _ in range(3)]
     cuts = [fc] + [d for d in (12, 8, 4) if d < fc]
 
     def slate(n):
-        ki = rng.integers(0, v, (n, fcand)).astype(np.int32)
-        kv = np.ones((n, fcand), np.float32)
-        kv[:, -2:] = np.log1p(rng.lognormal(0.0, 1.0, (n, 2)))
-        return ki, kv
+        return make_slate(cfg, rng, n)
 
     batches = []
     for _ in range(n_batches):
@@ -122,7 +139,7 @@ def where_the_time_goes(name, eng, batch, smi, top=6):
     if not kern:
         print(f"time {name}: device time not measured (the profiler saw no "
               f"kernel); wall {wall_ms:.3f} ms | {smi}")
-        return
+        return None
     by_name = {}
     for e in kern:
         n, t = by_name.get(e.name, (0, 0.0))
@@ -133,6 +150,7 @@ def where_the_time_goes(name, eng, batch, smi, top=6):
           f"({100 * dev_ms / wall_ms:.1f}% of wall) | {smi}")
     for kname, (n, t) in ranked:
         print(f"  {t:.4f} ms in {n} launches: {kname[:90]}")
+    return len(kern)
 
 
 def main(argv=None) -> int:
@@ -157,6 +175,7 @@ def main(argv=None) -> int:
     from repro_torch.common import device as device_mod
     from repro_torch.common.config import FFMConfig
     from repro_torch.core import deepffm
+    from repro_torch.core import quantization as Q
     from repro_torch.kernels import _build
     from repro_torch.kernels.ffm_interaction import ops as fi_ops
     from repro_torch.kernels.ffm_interaction import ref as fi_ref
@@ -192,7 +211,8 @@ def main(argv=None) -> int:
         print("  dynamic shared memory per block at main-path shapes: "
               f"gather_dequant_rows_q8 0 B, ffm_candidate_matrices(_q8) "
               f"{(fc_ * (f_ - fc_) * k_ + fc_) * 4} B, ffm_interaction_matrix "
-              f"{(f_ * f_ * k_ + f_) * 4} B")
+              f"{(f_ * f_ * k_ + f_) * 4} B, ffm_fused_logits_(q8|rows) "
+              f"{(fc_ * (f_ * k_ + 4) + fc_ + 4) * 4} B")
     else:
         print("card: none (CPU rehearsal: plain versions, no timings)")
 
@@ -290,11 +310,14 @@ def main(argv=None) -> int:
                "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": device_ms(library) if library else None,
                "call_ms": call_ms(fn), "plain_call_ms": call_ms(plain),
-               "shape": shape, "tolerance": tol}
+               "bytes": bytes_moved, "shape": shape, "tolerance": tol}
         kernels.append(rec)
+        rate = ("not measured" if rec["ms"] is None
+                else f"{bytes_moved / rec['ms'] / 1e6:.1f} GB/s")
         print(f"kernel {name} {shape}: max abs err {err:.3e} (tol {tol}) | "
               f"device {rec['ms']} ms, per call {rec['call_ms']} ms | plain "
-              f"{rec['plain_ms']} ms | bound {b_ms:.3e} ms ({b_by})")
+              f"{rec['plain_ms']} ms | {bytes_moved} bytes ({rate}) | bound "
+              f"{b_ms:.3e} ms ({b_by})")
 
     # K1: the gather of score_uncached's (N, F) feature block (context tails
     # gather up to Fc rows through the same kernel)
@@ -362,9 +385,72 @@ def main(argv=None) -> int:
         [n_cand, f, k],
         library=lambda: torch.einsum("bijk,bjik,bi,bj->bij", e4, e4, v4, v4))
 
+    # K5/K6: one (rb=8, nb=64) bucket of the fused forward with mixed cached
+    # prefix depths (0 and Fc among them); the context and candidate column
+    # halves are views of one gathered block, as the engine passes them.
+    # Bytes: every input read once, logits and ctx_dots written once. Ops:
+    # the ctx pair matrix once per row, per candidate the ctx x cand and
+    # ic < jc cand x cand terms (int8 dot and code-sum ops counted as f32
+    # operations, so the bound is if anything high)
+    depth = torch.randint(0, fc + 1, (r_rows,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    depth[0], depth[1] = 0, fc
+    base = randn(r_rows, n_cand, scale=0.5)
+    n_aa = fcand * (fcand - 1) // 2
+    fused_io = (r_rows * (fc * f * k + fc + 1 + fc * fc) * 4
+                + r_rows * n_cand * 2 * 4 + rnc * 4)
+
+    def fused_flops(q8):
+        per_cand = (fc * fcand * (2 * k + 3 + (k + 3 if q8 else 0))
+                    + n_aa * (2 * k + 3 + (4 * k + 10 if q8 else 0)) + 3)
+        return r_rows * fc * fc * (2 * k + 3) + r_rows * n_cand * per_cand
+
+    args_k5 = (emb_ctx, val_ctx, depth, base, qc[..., :fc, :],
+               qc[..., fc:, :], qs, qz, vcand)
+    kernel_case(
+        "ffm_fused_logits_q8", "src/repro_torch/csrc/ffm_fused_logits.cu",
+        "src/repro/kernels/ffm_interaction/ffm_interaction.py:268",
+        lambda: fi_ops.ffm_fused_logits_q8(*args_k5),
+        lambda: fi_ref.ffm_fused_logits_q8_ref(*args_k5), (1e-5, 1e-5),
+        fused_io + rnc * (f * k + 8), fused_flops(True),
+        [r_rows, n_cand, fc, fcand, k])
+    args_k6 = (emb_ctx, val_ctx, depth, base, ec[..., :fc, :],
+               ec[..., fc:, :], vcand)
+    kernel_case(
+        "ffm_fused_logits_rows", "src/repro_torch/csrc/ffm_fused_logits.cu",
+        "src/repro/kernels/ffm_interaction/ffm_interaction.py:307",
+        lambda: fi_ops.ffm_fused_logits_rows(*args_k6),
+        lambda: fi_ref.ffm_fused_logits_rows_ref(*args_k6), (1e-5, 1e-5),
+        fused_io + rnc * f * k * 4, fused_flops(False),
+        [r_rows, n_cand, fc, fcand, k])
+    # a row's logits depend on neither the row bucket nor the candidate
+    # bucket (fixed-order sums, no atomics): fewer rows, fewer candidates
+    # and the full bucket agree bit for bit
+    def first_candidates(x, n):
+        # candidate blocks stay strided views; the wrapper wants the
+        # per-candidate scalars contiguous
+        return x[:, :n] if x.dim() == 5 else x[:, :n].contiguous()
+
+    # (the plain versions' CPU reductions may reorder with the shape, so the
+    # rehearsal holds them to 1e-6 instead)
+    same = (torch.equal if on_card
+            else lambda x, y: allclose(x, y, 1e-6, 1e-6))
+    for fn, a in ((fi_ops.ffm_fused_logits_q8, args_k5),
+                  (fi_ops.ffm_fused_logits_rows, args_k6)):
+        # args: three per-row tensors, then base and the candidate blocks
+        full, full_d = fn(*a)
+        rows, rows_d = fn(*[x[:3] for x in a])
+        cut, cut_d = fn(*a[:3], *[first_candidates(x, 37) for x in a[3:]])
+        check(same(rows, full[:3]) and same(rows_d, full_d[:3])
+              and same(cut, full[:, :37]) and same(cut_d, full_d),
+              f"{fn.__name__}: logits change with the row or candidate bucket")
+    print("kernel ffm_fused_logits_(q8|rows): rows [:3] and candidates [:37] "
+          "agree with the full bucket's"
+          + (" bit for bit" if on_card else " (plain versions, 1e-6)"))
+
     # the kernels' general paths, off the main path's shapes: rows that are
-    # not a multiple of 16 bytes (K1's byte loop) and K != 8 (K2/K3/K4's
-    # runtime-K loop)
+    # not a multiple of 16 bytes (K1's byte loop) and K != 8 (K2/K3/K4/K5/K6's
+    # runtime-K loop, with a ragged candidate tile)
     idx_e = torch.randint(0, 50, (7, 3), generator=gen, device=dev,
                           dtype=torch.int32)
     tbl_e = (codes(50, 3, 5), uniform(1e-3, 1e-2, 50), randn(50, scale=0.05))
@@ -376,6 +462,8 @@ def main(argv=None) -> int:
     ec_e, vc_e = randn(2, 7, fe - fce, fe, ke), uniform(0.5, 1.5, 2, 7, fe - fce)
     qc_e = codes(2, 7, fe - fce, fe, ke)
     qg_e = (uniform(1e-3, 1e-2, 2, 7, fe - fce), randn(2, 7, fe - fce, scale=0.05))
+    depth_e = torch.tensor([fce, 2], dtype=torch.int32, device=dev)
+    base_e = randn(2, 7)
     for fn, plain, a in (
             (fi_ops.ffm_candidate_matrices, fi_ref.ffm_candidate_matrices_ref,
              (ctx_e[:, :, fce:], val_e, ec_e[..., :fce, :], ec_e[..., fce:, :],
@@ -385,10 +473,26 @@ def main(argv=None) -> int:
              (ctx_e[:, :, fce:], val_e, qc_e[..., :fce, :], qc_e[..., fce:, :],
               *qg_e, vc_e)),
             (fi_ops.ffm_interaction_matrix, fi_ref.ffm_interaction_matrix_ref,
-             (randn(5, fe, fe, ke), uniform(0.5, 1.5, 5, fe)))):
+             (randn(5, fe, fe, ke), uniform(0.5, 1.5, 5, fe))),
+            (fi_ops.ffm_fused_logits_q8, fi_ref.ffm_fused_logits_q8_ref,
+             (ctx_e, val_e, depth_e, base_e, qc_e[..., :fce, :],
+              qc_e[..., fce:, :], *qg_e, vc_e)),
+            (fi_ops.ffm_fused_logits_rows, fi_ref.ffm_fused_logits_rows_ref,
+             (ctx_e, val_e, depth_e, base_e, ec_e[..., :fce, :],
+              ec_e[..., fce:, :], vc_e))):
         check(allclose(fn(*a), plain(*a), 1e-5, 1e-5),
               f"{fn.__name__} (K={ke}) disagrees: {max_err(fn(*a), plain(*a))}")
-    print("kernels' general paths (byte rows, K=4): agree with plain versions")
+    # rows without candidates still get their ctx pair matrix
+    no_cand = (ctx_e, val_e, depth_e, base_e[:, :0], qc_e[:, :0, :, :fce],
+               qc_e[:, :0, :, fce:], qg_e[0][:, :0], qg_e[1][:, :0],
+               vc_e[:, :0])
+    got, want = (fi_ops.ffm_fused_logits_q8(*no_cand),
+                 fi_ref.ffm_fused_logits_q8_ref(*no_cand))
+    check(got[0].shape == (2, 0) and allclose(got[1], want[1], 1e-5, 1e-5),
+          f"ffm_fused_logits_q8 (N=0): ctx_dots max abs err "
+          f"{max_err(got[1], want[1])}")
+    print("kernels' general paths (byte rows, K=4, ragged tiles, N=0): agree "
+          "with plain versions")
 
     # -- phase 3: the main path at full width --------------------------------
     t0 = time.perf_counter()
@@ -468,11 +572,97 @@ def main(argv=None) -> int:
             print(f"engine {name}: p50 {st.p50_ms:.3f} ms per microbatch, "
                   f"p99 {st.p99_ms:.3f} ms, {st.predictions_per_s:.0f} "
                   f"predictions/s | {smi}")
+
+    # -- phase 3, fused path: "ffm" engines with fused=True beside their
+    # staged twins on the same params (the oracle: their launches are not
+    # part of the main-path counts) --------------------------------------
+    t0 = time.perf_counter()
+    fparams = deepffm.init_params(cfg, args.seed + 1, "ffm", dev)
+    fparams["lr"]["w"] = randn(v, scale=0.1)
+    fused = {}
+    for name, quant in (("int8-fused", True), ("f32-fused", False)):
+        fused[name] = (
+            InferenceEngine(cfg, "ffm", params=fparams, device=dev,
+                            quantized=quant, fused=True),
+            InferenceEngine(cfg, "ffm", backend="cuda", params=fparams,
+                            device=dev, quantized=quant))
+        for eng in fused[name]:
+            eng.warmup(max_requests=r_rows, max_candidates=n_cand)
+    print(f"fused path: \"ffm\" engines and staged twins built and warmed in "
+          f"{time.perf_counter() - t0:.1f} s")
+    absmax = float(fparams["ffm"]["emb"].abs().max())
+    # the second pass: the last microbatch's contexts again, fresh slates
+    last_ctxs = list({(ci.tobytes(), cv.tobytes()): (ci, cv)
+                      for ci, cv, _, _ in batches[-1]}.values())
+    slate_rng = np.random.default_rng(args.seed + 1)
+    second = [(ci, cv, *make_slate(cfg, slate_rng, 24)) for ci, cv in last_ctxs]
+    for name, (eng, twin) in fused.items():
+        kname = ("ffm_fused_logits_q8" if eng.quantized
+                 else "ffm_fused_logits_rows")
+        first_label = f"{name} score_batch x{len(batches)}"
+        second_label = f"{name} second pass"
+        got = run_phase(first_label,
+                        lambda eng=eng: [eng.score_batch(mb) for mb in batches])
+        eng.prefix_hit_depths.clear()
+        got.append(run_phase(second_label,
+                             lambda eng=eng: eng.score_batch(second)))
+        hit = dict(eng.prefix_hit_depths)
+        check(hit == {fc: len(last_ctxs)},
+              f"{name}: second pass hit depths {hit}, want "
+              f"{{{fc}: {len(last_ctxs)}}}")
+        for label, n_mb in ((first_label, len(batches)), (second_label, 1)):
+            counts = phase_launches[label]
+            print(f"launches {label}: {counts}")
+            if on_card:
+                check(counts[kname] == n_mb,
+                      f"{label}: {kname} launched {counts[kname]} times, "
+                      f"want one per microbatch ({n_mb})")
+                check(counts["ffm_candidate_matrices"] == 0
+                      and counts["ffm_candidate_matrices_q8"] == 0,
+                      f"{label}: the fused path launched a staged kernel")
+        want = [twin.score_batch(mb) for mb in batches]
+        want.append(twin.score_batch(second))
+        eps = Q.row_max_error(eng.params["ffm"]["emb"]) if eng.quantized else 0.0
+        worst = worst_share = 0.0
+        for reqs, g_mb, w_mb in zip(batches + [second], got, want):
+            vmax = float(max(max(np.abs(r[1]).max(), np.abs(r[3]).max())
+                             for r in reqs))
+            tol = Q.fused_logit_tolerance(cfg, absmax, eps, vmax=vmax)
+            for req, g, w in zip(reqs, g_mb, w_mb):
+                check(g.shape == (req[2].shape[0],) and np.isfinite(g).all(),
+                      f"{name}: bad scores shape {g.shape} or non-finite")
+                dev_abs = float(np.abs(g - w).max())
+                check(dev_abs <= tol,
+                      f"{name}: fused vs staged twin max abs err "
+                      f"{dev_abs:.3e} > fused_logit_tolerance {tol:.3e}")
+                worst = max(worst, dev_abs)
+                worst_share = max(worst_share, dev_abs / tol)
+        st = eng.stats
+        check(eng.hits > 0 and eng.misses > 0 and st.dedup_saved > 0,
+              f"{name}: hits {eng.hits}, misses {eng.misses}, dedup saved "
+              f"{st.dedup_saved}")
+        print(f"engine {name}: {st.requests} requests, {st.candidates} "
+              f"candidates, {st.rows_scored} rows scored, hits {eng.hits} "
+              f"misses {eng.misses}, second pass hit depths {hit}, max abs "
+              f"err vs staged twin {worst:.3e} ({100 * worst_share:.3f}% of "
+              f"fused_logit_tolerance)")
+        if on_card:
+            for label, e in ((name, eng), (f"{name} staged twin", twin)):
+                print(f"engine {label}: p50 {e.stats.p50_ms:.3f} ms per "
+                      f"microbatch, p99 {e.stats.p99_ms:.3f} ms, "
+                      f"{e.stats.predictions_per_s:.0f} predictions/s | {smi}")
+
     if on_card:
         for name, c in main_launches.items():
             check(c > 0, f"kernel {name} was not launched on the main path")
         for name, eng in engines.items():
             where_the_time_goes(name, eng, batches[-1], smi)
+        for name, (eng, twin) in fused.items():
+            n_fused = where_the_time_goes(name, eng, batches[-1], smi)
+            n_staged = where_the_time_goes(f"{name} staged twin", twin,
+                                           batches[-1], smi)
+            print(f"launches per microbatch: {name} {n_fused}, its staged "
+                  f"\"ffm\" twin {n_staged}")
     for rec in kernels:
         rec["launches"] = main_launches[rec["name"]]
 

@@ -188,6 +188,69 @@ def extend_context_prefix(cfg: FFMConfig, emb, lr_w,
     return {"emb": e, "val": v, "pairs": pairs, "lr_terms": lr_terms}
 
 
+def fused_context_state(cfg: FFMConfig, emb, lr_w,
+                        prefix: Dict[str, torch.Tensor],
+                        tail_idx: torch.Tensor, tail_val: torch.Tensor
+                        ) -> Dict[str, object]:
+    """Gather-only context extension for the fused scoring path.
+
+    Where :func:`extend_context_prefix` computes the tail pairs, the fused
+    kernel computes them on the device from the full-depth rows — so
+    context resolution only gathers the tail rows (through the row-gather
+    kernel for int8 tables) and LR terms, carries the prefix's cached pair
+    sum as a scalar and records the prefix depth, so the kernel knows which
+    pairs are still owed. The state stacks into the fused kernel's per-row
+    inputs:
+
+    * ``emb``      (fc, F, k) f32 — full-depth context embeddings
+    * ``val``      (fc,)
+    * ``depth``    int          — cached prefix depth p (a host integer:
+                                  stacking uploads the row vector at once,
+                                  and reading it back never waits on the
+                                  device)
+    * ``pair_sum`` () f32       — sum of the prefix's cached ctx-ctx pairs
+    * ``lr_terms`` (fc,)
+
+    ``prefix["pairs"]`` is not re-emitted: only its sum enters the logit,
+    and :func:`prefix_state_from_dots` rebuilds the full j-major vector from
+    the kernel's returned pair matrix when the engine inserts the state.
+    """
+    p = prefix["emb"].shape[0]
+    te = gather_rows(emb, tail_idx).to(torch.float32)
+    tv = tail_val.to(torch.float32)
+    lr_tail = (gather_lr(lr_w, tail_idx) * tv).to(torch.float32)
+    return {
+        "emb": torch.cat([prefix["emb"], te], dim=0),
+        "val": torch.cat([prefix["val"], tv]),
+        "depth": int(p),
+        "pair_sum": torch.sum(prefix["pairs"]),
+        "lr_terms": torch.cat([prefix["lr_terms"], lr_tail]),
+    }
+
+
+def prefix_state_from_dots(cfg: FFMConfig, fused: Dict[str, object],
+                           prefix_pairs: torch.Tensor, dots: torch.Tensor
+                           ) -> Dict[str, torch.Tensor]:
+    """Rebuild a full-depth insertable prefix state from fused-kernel output.
+
+    ``fused`` is a :func:`fused_context_state` state, ``prefix_pairs`` the
+    j-major pair vector of its depth-p cached prefix, and ``dots`` the
+    kernel's (fc, fc) ctx pair matrix (value products applied). The tail
+    pairs are the j-major gather ``dots[ii, p + jt]`` — the same slots
+    :func:`extend_context_prefix` computes — so the state has the staged
+    path's format."""
+    fc = fused["emb"].shape[0]
+    p = int(fused["depth"])
+    ii, jt = on_device(tail_pair_gather, (fc, p), dots.device)
+    tail = dots.to(torch.float32)[ii, p + jt]
+    return {
+        "emb": fused["emb"],
+        "val": fused["val"],
+        "pairs": torch.cat([prefix_pairs.to(torch.float32), tail]),
+        "lr_terms": fused["lr_terms"],
+    }
+
+
 def slice_context_prefix(state: Dict[str, torch.Tensor], depth: int
                          ) -> Dict[str, torch.Tensor]:
     """View of a prefix state at a shallower ``depth`` (pure slicing, by

@@ -121,6 +121,26 @@ def pair_logit_tolerance(cfg, emb_absmax: float, eps: float,
     return cfg.n_pairs * per_pair + cfg.n_fields * lr_eps * vmax
 
 
+def fused_logit_tolerance(cfg, emb_absmax: float, eps: float,
+                          vmax: float = 1.0, lr_max: float = 1.0) -> float:
+    """Float-reassociation envelope between the fused logit kernels and the
+    staged (dequantize-rows-then-f32-dots) path on the *same* tables:
+    quantization error cancels and only f32 rounding from reordered sums
+    remains. Each pair dot is bounded by ``k * amax^2`` (``amax =
+    emb_absmax + eps``, the dequantized-row bound) and charged one ulp
+    (``u = 2^-24``) per floating operation along the deepest reassociated
+    chain — ``2k`` for the dot, ~``8`` for the affine recombination,
+    ``n_pairs`` for the head-sum reorder; the LR/base terms reorder across
+    at most ``n_fields + 2`` adds of magnitude ``<= lr_max * vmax``. A
+    worst-case chain bound, deliberately generous, not an expected error."""
+    u = 2.0 ** -24
+    amax = emb_absmax + eps
+    per_pair = cfg.k * amax * amax * vmax * vmax
+    pair_part = cfg.n_pairs * per_pair * (2.0 * cfg.k + 8.0 + cfg.n_pairs) * u
+    lr_part = cfg.n_fields * lr_max * vmax * (cfg.n_fields + 2.0) * u
+    return pair_part + lr_part
+
+
 ROW_QUANT_PATHS = (("ffm", "emb"), ("emb",))
 BLOCK_QUANT_PATHS = (("lr", "w"),)
 

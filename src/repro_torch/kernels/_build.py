@@ -49,6 +49,13 @@ SIGNATURES = {
     # as above with scale, zero after vcand
     "ffm_candidate_matrices_q8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _P),
+    # ectx, vctx, depth, base, qcx, qcc, scale, zero, vcand, logits,
+    # ctx_dots, strides[11], R, N, Fc, Fcand, K, vec8, stream
+    "ffm_fused_logits_q8": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _P),
+    # as above with ecx, ecc and without scale, zero
+    "ffm_fused_logits_rows": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _P),
 }
 
 # launches per kernel since the last reset (plain integers; set them to 0 to

@@ -1,16 +1,20 @@
 """FFM interactions through the kernels (port of
-``repro/kernels/ffm_interaction/ops.py:27-73`` and the three Pallas entry
-points of ``ffm_interaction.py`` it calls).
+``repro/kernels/ffm_interaction/ops.py`` and the five Pallas entry points of
+``ffm_interaction.py`` it calls).
 
-* :func:`ffm_interaction_matrix`, :func:`ffm_candidate_matrices` and
-  :func:`ffm_candidate_matrices_q8` keep the Pallas functions' layouts. A
-  CPU tensor gets the plain version (``ref.py``); a CUDA tensor gets kernel
-  K4, K2 or K3 (``csrc/ffm_interaction.cu``) or an exception. The kernels
-  mask the ragged candidate tile themselves, so nothing is padded.
-* :func:`interactions`, :func:`candidate_interactions` and
-  :func:`candidate_interactions_q8` keep the JAX ops' signatures: the first
-  is a drop-in ``interactions_fn`` for ``deepffm.forward``, the other two
-  compute the candidate-dependent pair columns from cached context partials.
+* :func:`ffm_interaction_matrix`, :func:`ffm_candidate_matrices`,
+  :func:`ffm_candidate_matrices_q8`, :func:`ffm_fused_logits_q8` and
+  :func:`ffm_fused_logits_rows` keep the Pallas functions' layouts. A CPU
+  tensor gets the plain version (``ref.py``); a CUDA tensor gets kernel K4,
+  K2, K3 (``csrc/ffm_interaction.cu``), K5 or K6
+  (``csrc/ffm_fused_logits.cu``) or an exception. The kernels mask the
+  ragged candidate tile themselves, so nothing is padded.
+* :func:`interactions`, :func:`candidate_interactions`,
+  :func:`candidate_interactions_q8`, :func:`fused_candidate_logits_q8` and
+  :func:`fused_candidate_logits_rows` keep the JAX ops' signatures: the
+  first is a drop-in ``interactions_fn`` for ``deepffm.forward``, the next
+  two compute the candidate-dependent pair columns from cached context
+  partials, the last two the fused path's logits and ctx pair matrices.
 """
 from __future__ import annotations
 
@@ -22,9 +26,13 @@ from repro_torch.core import ffm as ffm_core
 from repro_torch.kernels import _build
 from repro_torch.kernels.ffm_interaction.ref import (
     ffm_candidate_matrices_q8_ref, ffm_candidate_matrices_ref,
+    ffm_fused_logits_q8_ref, ffm_fused_logits_rows_ref,
     ffm_interaction_matrix_ref)
 
 _SMEM_MAX = 232_448  # bytes of shared memory one block may use on sm_90
+# csrc/ffm_fused_logits.cu: warps per CTA and floats of padding per staged
+# context field (its shared memory is Fc * (F*K + pad) + Fc + warps floats)
+_FUSED_WARPS, _FUSED_ROW_PAD = 4, 4
 
 
 def ffm_interaction_matrix(e: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -48,6 +56,21 @@ def ffm_interaction_matrix(e: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _check_k_contiguous(k, **blocks):
+    for nm, t in blocks.items():
+        if k > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{nm} must be contiguous along K")
+
+
+def _vec8(k, cand_strides, ecx, ecc, q8):
+    """Whether the kernels may load K=8 candidate rows as two float4 (f32)
+    or one 8-byte word (int8): every row start must be aligned to 16 bytes
+    (f32) or 8 bytes (int8)."""
+    align = 8 if q8 else 16
+    return (k == 8 and all(s % 8 == 0 for s in cand_strides)
+            and ecx.data_ptr() % align == 0 and ecc.data_ptr() % align == 0)
+
+
 def _candidate_launch(name, ectx, vctx, ecx, ecc, grids, vcand):
     """Shared checks and launch of K2 (``grids`` None) and K3."""
     r, fc, fcand, k = ectx.shape
@@ -59,9 +82,7 @@ def _candidate_launch(name, ectx, vctx, ecx, ecc, grids, vcand):
     _build.check(ecc, "ecc", cand_dtype, (r, n, fcand, fcand, k),
                  contiguous=False)
     _build.check(vcand, "vcand", torch.float32, (r, n, fcand))
-    for t, nm in ((ectx, "ectx"), (ecx, "ecx"), (ecc, "ecc")):
-        if k > 1 and t.stride(-1) != 1:
-            raise ValueError(f"{nm} must be contiguous along K")
+    _check_k_contiguous(k, ectx=ectx, ecx=ecx, ecc=ecc)
     if (fc * fcand * k + fc) * 4 > _SMEM_MAX:
         raise ValueError(f"(Fc, Fcand, K) = {(fc, fcand, k)} exceeds "
                          "shared memory")
@@ -72,11 +93,7 @@ def _candidate_launch(name, ectx, vctx, ecx, ecc, grids, vcand):
     if r == 0 or n == 0:
         return xc, aa
     strides = ectx.stride()[:3] + ecx.stride()[:4] + ecc.stride()[:4]
-    # K=8 rows load as two float4 (f32) or one 8-byte word (int8): every row
-    # start must be aligned to 16 bytes (f32) or 8 bytes (int8)
-    align = 16 if grids is None else 8
-    vec8 = (k == 8 and all(s % 8 == 0 for s in strides[3:])
-            and ecx.data_ptr() % align == 0 and ecc.data_ptr() % align == 0)
+    vec8 = _vec8(k, strides[3:], ecx, ecc, grids is not None)
     c_strides = (ctypes.c_int64 * len(strides))(*strides)
     grid_ptrs = ()
     if grids is not None:
@@ -118,6 +135,87 @@ def ffm_candidate_matrices_q8(ectx, vctx, qcx, qcc, scale, zero, vcand):
                                              zero, vcand)
     return _candidate_launch("ffm_candidate_matrices_q8", ectx, vctx, qcx,
                              qcc, (scale, zero), vcand)
+
+
+def _fused_launch(name, ectx, vctx, depth, base, ecx, ecc, grids, vcand):
+    """Shared checks and launch of K6 (``grids`` None) and K5."""
+    if ectx.dim() != 4:
+        raise ValueError(f"ectx must be (R, Fc, F, K), got {tuple(ectx.shape)}")
+    r, fc, f, k = ectx.shape
+    fcand = f - fc
+    if fcand < 1:
+        raise ValueError(f"ectx (R, Fc, F, K) needs F > Fc, got {(fc, f)}")
+    n = vcand.shape[1] if vcand.dim() == 3 else -1
+    cand_dtype = torch.int8 if grids is not None else torch.float32
+    _build.check(ectx, "ectx", torch.float32, contiguous=False)
+    _build.check(vctx, "vctx", torch.float32, (r, fc))
+    _build.check(depth, "depth", torch.int32, (r,))
+    _build.check(base, "base", torch.float32, (r, n))
+    _build.check(ecx, "ecx", cand_dtype, (r, n, fcand, fc, k), contiguous=False)
+    _build.check(ecc, "ecc", cand_dtype, (r, n, fcand, fcand, k),
+                 contiguous=False)
+    _build.check(vcand, "vcand", torch.float32, (r, n, fcand))
+    _check_k_contiguous(k, ectx=ectx, ecx=ecx, ecc=ecc)
+    if (fc * (f * k + _FUSED_ROW_PAD) + fc + _FUSED_WARPS) * 4 > _SMEM_MAX:
+        raise ValueError(f"(Fc, F, K) = {(fc, f, k)} exceeds shared memory")
+    if r > 65535:
+        raise ValueError(f"R = {r} rows exceeds the grid's y extent")
+    logits = torch.empty((r, n), dtype=torch.float32, device=ectx.device)
+    dots = torch.empty((r, fc, fc), dtype=torch.float32, device=ectx.device)
+    if r == 0:
+        return logits, dots
+    strides = ectx.stride()[:3] + ecx.stride()[:4] + ecc.stride()[:4]
+    vec8 = _vec8(k, strides[3:], ecx, ecc, grids is not None)
+    c_strides = (ctypes.c_int64 * len(strides))(*strides)
+    grid_ptrs = ()
+    if grids is not None:
+        scale, zero = grids
+        _build.check(scale, "scale", torch.float32, (r, n, fcand))
+        _build.check(zero, "zero", torch.float32, (r, n, fcand))
+        grid_ptrs = (scale.data_ptr(), zero.data_ptr())
+    # a row without candidates still gets its ctx_dots (one tile per row)
+    _build.launch(name, ectx.data_ptr(), vctx.data_ptr(), depth.data_ptr(),
+                  base.data_ptr(), ecx.data_ptr(), ecc.data_ptr(), *grid_ptrs,
+                  vcand.data_ptr(), logits.data_ptr(), dots.data_ptr(),
+                  ctypes.addressof(c_strides), r, n, fc, fcand, k, int(vec8))
+    return logits, dots
+
+
+def ffm_fused_logits_q8(ectx, vctx, depth, base, qcx, qcc, scale, zero,
+                        vcand):
+    """One fused call per padding bucket: context-tail pairs + int8
+    candidate pair terms + the additive FFM head.
+
+    ectx:  (R, Fc, F, K) f32   full-depth context embeddings
+    vctx:  (R, Fc)             context values
+    depth: (R,) int32          cached prefix depth p per row: pairs with
+                               j >= p are computed here, the rest arrive
+                               pre-summed inside ``base``
+    base:  (R, N) f32          lr_ctx + lr_cand + bias + cached ctx pair sum
+    qcx:   (R, N, Fcand, Fc, K) int8    candidate codes, ctx-field columns
+    qcc:   (R, N, Fcand, Fcand, K) int8 candidate codes, cand-field columns
+    scale/zero: (R, N, Fcand) f32       per-candidate-row grids
+    vcand: (R, N, Fcand)
+    ->     logits (R, N) f32, ctx_dots (R, Fc, Fc) f32 (the ctx pair matrix
+           with value products applied, from which the engine rebuilds
+           insertable prefix states)
+    """
+    if not ectx.is_cuda:
+        return ffm_fused_logits_q8_ref(ectx, vctx, depth, base, qcx, qcc,
+                                       scale, zero, vcand)
+    return _fused_launch("ffm_fused_logits_q8", ectx, vctx, depth, base, qcx,
+                         qcc, (scale, zero), vcand)
+
+
+def ffm_fused_logits_rows(ectx, vctx, depth, base, ecx, ecc, vcand):
+    """f32 twin of :func:`ffm_fused_logits_q8`: gathered f32 candidate rows
+    ``ecx`` (R, N, Fcand, Fc, K) / ``ecc`` (R, N, Fcand, Fcand, K) instead
+    of codes and grids. Returns (logits (R, N), ctx_dots (R, Fc, Fc))."""
+    if not ectx.is_cuda:
+        return ffm_fused_logits_rows_ref(ectx, vctx, depth, base, ecx, ecc,
+                                         vcand)
+    return _fused_launch("ffm_fused_logits_rows", ectx, vctx, depth, base,
+                         ecx, ecc, None, vcand)
 
 
 def interactions(cfg, emb, idx, val):
@@ -164,3 +262,26 @@ def candidate_interactions_q8(cfg, emb_ctx, val_ctx, qc, scale, zero,
         emb_ctx[:, :, fc:], val_ctx, qc[..., :fc, :], qc[..., fc:, :],
         scale, zero, cand_val)
     return _pair_columns(cfg, xc_mat, aa_mat)
+
+
+def fused_candidate_logits_q8(cfg, emb_ctx, val_ctx, depth, base, qc, scale,
+                              zero, cand_val):
+    """Fused scoring of one padding bucket over gathered int8 codes ``qc``
+    ``(R, N, Fcand, F, K)``, split here into its context-field and
+    candidate-field column halves (views, not copies) with ``scale``/``zero``
+    ``(R, N, Fcand)`` its grids. ``depth``/``base`` carry the cached-prefix
+    split. Returns ``(logits (R, N), ctx_dots (R, Fc, Fc))``."""
+    fc = cfg.context_fields
+    return ffm_fused_logits_q8(
+        emb_ctx, val_ctx, depth.to(torch.int32), base,
+        qc[..., :fc, :], qc[..., fc:, :], scale, zero, cand_val)
+
+
+def fused_candidate_logits_rows(cfg, emb_ctx, val_ctx, depth, base, ec,
+                                cand_val):
+    """f32 twin of :func:`fused_candidate_logits_q8` (gathered f32 rows
+    ``ec`` ``(R, N, Fcand, F, K)``)."""
+    fc = cfg.context_fields
+    return ffm_fused_logits_rows(
+        emb_ctx, val_ctx, depth.to(torch.int32), base,
+        ec[..., :fc, :], ec[..., fc:, :], cand_val)

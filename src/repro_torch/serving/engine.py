@@ -1,4 +1,4 @@
-"""Serving engine, staged path (port of ``repro/serving/engine.py``).
+"""Serving engine, staged and fused paths (port of ``repro/serving/engine.py``).
 
 One request is a context plus N candidates and yields N logits. The engine
 composes the paper's tricks in one scoring path:
@@ -20,21 +20,33 @@ composes the paper's tricks in one scoring path:
   int8 rows with per-row ``(scale, zero)`` grids and the LR table as blocked
   int8; the candidate kernel dequantizes in registers, so the f32 candidate
   block never exists in device memory.
+* **Fused bucket scoring (§5 x §6)** — ``InferenceEngine(fused=True)``
+  (``"ffm"`` model only) collapses the staged chain — context-tail pairs,
+  candidate dot matrices, pair-vector scatter, additive head — into one
+  kernel launch per padding bucket (:func:`fused_candidates_forward_q8` /
+  ``_rows``): context resolution only gathers rows
+  (``ffm.fused_context_state``); the kernel computes the context pairs a
+  depth-p cached prefix still owes, accumulates int8 cand-cand dots exactly
+  in int32 and returns logits plus each row's ctx pair matrix, from which
+  full-depth prefix states are rebuilt and inserted after scoring
+  (``ffm.prefix_state_from_dots``), so the cache keeps learning. Against
+  the staged path on the same tables the deviation is f32 reassociation,
+  bounded by ``quantization.fused_logit_tolerance``. ``deepffm`` heads and
+  ``score_uncached`` stay staged.
 
 Candidate counts pad to power-of-two buckets and the requests of a
 microbatch stack into one forward. Host-side request bookkeeping (tokens,
 dedup, chunking, scatter-back) is numpy, exactly as in the JAX engine; the
 tables, cached states and all scoring arithmetic live on the device.
 
-Waiting for later slices: the fused path, the host pre-gather, the parallel
-span pipeline, the update pipe and weight publish, engine rotation, and
-``deadline_ms``.
+Waiting for later slices: the host pre-gather, the parallel span pipeline,
+the update pipe and weight publish, engine rotation, and ``deadline_ms``.
 """
 from __future__ import annotations
 
 import threading
 import time
-from collections import deque
+from collections import Counter, deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -132,16 +144,23 @@ BACKENDS = ("reference", "cuda")
 
 class ScoringPlan:
     """Request-independent scoring choices: the validated context/candidate
-    field split, the power-of-two candidate padding buckets, and the
-    backend. Built once per engine."""
+    field split, the power-of-two candidate padding buckets, the backend and
+    whether buckets score through the fused kernels. Built once per
+    engine."""
 
     def __init__(self, cfg: FFMConfig, model: str = "deepffm",
-                 backend: str = "cuda", min_bucket: int = 8):
+                 backend: str = "cuda", min_bucket: int = 8,
+                 fused: bool = False):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
         if not 1 <= cfg.context_fields < cfg.n_fields:
             raise ValueError("context cache needs 1 <= context_fields < n_fields")
+        if fused and model != "ffm":
+            # the fused kernel emits additive-head logits; MergeNorm/MLP heads
+            # need the full pair vector and stay on the staged path
+            raise ValueError(f"fused scoring requires model='ffm', got {model!r}")
         self.cfg, self.model, self.backend = cfg, model, backend
+        self.fused = bool(fused)
         self.min_bucket = max(1, min_bucket)
 
     def bucket(self, n: int, minimum: Optional[int] = None) -> int:
@@ -257,13 +276,51 @@ def batched_candidates_forward(cfg: FFMConfig, model: str, backend: str,
                               pairs_xc, pairs_aa, lr_cand)
 
 
+def _fused_base(cached, lr_cand, lr_b):
+    """(R, N) logit terms the fused kernels add to the pairs they compute:
+    context LR + the cached prefix's pair sum + candidate LR + bias."""
+    return ((torch.sum(cached["lr_terms"], dim=-1)
+             + cached["pair_sum"])[:, None] + lr_cand + lr_b)
+
+
+def fused_candidates_forward_q8(cfg: FFMConfig, lr_b, cached, qc, scale, zero,
+                                cand_val, lr_cand):
+    """One fused kernel launch per padding bucket over gathered int8
+    candidate codes (``"ffm"`` model only: the head is the additive LR +
+    pair sum).
+
+    ``cached`` is the stacked *fused* context state: ``emb`` (R, Fc, F, k)
+    full-depth embeddings, ``val`` (R, Fc), ``depth`` (R,) cached prefix
+    depths, ``pair_sum`` (R,) summed cached ctx pairs, ``lr_terms`` (R, Fc).
+    ``qc`` (R, N, Fcand, F, k) codes with grids ``scale``/``zero``
+    (R, N, Fcand), ``lr_cand`` (R, N) summed candidate LR terms. Returns
+    ``(logits (R, N), ctx_dots (R, Fc, Fc))``; the second output rebuilds
+    insertable prefix states (``ffm.prefix_state_from_dots``)."""
+    from repro_torch.kernels.ffm_interaction import ops as ffm_ops
+
+    return ffm_ops.fused_candidate_logits_q8(
+        cfg, cached["emb"], cached["val"], cached["depth"],
+        _fused_base(cached, lr_cand, lr_b), qc, scale, zero, cand_val)
+
+
+def fused_candidates_forward_rows(cfg: FFMConfig, lr_b, cached, ec, cand_val,
+                                  lr_cand):
+    """f32 twin of :func:`fused_candidates_forward_q8` (gathered f32 rows
+    ``ec`` (R, N, Fcand, F, k) instead of codes and grids)."""
+    from repro_torch.kernels.ffm_interaction import ops as ffm_ops
+
+    return ffm_ops.fused_candidate_logits_rows(
+        cfg, cached["emb"], cached["val"], cached["depth"],
+        _fused_base(cached, lr_cand, lr_b), ec, cand_val)
+
+
 # ---------------------------------------------------------------------------
 # The engine
 # ---------------------------------------------------------------------------
 
 class InferenceEngine:
-    """Staged scoring path of the serving stack: prefix-sharing context cache
-    x cross-request candidate dedup x candidate kernels x bucketed request
+    """Scoring path of the serving stack: prefix-sharing context cache x
+    cross-request candidate dedup x candidate kernels x bucketed request
     batching, on one device.
 
     * ``device`` — ``None`` means the card; pass ``"cpu"`` to run the plain
@@ -279,6 +336,11 @@ class InferenceEngine:
     * ``quantized`` — serve from int8 tables: installed f32 params are
       quantized on the host (bit-identical to the JAX package's tables) and
       moved to the device.
+    * ``fused`` — score each padding bucket in one fused kernel launch
+      (:func:`fused_candidates_forward_q8` / ``_rows``; ``"ffm"`` model
+      only, whatever ``backend``). ``None`` (default) means staged: the JAX
+      engine fuses automatically only where it pre-gathers candidate rows on
+      the host, and this engine always gathers them on the device.
     """
 
     def __init__(self, cfg: FFMConfig, model: str = "deepffm", *,
@@ -288,10 +350,11 @@ class InferenceEngine:
                  prefix_stride: Optional[int] = 4, dedup: bool = True,
                  warmup_buckets: Optional[Tuple[int, int]] = None,
                  quantized: bool = False,
-                 prefix_depths: Optional[Sequence[int]] = None):
+                 prefix_depths: Optional[Sequence[int]] = None,
+                 fused: Optional[bool] = None):
         self.device = resolve_device(device)
         self.plan = ScoringPlan(cfg, model, backend=backend,
-                                min_bucket=min_bucket)
+                                min_bucket=min_bucket, fused=bool(fused))
         self.cache_entries = cache_entries
         self.dedup = dedup
         self.quantized = quantized
@@ -322,6 +385,10 @@ class InferenceEngine:
         return self.plan.backend
 
     @property
+    def fused(self) -> bool:
+        return self.plan.fused
+
+    @property
     def params(self):
         return self._weights[0]
 
@@ -333,6 +400,12 @@ class InferenceEngine:
     def cache_hit_rate(self) -> float:
         total = self.hits + self.misses
         return self.hits / total if total else 0.0
+
+    @property
+    def prefix_hit_depths(self) -> Counter:
+        """Histogram of cached-prefix depth matched per context lookup
+        (depth == context_fields is a full hit, 0 a cold miss)."""
+        return self._cache.hit_depths
 
     @property
     def resident_weight_bytes(self) -> int:
@@ -369,6 +442,14 @@ class InferenceEngine:
             self._weights = (params, self._weights[1] + 1)
 
     # -- context cache (§5, prefix tree) ------------------------------------
+    def _context_tensors(self, ctxs) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The (idx, val) rows of every context of a burst on the device,
+        uploaded together once the first miss needs them."""
+        idx = np.stack([c[1] for c in ctxs])
+        val = np.stack([c[2] for c in ctxs])
+        return (torch.from_numpy(idx).to(self.device),
+                torch.from_numpy(val).to(self.device))
+
     def _resolve_contexts(self, ctxs: List[Tuple[Tuple[bytes, ...],
                                                  np.ndarray, np.ndarray]],
                           params, generation: int
@@ -423,10 +504,7 @@ class InferenceEngine:
             first_round = False
 
             if miss_groups and ctx_idx is None:
-                ctx_idx = torch.from_numpy(
-                    np.stack([c[1] for c in ctxs])).to(self.device)
-                ctx_val = torch.from_numpy(
-                    np.stack([c[2] for c in ctxs])).to(self.device)
+                ctx_idx, ctx_val = self._context_tensors(ctxs)
             for depth, members in sorted(miss_groups.items()):
                 t = fc - depth
                 fresh = []
@@ -446,6 +524,88 @@ class InferenceEngine:
                         self._cache.insert(ctxs[i][0], generation, state)
             pending = deferred
         return states, full_hit
+
+    def _resolve_contexts_fused(self, ctxs: List[Tuple[Tuple[bytes, ...],
+                                                       np.ndarray, np.ndarray]],
+                                params, generation: int):
+        """Gather-only context resolution for the fused scoring path.
+
+        Returns ``(states, insert_info, full_hit)``: per context a stackable
+        fused state (``ffm.fused_context_state`` — full-depth rows + LR terms
+        + cached depth and pair sum, no pair arithmetic), plus for each
+        cache miss the ``(depth, prefix_pairs)`` needed to rebuild and
+        insert the full-depth state once the kernel has returned its ctx
+        pair matrix (:meth:`_insert_fused_misses`).
+
+        Unlike the staged resolver this runs a single round: the tail pairs
+        do not exist until the fused kernel runs, so contexts in one burst
+        cannot chain off each other's fresh inserts — each extends from its
+        deepest *already-cached* prefix. The cache still learns (inserts
+        land after scoring).
+        """
+        fc = self.cfg.context_fields
+        states: List[Optional[Dict]] = [None] * len(ctxs)
+        insert_info: List[Optional[Tuple]] = [None] * len(ctxs)
+        full_hit: List[bool] = [False] * len(ctxs)
+        with self._lock:
+            looked = [self._cache.lookup(c[0], generation) for c in ctxs]
+        emb, lr_w = params["ffm"]["emb"], params["lr"]["w"]
+        empty = ffm.empty_context_prefix(self.cfg, ffm.table_dtype(emb),
+                                         self.device)
+        ctx_idx = ctx_val = None  # uploaded once, on the first miss
+        n_full = tails = 0
+        for i, (depth, state) in enumerate(looked):
+            if depth == fc:
+                full_hit[i] = True
+                states[i] = {
+                    "emb": state["emb"], "val": state["val"], "depth": fc,
+                    "pair_sum": torch.sum(state["pairs"]),
+                    "lr_terms": state["lr_terms"],
+                }
+                continue
+            if ctx_idx is None:
+                ctx_idx, ctx_val = self._context_tensors(ctxs)
+            base = (ffm.slice_context_prefix(state, depth)
+                    if state is not None else empty)
+            states[i] = ffm.fused_context_state(
+                self.cfg, emb, lr_w, base, ctx_idx[i, depth:],
+                ctx_val[i, depth:])
+            # a view, not a copy: cached states are never written in place
+            insert_info[i] = (depth, base["pairs"])
+            n_full += depth == 0
+            tails += fc - depth
+        with self._lock:
+            for (depth, _), info in zip(looked, insert_info):
+                self._cache.hit_depths[fc if info is None else depth] += 1
+            self.stats.ctx_partials_full += n_full
+            self.stats.ctx_tail_fields += tails
+        return states, insert_info, full_hit
+
+    def _insert_fused_misses(self, u_ctxs, states, insert_info, chunk_group,
+                             u_of_group, ctx_dots: torch.Tensor,
+                             generation: int) -> None:
+        """Post-scoring cache insertion for the fused path: rebuild each
+        missed context's full-depth prefix state from the kernel's ctx pair
+        matrix (of the first chunk of its group) and insert it.
+        ``chunk_group`` maps forward rows to groups; on a no-dedup engine
+        ``u_of_group`` maps groups back to unique contexts. A context whose
+        requests all carried empty slates never entered the forward and
+        stays uninserted (no pair matrix to read back)."""
+        if all(info is None for info in insert_info):
+            return
+        first_chunk: Dict[int, int] = {}
+        for c, g in enumerate(chunk_group):
+            u = int(g) if self.dedup else int(u_of_group[g])
+            first_chunk.setdefault(u, c)
+        inserts = []
+        for u, info in enumerate(insert_info):
+            if info is None or u not in first_chunk:
+                continue
+            inserts.append((u, ffm.prefix_state_from_dots(
+                self.cfg, states[u], info[1], ctx_dots[first_chunk[u]])))
+        with self._lock:
+            for u, full in inserts:
+                self._cache.insert(u_ctxs[u][0], generation, full)
 
     # -- scoring ------------------------------------------------------------
     def _require_params(self):
@@ -516,7 +676,12 @@ class InferenceEngine:
                 u_ctxs.append((toks, ci, cv))
             u_of.append(u)
 
-        states, full_hit = self._resolve_contexts(u_ctxs, params, generation)
+        if self.fused:
+            states, insert_info, full_hit = self._resolve_contexts_fused(
+                u_ctxs, params, generation)
+        else:
+            states, full_hit = self._resolve_contexts(u_ctxs, params,
+                                                      generation)
         # hit/miss bookkeeping matches the flat cache: first request of an
         # uncached context is the miss, every other request this batch (and
         # every full-depth match) is a hit
@@ -590,8 +755,12 @@ class InferenceEngine:
         kv_c[row_of_u, slot_of_u] = kv_all[first]
         chunk_group = np.repeat(np.arange(n_groups), chunks_per_g)
         stacked = self._stack_states([group_state[g] for g in chunk_group], rb)
-        out = self._candidates_forward(params, stacked, ki_c, kv_c)
+        fwd = self._candidates_forward(params, stacked, ki_c, kv_c)
+        out, ctx_dots = fwd if self.fused else (fwd, None)
         out = out.cpu().numpy()[:n_chunks]
+        if self.fused:
+            self._insert_fused_misses(u_ctxs, states, insert_info,
+                                      chunk_group, u_of, ctx_dots, generation)
         # plain numpy scatter-back
         flat = out[row_of_u[inverse], slot_of_u[inverse]]
         offs = np.concatenate([[0], np.cumsum(counts)])
@@ -604,24 +773,42 @@ class InferenceEngine:
         return results
 
     def _stack_states(self, chunk_state: List[Dict], rb: int) -> Dict:
-        """Stack per-chunk prefix states along a new row axis, zero-padded to
-        ``rb`` rows."""
+        """Stack per-chunk context states along a new row axis, zero-padded
+        to ``rb`` rows (a fused state's host-integer ``depth`` uploads as one
+        int32 vector)."""
         pad = rb - len(chunk_state)
         out = {}
         for key in chunk_state[0]:
-            x = torch.stack([s[key] for s in chunk_state])
+            leaves = [s[key] for s in chunk_state]
+            if isinstance(leaves[0], int):
+                x = torch.tensor(leaves, dtype=torch.int32, device=self.device)
+            else:
+                x = torch.stack(leaves)
             if pad:
                 x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
             out[key] = x
         return out
 
     def _candidates_forward(self, params, stacked, ki_b: np.ndarray,
-                            kv_b: np.ndarray) -> torch.Tensor:
-        """One padded candidate block through :func:`batched_candidates_forward`."""
-        return batched_candidates_forward(
-            self.cfg, self.model, self.backend, params, stacked,
-            torch.from_numpy(ki_b).to(self.device),
-            torch.from_numpy(kv_b).to(self.device))
+                            kv_b: np.ndarray):
+        """One padded candidate block through the engine's forward: the
+        fused kernels (``(logits, ctx_dots)``) or
+        :func:`batched_candidates_forward` (logits). Candidate codes, grids,
+        rows and LR terms are gathered on the device by indexing."""
+        ki = torch.from_numpy(ki_b).to(self.device)
+        kv = torch.from_numpy(kv_b).to(self.device)
+        if not self.fused:
+            return batched_candidates_forward(
+                self.cfg, self.model, self.backend, params, stacked, ki, kv)
+        emb = params["ffm"]["emb"]
+        lr_cand = torch.sum(ffm.gather_lr(params["lr"]["w"], ki) * kv, dim=-1)
+        lr_b = params["lr"]["b"]
+        if isinstance(emb, dict):  # int8 rows: codes + grids, no dequant
+            return fused_candidates_forward_q8(
+                self.cfg, lr_b, stacked, emb["codes"][ki], emb["scale"][ki],
+                emb["zero"][ki], kv, lr_cand)
+        return fused_candidates_forward_rows(
+            self.cfg, lr_b, stacked, emb[ki], kv, lr_cand)
 
     def _warmup_dummies(self, rb: int, nb: int):
         """Dummy (cached-state, cand-idx, cand-val) arguments for one
@@ -636,9 +823,13 @@ class InferenceEngine:
         cached = {
             "emb": zeros(rb, fc, cfg.n_fields, cfg.k, dt=emb_dt),
             "val": zeros(rb, fc),
-            "pairs": zeros(rb, ffm.prefix_pair_count(fc)),
             "lr_terms": zeros(rb, fc),
         }
+        if self.fused:
+            cached["depth"] = zeros(rb, dt=torch.int32)
+            cached["pair_sum"] = zeros(rb)
+        else:
+            cached["pairs"] = zeros(rb, ffm.prefix_pair_count(fc))
         return (cached, np.zeros((rb, nb, fcand), np.int32),
                 np.zeros((rb, nb, fcand), np.float32))
 

@@ -57,11 +57,14 @@ def test_port_file_list_is_complete():
                 "repro_torch/core/deepffm.py", "repro_torch/kernels/_build.py",
                 "repro_torch/kernels/row_gather/ops.py",
                 "repro_torch/kernels/ffm_interaction/ops.py",
+                "repro_torch/kernels/ffm_interaction/ref.py",
+                "repro_torch/kernels/row_gather/ref.py",
                 "repro_torch/serving/prefix_cache.py",
                 "repro_torch/serving/engine.py"):
         assert mod in names
     sources = {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu")}
-    assert sources == {"row_gather.cu", "ffm_interaction.cu"}
+    assert sources == {"row_gather.cu", "ffm_interaction.cu",
+                       "ffm_fused_logits.cu"}
 
 
 @pytest.mark.parametrize("kw", [{}, {"n_fields": 8, "context_fields": 5,
@@ -110,6 +113,10 @@ def _cases():
             t(rng.normal(0, 0.05, (2, 3, 2)).astype(np.float32)))
     e = t(rng.normal(size=(3, 5, 5, 4)).astype(np.float32))
     v = t(rng.normal(size=(3, 5)).astype(np.float32))
+    # fused: R=2, Fc=4, Fcand=2, K=4, N=3 (ectx over all F=6 fields)
+    ectx_full = t(rng.normal(size=(2, 4, 6, 4)).astype(np.float32))
+    depth = t(np.array([0, 3], np.int32))
+    base = t(rng.normal(size=(2, 3)).astype(np.float32))
     return {
         "gather_dequant_rows_q8": (rg_ops.gather_dequant_rows_q8,
                                    rg_ref.gather_dequant_rows_q8_ref,
@@ -122,6 +129,14 @@ def _cases():
                                       (ectx, vctx, qcx, qcc, *grid, vcand)),
         "ffm_interaction_matrix": (fi_ops.ffm_interaction_matrix,
                                    fi_ref.ffm_interaction_matrix_ref, (e, v)),
+        "ffm_fused_logits_q8": (fi_ops.ffm_fused_logits_q8,
+                                fi_ref.ffm_fused_logits_q8_ref,
+                                (ectx_full, vctx, depth, base, qcx, qcc,
+                                 *grid, vcand)),
+        "ffm_fused_logits_rows": (fi_ops.ffm_fused_logits_rows,
+                                  fi_ref.ffm_fused_logits_rows_ref,
+                                  (ectx_full, vctx, depth, base, ecx, ecc,
+                                   vcand)),
     }
 
 
