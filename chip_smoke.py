@@ -13,7 +13,9 @@ Phases, each of which raises on failure (nothing is caught):
    at the shapes the main path gives it, with its time, its bound and the
    plain version's time; then the kernels' general paths (K != 8, ragged
    tiles, rows without candidates) and the fused kernels' bit-invariance
-   across row and candidate buckets.
+   across row and candidate buckets. The wire-quantization kernels K7-K9
+   run over the whole DeepFFM weight space (~50.6 M weights) and must match
+   exactly (min/max, codes and floats bit for bit).
 3. The main paths at full width (``FFMConfig()``, V = 2^18, random weights
    from a seed), all driven by the same microbatches (4 of 8 requests with
    16-64 candidates each):
@@ -27,6 +29,20 @@ Phases, each of which raises on failure (nothing is caught):
      ``"ffm"`` twin on the same params; each microbatch must launch the
      fused kernel once and neither candidate-matrix kernel; a second pass
      over the last microbatch's contexts must hit the cache at full depth.
+   - update: an int8 DeepFFM engine takes three trainer frames from a
+     ``Sender`` (full, then a row delta after touching 1% of the rows, LR
+     entries and every dense leaf, eight weights pushed outside the grid,
+     through ``apply_update``; then a patch
+     through ``submit_update`` while the main thread keeps scoring across
+     the ingest and the publish, which is held until a pass of microbatches
+     has been scored). After each frame the decoded weights must lie within
+     the wire grid's error bound of the weights given to ``make_update``
+     (exactly equal outside the grid), the engine's int8 tables must equal
+     a full requantize of them byte for byte, its scores the uncached
+     oracle's; every batch scored during the ingest must match exactly one
+     generation, and both must be seen; K7 and K8 launch once per
+     ``make_update``, K9 once per decode. Frame bytes per kind, the stage
+     times and the scorers' p50 / p99 during the ingest are printed.
    Every kernel's launch counter must have risen during these runs.
 4. Where the time goes: one more microbatch per engine (and per staged
    ``"ffm"`` twin) under torch.profiler (kernels launched, device-busy time
@@ -42,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import sys
 import time
 from pathlib import Path
@@ -172,6 +189,7 @@ def main(argv=None) -> int:
               "no result", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    from repro_torch.checkpoint import layout
     from repro_torch.common import device as device_mod
     from repro_torch.common.config import FFMConfig
     from repro_torch.core import deepffm
@@ -179,6 +197,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.ffm_interaction import ops as fi_ops
     from repro_torch.kernels.ffm_interaction import ref as fi_ref
+    from repro_torch.kernels.quantize import ops as q_ops
+    from repro_torch.kernels.quantize import ref as q_ref
     from repro_torch.kernels.row_gather import ops as rg_ops
     from repro_torch.kernels.row_gather import ref as rg_ref
     from repro_torch.serving.engine import InferenceEngine
@@ -212,7 +232,8 @@ def main(argv=None) -> int:
               f"gather_dequant_rows_q8 0 B, ffm_candidate_matrices(_q8) "
               f"{(fc_ * (f_ - fc_) * k_ + fc_) * 4} B, ffm_interaction_matrix "
               f"{(f_ * f_ * k_ + f_) * 4} B, ffm_fused_logits_(q8|rows) "
-              f"{(fc_ * (f_ * k_ + 4) + fc_ + 4) * 4} B")
+              f"{(fc_ * (f_ * k_ + 4) + fc_ + 4) * 4} B, minmax / "
+              "quantize_codes / dequantize_codes 0 B")
     else:
         print("card: none (CPU rehearsal: plain versions, no timings)")
 
@@ -290,7 +311,10 @@ def main(argv=None) -> int:
     kernels = []
 
     def kernel_case(name, source, replaces, fn, plain, tol, bytes_moved,
-                    flops, shape, library=None):
+                    flops, shape, library=None, eager=False):
+        """``eager``: time eager calls (for kernels long next to a launch,
+        whose plain versions would fill a captured graph's memory pool)."""
+        timed = call_ms if eager else device_ms
         got, want = fn(), plain()
         if on_card:
             torch.cuda.synchronize()
@@ -306,9 +330,9 @@ def main(argv=None) -> int:
         b_ms, b_by = bound(bytes_moved, flops)
         rec = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": 0, "max_abs_err": err,
-               "ms": device_ms(fn), "plain_ms": device_ms(plain),
+               "ms": timed(fn), "plain_ms": timed(plain),
                "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": device_ms(library) if library else None,
+               "library_ms": timed(library) if library else None,
                "call_ms": call_ms(fn), "plain_call_ms": call_ms(plain),
                "bytes": bytes_moved, "shape": shape, "tolerance": tol}
         kernels.append(rec)
@@ -494,6 +518,48 @@ def main(argv=None) -> int:
     print("kernels' general paths (byte rows, K=4, ragged tiles, N=0): agree "
           "with plain versions")
 
+    # K7-K9: the wire quantizer over the whole DeepFFM weight space, as
+    # Sender.make_update and the receiver's decode run it, with weights on
+    # the rounded grid's bounds and on code tie points
+    n_w = sum(math.prod(spec.shape) for _, spec in
+              layout.leaves(deepffm.param_specs(cfg, "deepffm")))
+    w = randn(n_w, scale=0.1)
+    w_min, w_max, bucket = Q.compute_bounds(w)
+    ties = torch.arange(1, 9, device=dev, dtype=torch.float32) * 7001.0
+    w[:18] = torch.cat([torch.tensor([w_min, w_max], device=dev),
+                        w_min + ties * bucket, w_min + (ties + 0.5) * bucket])
+    qw = q_ops.quantize_codes(w, w_min, bucket)
+    src = "src/repro_torch/csrc/quantize.cu"
+    kq = "src/repro/kernels/quantize/quantize.py"
+    kernel_case("minmax", src, f"{kq}:57", lambda: q_ops.minmax(w),
+                lambda: q_ref.minmax_ref(w), "exact", 4 * n_w, 2 * n_w,
+                [n_w], library=lambda: torch.aminmax(w), eager=True)
+    kernel_case("quantize_codes", src, f"{kq}:83",
+                lambda: q_ops.quantize_codes(w, w_min, bucket),
+                lambda: q_ref.quantize_codes_ref(w, w_min, bucket), "exact",
+                6 * n_w, 4 * n_w, [n_w], eager=True)
+    kernel_case("dequantize_codes", src, f"{kq}:106",
+                lambda: q_ops.dequantize_codes(qw, w_min, bucket),
+                lambda: q_ref.dequantize_codes_ref(qw, w_min, bucket),
+                "exact", 6 * n_w, 2 * n_w, [n_w], eager=True)
+    # general paths: a length that is no multiple of 4 and unaligned views
+    # (the scalar loops), and NaN propagating through the min/max
+    odd = w[1:10_004]
+    check(torch.equal(q_ops.minmax(odd), q_ref.minmax_ref(odd))
+          and torch.equal(q_ops.quantize_codes(odd, w_min, bucket),
+                          q_ref.quantize_codes_ref(odd, w_min, bucket))
+          and torch.equal(q_ops.dequantize_codes(qw[1:10_004], w_min, bucket),
+                          q_ref.dequantize_codes_ref(qw[1:10_004], w_min,
+                                                     bucket)),
+          "wire kernels (unaligned, ragged length) disagree")
+    nan_w = w[:1000].clone()
+    nan_w[500] = float("nan")
+    check(bool(torch.isnan(q_ops.minmax(nan_w)).all()),
+          "minmax does not propagate NaN")
+    print("wire kernels' general paths (unaligned, ragged length, NaN): agree "
+          "with plain versions")
+    del w, qw
+
     # -- phase 3: the main path at full width --------------------------------
     t0 = time.perf_counter()
     params = deepffm.init_params(cfg, args.seed, "deepffm", dev)
@@ -652,6 +718,9 @@ def main(argv=None) -> int:
                       f"microbatch, p99 {e.stats.p99_ms:.3f} ms, "
                       f"{e.stats.predictions_per_s:.0f} predictions/s | {smi}")
 
+    update_path(cfg, args, dev, on_card, smi, batches, run_phase,
+                phase_launches, randn, r_rows, n_cand)
+
     if on_card:
         for name, c in main_launches.items():
             check(c > 0, f"kernel {name} was not launched on the main path")
@@ -676,6 +745,279 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def update_path(cfg, args, dev, on_card, smi, batches, run_phase,
+                phase_launches, randn, r_rows, n_cand):
+    """Phase 3, update path: ``Sender.make_update`` -> an int8 DeepFFM
+    engine's ``apply_update`` / ``submit_update`` at full width; see the
+    module docstring."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import layout
+    from repro_torch.checkpoint import transfer as T
+    from repro_torch.core import deepffm
+    from repro_torch.core import quantization as Q
+    from repro_torch.serving.engine import InferenceEngine
+
+    v = cfg.hash_space
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    params = deepffm.init_params(cfg, args.seed + 2, "deepffm", dev)
+    last = f"w{len(cfg.mlp_hidden)}"
+    params["mlp"][last] = randn(*params["mlp"][last].shape, scale=0.5)
+    params["lr"]["w"] = randn(v, scale=0.1)
+    sender = T.Sender(device=dev)
+    eng = InferenceEngine(cfg, "deepffm", backend="cuda", device=dev,
+                          quantized=True)
+    wire = T.Receiver(device=dev)  # decodes the same frames for the check
+    raw_bytes = None
+    rtol, atol = 2e-4, 2e-5
+
+    def perturbed(p, rows, row_scale, dense_scale, bias_shift=0.0):
+        """A copy of ``p`` with ``rows`` of ffm/emb and lr/w and every dense
+        leaf moved by seeded noise (and lr/b by ``bias_shift``)."""
+        def noise(shape, scale):
+            return torch.randn(shape, generator=gen, device=dev) * scale
+
+        def walk(node, path=()):
+            if isinstance(node, dict):
+                return {k: walk(x, path + (k,)) for k, x in node.items()}
+            if path in (("ffm", "emb"), ("lr", "w")):
+                node = node.clone()
+                node[rows] += noise(node[rows].shape, row_scale)
+                return node
+            node = node + noise(node.shape, dense_scale)
+            return node + bias_shift if path == ("lr", "b") else node
+
+        return walk(p)
+
+    def score_all():
+        """The microbatches' scores and per-batch wall times (ms)."""
+        out, ms = [], []
+        for mb in batches:
+            t0 = time.perf_counter()
+            out.append(eng.score_batch(mb))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, ms
+
+    def matches(got_mb, want_mb):
+        return all(np.allclose(g, w, rtol=rtol, atol=atol)
+                   for g, w in zip(got_mb, want_mb))
+
+    def check_frame(label, frame, p):
+        """The decoded weights against ``p``, the weights given to
+        ``make_update``: within the wire grid's error bound, and exact where
+        ``p`` lies outside the grid (the outlier sidecar). Then the engine's
+        int8 tables byte-identical to a full requantize of the decoded
+        weights and its dense leaves equal to them, and its scores within
+        the slice-1 tolerance of the uncached oracle."""
+        wire.apply_update(frame)
+        f32 = wire.materialize(manifest=sender.manifest, like=p)
+        meta = sender._last_meta
+        lo, hi = meta.w_min, meta.w_min + meta.bucket_size * (Q.B_MAX - 1)
+        # half a bucket, plus the f32 roundings of the encode's difference
+        # and quotient and the decode's product and sum (under 8 ulps of the
+        # grid's largest magnitude)
+        w_tol = Q.max_error(meta) + 8 * torch.finfo(torch.float32).eps * max(
+            abs(lo), abs(hi))
+        decoded = dict(layout.flatten_with_paths(f32))
+        w_err, n_out = 0.0, 0
+        for path, want in layout.flatten_with_paths(p):
+            got = decoded[path]
+            out = (want < lo) | (want > hi)  # f32 against the f32 bounds
+            n_out += int(out.sum())
+            check(torch.equal(got[out], want[out]),
+                  f"update {label}: {path} weights outside the grid were not "
+                  "carried exactly")
+            err = float((got - want).abs().max())
+            check(err <= w_tol, f"update {label}: {path} decoded max abs err "
+                  f"{err:.3e} > the grid's bound {w_tol:.3e}")
+            w_err = max(w_err, err)
+        check(n_out == meta.n_outliers,
+              f"update {label}: {n_out} weights outside the grid, the sender "
+              f"counted {meta.n_outliers}")
+        want = Q.quantize_params_rows(f32)
+        for path, leaf in layout.leaves(want):
+            got = eng.params
+            for key in path:
+                got = got[key]
+            check(torch.equal(got, leaf) if isinstance(leaf, torch.Tensor)
+                  else got == leaf,
+                  f"update {label}: engine leaf {layout.path_str(path)} "
+                  "differs from a full requantize of the decoded frame")
+        got, ms = score_all()
+        worst = 0.0
+        for mb, g_mb in zip(batches, got):
+            for req, g in zip(mb, g_mb):
+                oracle = eng.score_uncached(*req).cpu().numpy()
+                check(g.shape == (req[2].shape[0],) and np.isfinite(g).all()
+                      and np.allclose(g, oracle, rtol=rtol, atol=atol),
+                      f"update {label}: scores vs the uncached oracle max "
+                      f"abs err {np.abs(g - oracle).max():.3e}")
+                worst = max(worst, float(np.abs(g - oracle).max()))
+        print(f"update {label}: decoded weights within {w_err:.3e} of the "
+              f"sent ones (bound {w_tol:.3e}; {n_out} outside the grid, "
+              f"exact); engine tables and dense leaves equal a full "
+              f"requantize of them; scores vs oracle max abs err {worst:.3e} "
+              f"(rtol {rtol}, atol {atol})")
+        return got, ms
+
+    def frame_launches(label, want):
+        if not on_card:
+            return
+        counts = phase_launches[label]
+        got = {k: counts[k] for k in want}
+        check(got == want, f"{label}: launches {got}, want {want}")
+
+    def report(kind_name, frame, make_ms, apply_ms, st0, st1,
+               how="apply_update"):
+        share = 100.0 * len(frame) / raw_bytes
+        stage = {k: (getattr(st1, k) - getattr(st0, k)) * 1e3 for k in
+                 ("frame_seconds", "dequant_seconds", "quantize_seconds",
+                  "decode_seconds")}
+        publish = apply_ms - stage["decode_seconds"]
+        print(f"update {kind_name} frame: {len(frame)} bytes = {share:.3f}% "
+              f"of the raw f32 file ({raw_bytes} bytes) | make_update "
+              f"{make_ms:.1f} ms | {how} {apply_ms:.1f} ms: frame "
+              f"{stage['frame_seconds']:.1f} + dequant "
+              f"{stage['dequant_seconds']:.1f} + requantize "
+              f"{stage['quantize_seconds']:.1f} + publish/prewarm/rest "
+              f"{publish:.1f} ms | {smi}")
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        if on_card:
+            torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    k7, k8, k9 = "minmax", "quantize_codes", "dequantize_codes"
+    # round 0: a full frame through apply_update
+    frame, make_ms = timed(lambda: run_phase(
+        "update make_update full", lambda: sender.make_update(params)))
+    raw_bytes = sum(e["nbytes"] for e in sender.manifest)
+    check(T.unframe(frame).kind == T.KIND_FULL, "round 0 is not a full frame")
+    st0 = eng.update_pipe().stats.__class__(**vars(eng.update_pipe().stats))
+    _, apply_ms = timed(lambda: run_phase(
+        "update apply_update full",
+        lambda: eng.apply_update(frame, sender.manifest, params)))
+    report("full", frame, make_ms, apply_ms, st0, eng.update_pipe().stats)
+    frame_launches("update make_update full", {k7: 1, k8: 1, k9: 0})
+    frame_launches("update apply_update full", {k7: 0, k8: 0, k9: 1})
+    eng.warmup(max_requests=r_rows, max_candidates=n_cand)
+    check_frame("full", frame, params)
+
+    # round 1: 1% of the rows and LR entries plus every dense leaf; the grid
+    # holds by hysteresis, so the frame is a row delta
+    n_touch = v // 100
+    rows = torch.randperm(v, generator=gen, device=dev)[:n_touch]
+    p1 = perturbed(params, rows, 1e-3, 1e-3)
+    # eight touched weights pushed outside the grid: hysteresis keeps the
+    # grid and the delta's sidecar must carry them exactly
+    grid = sender._last_meta
+    p1["ffm"]["emb"][rows[:4], 0, 0] = (
+        grid.w_min + grid.bucket_size * (Q.B_MAX - 1) + 1.0)
+    p1["ffm"]["emb"][rows[4:8], 0, 0] = grid.w_min - 1.0
+    touched = {"ffm/emb": rows, "lr/w": rows}
+    frame, make_ms = timed(lambda: run_phase(
+        "update make_update delta",
+        lambda: sender.make_update(p1, touched=touched)))
+    check(T.unframe(frame).kind == T.KIND_DELTA,
+          f"round 1 frame kind {T.unframe(frame).kind}, want a delta")
+    st0 = eng.update_pipe().stats.__class__(**vars(eng.update_pipe().stats))
+    _, apply_ms = timed(lambda: run_phase(
+        "update apply_update delta", lambda: eng.apply_update(frame)))
+    st1 = eng.update_pipe().stats
+    report("delta", frame, make_ms, apply_ms, st0, st1)
+    frame_launches("update make_update delta", {k7: 1, k8: 1, k9: 0})
+    frame_launches("update apply_update delta", {k7: 0, k8: 0, k9: 1})
+    requantized = st1.rows_requantized - st0.rows_requantized
+    check(requantized == n_touch,
+          f"delta requantized {requantized} rows, touched {n_touch}")
+    print(f"update delta: {requantized} rows and "
+          f"{st1.blocks_requantized - st0.blocks_requantized} LR blocks "
+          f"requantized ({n_touch} rows touched of {v})")
+    before, ms_before = check_frame("delta", frame, p1)
+
+    # round 2: a patch frame (no touched rows) through submit_update. The
+    # main thread scores while the pipe ingests it and after the publish,
+    # until flush() would return at once. The publish is held until a full
+    # pass of microbatches has been scored against the old generation, so
+    # both generations are seen whatever the ingest's speed.
+    rows = torch.randperm(v, generator=gen, device=dev)[:v // 20]
+    p2 = perturbed(p1, rows, 1e-2, 1e-3, bias_shift=1.0)
+    frame, make_ms = timed(lambda: run_phase(
+        "update make_update patch", lambda: sender.make_update(p2)))
+    check(T.unframe(frame).kind == T.KIND_PATCH,
+          f"round 2 frame kind {T.unframe(frame).kind}, want a patch")
+    pipe = eng.update_pipe()
+    st0 = pipe.stats.__class__(**vars(pipe.stats))
+    during, during_ms = [], []
+    release = threading.Event()
+    publish = eng._publish
+
+    def held_publish(params, version, nbytes):
+        check(release.wait(600), "update: the held publish was never released")
+        return publish(params, version, nbytes)
+
+    def ingest_while_scoring():
+        eng._publish = held_publish
+        try:
+            assert eng.submit_update(frame)
+            after_publish, deadline = 0, time.perf_counter() + 600
+            while after_publish < len(batches):
+                check(time.perf_counter() < deadline and pipe.stats.frames_failed
+                      == st0.frames_failed == 0,
+                      f"update: the patch was not published: {pipe.stats}")
+                if pipe.stats.published != st0.published:
+                    after_publish += 1
+                t0 = time.perf_counter()
+                during.append(eng.score_batch(batches[len(during)
+                                                      % len(batches)]))
+                during_ms.append((time.perf_counter() - t0) * 1e3)
+                if len(during) == len(batches):
+                    release.set()
+        finally:
+            release.set()
+            del eng._publish
+        check(pipe.flush(timeout=600), "update pipe did not drain")
+
+    _, apply_ms = timed(lambda: run_phase("update submit_update patch",
+                                          ingest_while_scoring))
+    report("patch", frame, make_ms, apply_ms, st0, pipe.stats,
+           how="submit_update..flush (scoring meanwhile)")
+    frame_launches("update make_update patch", {k7: 1, k8: 1, k9: 0})
+    frame_launches("update submit_update patch", {k7: 0, k8: 0, k9: 1})
+    after, ms_after = check_frame("patch", frame, p2)
+    n_old = n_new = 0
+    for i, got in enumerate(during):
+        old = matches(got, before[i % len(batches)])
+        new = matches(got, after[i % len(batches)])
+        check(old != new, f"update patch: microbatch {i} scored during the "
+              f"ingest matches {'both' if old else 'neither'} generation")
+        n_old, n_new = n_old + old, n_new + new
+    check(n_old >= len(batches) and n_new >= len(batches),
+          f"update patch: {n_old} microbatches on the old generation and "
+          f"{n_new} on the new, want at least {len(batches)} of each")
+    check(eng.generation == 3 and eng.weights_version == sender.version
+          and eng.stats.updates_applied == 3,
+          f"update: generation {eng.generation}, weights_version "
+          f"{eng.weights_version}, updates_applied {eng.stats.updates_applied}")
+    print(f"update patch: {len(during)} microbatches scored across the "
+          f"ingest and the publish, {n_old} on the old generation and "
+          f"{n_new} on the new (none mixed); contexts prewarmed "
+          f"{pipe.stats.contexts_refreshed}")
+    if on_card:
+        print(f"update: p50 per microbatch {np.median(ms_before):.3f} ms "
+              f"before the patch swap, {np.median(ms_after):.3f} ms after "
+              f"(the 4 microbatches, first pass after each swap); while the "
+              f"patch was ingested p50 {np.median(during_ms):.3f} ms, p99 "
+              f"{np.percentile(during_ms, 99):.3f} ms over {len(during_ms)} "
+              f"microbatches | {smi}")
+    pipe.close(timeout=60)
 
 
 if __name__ == "__main__":

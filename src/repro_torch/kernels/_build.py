@@ -34,9 +34,9 @@ BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int64
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 # C entry points and their argument types (pointers and the stream as
-# c_void_p, sizes and flags as int64)
+# c_void_p, sizes and flags as int64, f32 scalars as c_float)
 SIGNATURES = {
     # codes, scale, zero, idx, out, m, rowlen, vec, stream
     "gather_dequant_rows_q8": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -56,6 +56,12 @@ SIGNATURES = {
     # as above with ecx, ecc and without scale, zero
     "ffm_fused_logits_rows": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _P),
+    # w, partials, ticket, out, n, vec, stream
+    "minmax": (_P, _P, _P, _P, _I, _I, _P),
+    # w, q, w_min, bucket, n, vec, stream
+    "quantize_codes": (_P, _P, _F, _F, _I, _I, _P),
+    # q, w, w_min, bucket, n, vec, stream
+    "dequantize_codes": (_P, _P, _F, _F, _I, _I, _P),
 }
 
 # launches per kernel since the last reset (plain integers; set them to 0 to

@@ -33,6 +33,12 @@ composes the paper's tricks in one scoring path:
   the staged path on the same tables the deviation is f32 reassociation,
   bounded by ``quantization.fused_logit_tolerance``. ``deepffm`` heads and
   ``score_uncached`` stay staged.
+* **§3/§6 hot weight swap** — :meth:`InferenceEngine.apply_update` /
+  :meth:`~InferenceEngine.submit_update` ingest trainer frames through the
+  engine's :class:`~repro_torch.serving.update_pipe.UpdatePipe` (decode and
+  dequantize on the card, requantize only a delta's touched rows) and
+  publish ``(params, generation)`` atomically. The prefix cache keeps its
+  trie: entries carry their generation and stale ones are recomputed.
 
 Candidate counts pad to power-of-two buckets and the requests of a
 microbatch stack into one forward. Host-side request bookkeeping (tokens,
@@ -40,7 +46,7 @@ dedup, chunking, scatter-back) is numpy, exactly as in the JAX engine; the
 tables, cached states and all scoring arithmetic live on the device.
 
 Waiting for later slices: the host pre-gather, the parallel span pipeline,
-the update pipe and weight publish, engine rotation, and ``deadline_ms``.
+engine rotation, and ``deadline_ms``.
 """
 from __future__ import annotations
 
@@ -58,7 +64,10 @@ from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.convert import to_device
 from repro_torch.core import deepffm, ffm
 from repro_torch.core import quantization as Q
-from repro_torch.serving.prefix_cache import PrefixCache, context_tokens
+from repro_torch.serving.prefix_cache import (PrefixCache,
+                                              context_from_tokens,
+                                              context_tokens)
+from repro_torch.serving.update_pipe import UpdatePipe
 
 
 # ---------------------------------------------------------------------------
@@ -80,6 +89,8 @@ class ServeStats:
     candidates: int = 0
     rows_scored: int = 0
     seconds: float = 0.0
+    updates_applied: int = 0
+    update_bytes: int = 0
     ctx_partials_full: int = 0
     ctx_tail_fields: int = 0
     latency_window: int = 4096
@@ -140,6 +151,9 @@ class ServeStats:
 # ---------------------------------------------------------------------------
 
 BACKENDS = ("reference", "cuda")
+
+# contexts recomputed per step of ``prewarm_contexts``
+PREWARM_CHUNK = 8
 
 
 class ScoringPlan:
@@ -367,6 +381,9 @@ class InferenceEngine:
         self.hits = 0    # guarded-by: _lock
         self.misses = 0  # guarded-by: _lock
         self.stats = ServeStats()  # guarded-by: _lock
+        self.weights_version = 0  # trainer's stamp from the update frame
+        self._pipe: Optional[UpdatePipe] = None  # guarded-by: _pipe_lock
+        self._pipe_lock = threading.Lock()
         if warmup_buckets is not None and params is not None:
             self.warmup(max_requests=warmup_buckets[0],
                         max_candidates=warmup_buckets[1])
@@ -421,25 +438,113 @@ class InferenceEngine:
 
         return nbytes(self.params)
 
-    # -- weight management ---------------------------------------------------
-    def _maybe_quantize(self, params):
+    # -- weight management (§3 / §6) ---------------------------------------
+    def _maybe_quantize(self, params, prev=None, touched_rows=None):
         """Move ``params`` to the engine's device and, on a quantized engine,
         replace the f32 gather tables with int8 tables (a no-op for tables
-        that are already quantized)."""
+        that are already quantized; ``prev`` / ``touched_rows`` requantize
+        only touched rows, see ``quantization.quantize_params_rows``)."""
         if params is None:
             return None
         params = to_device(params, self.device)
         if not self.quantized:
             return params
-        return Q.quantize_params_rows(params)
+        return Q.quantize_params_rows(params, prev=prev,
+                                      touched_rows=touched_rows)
 
     def install_params(self, params) -> None:
         """Swap the weight tree in place. The (params, generation) pair is
         published atomically, so concurrent scorers see either the old or
         the new version, never a mix."""
         params = self._maybe_quantize(params)
-        with self._lock:  # serialize the generation bump
+        with self._lock:  # serialize the generation bump against _publish
             self._weights = (params, self._weights[1] + 1)
+
+    def _publish(self, params, version: int, nbytes: int) -> int:
+        """Atomically install a fully materialized params tree (the update
+        pipe's publish step — the only weight work under the request lock).
+        The quantize fallback runs *before* the lock and is a no-op for the
+        update pipe, which ships already-quantized tables."""
+        params = self._maybe_quantize(params)
+        with self._lock:
+            self._weights = (params, self._weights[1] + 1)
+            self.weights_version = version
+            self.stats.updates_applied += 1
+            self.stats.update_bytes += nbytes
+            return self._weights[1]
+
+    def update_pipe(self, manifest=None, like_params=None) -> UpdatePipe:
+        """The engine's (lazily created) trainer-update ingestion pipe."""
+        with self._pipe_lock:
+            pipe, created = self._pipe, False
+            if pipe is None:
+                pipe = self._pipe = UpdatePipe(self, manifest=manifest,
+                                               like_params=like_params)
+                created = True
+        # reconfigure outside _pipe_lock: configure serializes behind the
+        # pipe's _ingest_lock, which ranks *below* _pipe_lock in the
+        # declared lock order
+        if not created and (manifest is not None or like_params is not None):
+            pipe.configure(manifest, like_params)
+        return pipe
+
+    def apply_update(self, update: bytes, manifest=None, like_params=None) -> None:
+        """Ingest one trainer update (full file, patch, or row delta) and
+        hot-swap weights — a thin synchronous wrapper over the update pipe.
+
+        Cache-preserving: the prefix tree keeps its entries; lookups compare
+        each entry's generation stamp and recompute stale partials. Decode,
+        dequantize and requantize happen *outside* the request lock (on the
+        pipe's own stream on the card); only the final (params, generation)
+        pointer swap takes it.
+        """
+        self.update_pipe().ingest(update, manifest=manifest,
+                                  like_params=like_params)
+
+    def submit_update(self, update: bytes, manifest=None,
+                      like_params=None) -> bool:
+        """Asynchronous :meth:`apply_update`: enqueue the frame for the update
+        pipe's background thread and return once it is queued — *not* once it
+        is applied. A full pipe queue applies backpressure (blocks the caller
+        until a slot frees) rather than dropping, because dropped frames
+        would desync the Sender's patch/delta chain. The new generation
+        becomes visible to scorers at the pipe's publish; ``update_pipe().
+        flush()`` waits for it."""
+        pipe = self.update_pipe(manifest, like_params)
+        return pipe.submit(update, block=True)
+
+    def prewarm_contexts(self, params=None, generation: Optional[int] = None,
+                         pause_s: float = 0.0) -> int:
+        """Recompute every cached context partial against ``(params,
+        generation)`` — by default the *next* generation — and install the
+        results, ``PREWARM_CHUNK`` contexts at a time.
+
+        The update pipe calls this from its ingest thread with the freshly
+        decoded standby params *before* publishing them: the atomic swap then
+        flips both the weights and an already-warm cache, so post-swap
+        requests get full-depth hits instead of paying the stale recompute on
+        the request path. Cache nodes hold per-generation entry slots (two
+        newest), so current-generation scorers keep their hits while the next
+        generation warms. ``pause_s`` sleeps between chunks (cooperative
+        throttling on the ingest thread). Returns the number of contexts
+        recomputed."""
+        if params is None:
+            params = self.params
+        if params is None:
+            return 0
+        if generation is None:
+            generation = self.generation + 1
+        with self._lock:
+            keys = self._cache.keys()
+        ctxs = [(key, *context_from_tokens(key)) for key in keys]
+        for i in range(0, len(ctxs), PREWARM_CHUNK):
+            # record_stats=False: prewarm churn must not pollute the
+            # request-path hit-depth histogram or partial/tail counters
+            self._resolve_contexts(ctxs[i:i + PREWARM_CHUNK], params,
+                                   generation, record_stats=False)
+            if pause_s:
+                time.sleep(pause_s)
+        return len(ctxs)
 
     # -- context cache (§5, prefix tree) ------------------------------------
     def _context_tensors(self, ctxs) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -452,10 +557,12 @@ class InferenceEngine:
 
     def _resolve_contexts(self, ctxs: List[Tuple[Tuple[bytes, ...],
                                                  np.ndarray, np.ndarray]],
-                          params, generation: int
+                          params, generation: int,
+                          record_stats: bool = True
                           ) -> Tuple[List[Dict], List[bool]]:
         """Full-depth prefix states for each unique (tokens, idx, val)
-        context, plus a full-depth-hit flag per context.
+        context, plus a full-depth-hit flag per context (``record_stats``:
+        count the lookups in the hit-depth histogram and the counters).
 
         Prefix-tree lookups find the deepest cached partial per context; the
         remaining tails are computed on the device per miss group, one group
@@ -492,8 +599,9 @@ class InferenceEngine:
                     # within a burst, so later rounds never find a full match
                     states[i] = state
                     full_hit[i] = first_round
-                    with self._lock:
-                        self._cache.hit_depths[fc] += 1
+                    if record_stats:
+                        with self._lock:
+                            self._cache.hit_depths[fc] += 1
                     continue
                 above = [(d, ctxs[i][0][:d]) for d in checkpoints if d > depth]
                 if any(c in claimed for c in above):
@@ -515,11 +623,13 @@ class InferenceEngine:
                         self.cfg, emb, lr_w, base,
                         ctx_idx[i, depth:], ctx_val[i, depth:]))
                 with self._lock:
-                    self.stats.ctx_partials_full += sum(
-                        1 for i in members if looked[i][0] == 0)
-                    self.stats.ctx_tail_fields += t * len(members)
+                    if record_stats:
+                        self.stats.ctx_partials_full += sum(
+                            1 for i in members if looked[i][0] == 0)
+                        self.stats.ctx_tail_fields += t * len(members)
                     for i, state in zip(members, fresh):
-                        self._cache.hit_depths[depth] += 1
+                        if record_stats:
+                            self._cache.hit_depths[depth] += 1
                         states[i] = state
                         self._cache.insert(ctxs[i][0], generation, state)
             pending = deferred

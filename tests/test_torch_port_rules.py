@@ -1,7 +1,8 @@
 """Rules the port keeps (checked on the CPU).
 
-* ``src/repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor the
-  JAX package ``repro``;
+* ``src/repro_torch``, ``chip_smoke.py`` and ``ingest_pacing.py`` import
+  neither ``jax`` nor the JAX package ``repro`` (nor ``ml_dtypes``, which
+  the card's machine lacks);
 * the port's ``FFMConfig`` equals ``repro.common.config.FFMConfig`` field
   for field;
 * the card is the default: an entry point without ``device`` raises when
@@ -18,19 +19,22 @@ import pytest
 import torch
 
 from repro.common.config import FFMConfig as JFFMConfig
+from repro_torch.checkpoint import transfer as T
 from repro_torch.common.config import FFMConfig
 from repro_torch.common.device import resolve_device
 from repro_torch.core import deepffm
 from repro_torch.kernels import _build
 from repro_torch.kernels.ffm_interaction import ops as fi_ops
 from repro_torch.kernels.ffm_interaction import ref as fi_ref
+from repro_torch.kernels.quantize import ops as q_ops
+from repro_torch.kernels.quantize import ref as q_ref
 from repro_torch.kernels.row_gather import ops as rg_ops
 from repro_torch.kernels.row_gather import ref as rg_ref
 from repro_torch.serving.engine import InferenceEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "ingest_pacing.py", ROOT / "chip_smoke.py"]
 
 
 def _imported_roots(path: Path):
@@ -45,12 +49,13 @@ def _imported_roots(path: Path):
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
 def test_port_imports_neither_jax_nor_repro(path):
-    bad = {m for m in _imported_roots(path) if m in ("jax", "jaxlib", "repro")}
+    bad = {m for m in _imported_roots(path)
+           if m in ("jax", "jaxlib", "repro", "ml_dtypes")}
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
 def test_port_file_list_is_complete():
-    names = {p.relative_to(ROOT / "src").as_posix() for p in PORT_FILES[:-1]}
+    names = {p.relative_to(ROOT / "src").as_posix() for p in PORT_FILES[:-2]}
     for mod in ("repro_torch/common/config.py", "repro_torch/common/device.py",
                 "repro_torch/common/pspec.py", "repro_torch/convert.py",
                 "repro_torch/core/quantization.py", "repro_torch/core/ffm.py",
@@ -60,11 +65,17 @@ def test_port_file_list_is_complete():
                 "repro_torch/kernels/ffm_interaction/ref.py",
                 "repro_torch/kernels/row_gather/ref.py",
                 "repro_torch/serving/prefix_cache.py",
-                "repro_torch/serving/engine.py"):
+                "repro_torch/serving/engine.py",
+                "repro_torch/core/patcher.py",
+                "repro_torch/checkpoint/layout.py",
+                "repro_torch/checkpoint/transfer.py",
+                "repro_torch/kernels/quantize/ops.py",
+                "repro_torch/kernels/quantize/ref.py",
+                "repro_torch/serving/update_pipe.py"):
         assert mod in names
     sources = {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu")}
     assert sources == {"row_gather.cu", "ffm_interaction.cu",
-                       "ffm_fused_logits.cu"}
+                       "ffm_fused_logits.cu", "quantize.cu"}
 
 
 @pytest.mark.parametrize("kw", [{}, {"n_fields": 8, "context_fields": 5,
@@ -90,6 +101,16 @@ def test_card_is_the_default():
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+    # the update path: the sender quantizes and the receiver decodes on the
+    # card unless told otherwise
+    params = {"w": torch.zeros(3)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.Sender().make_update(params)
+    snd = T.Sender(device="cpu")
+    rcv = T.Receiver()
+    rcv.apply_update(snd.make_update(params))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rcv.materialize(manifest=snd.manifest)
 
 
 def _cases():
@@ -117,6 +138,9 @@ def _cases():
     ectx_full = t(rng.normal(size=(2, 4, 6, 4)).astype(np.float32))
     depth = t(np.array([0, 3], np.int32))
     base = t(rng.normal(size=(2, 3)).astype(np.float32))
+    # wire quantization: a flat weight space and its uint16 codes
+    w = t(rng.normal(0, 0.3, 1001).astype(np.float32))
+    q = t(rng.integers(0, 2**16, 1001).astype(np.uint16).view(np.int16))
     return {
         "gather_dequant_rows_q8": (rg_ops.gather_dequant_rows_q8,
                                    rg_ref.gather_dequant_rows_q8_ref,
@@ -137,6 +161,12 @@ def _cases():
                                   fi_ref.ffm_fused_logits_rows_ref,
                                   (ectx_full, vctx, depth, base, ecx, ecc,
                                    vcand)),
+        "minmax": (q_ops.minmax, q_ref.minmax_ref, (w,)),
+        "quantize_codes": (q_ops.quantize_codes, q_ref.quantize_codes_ref,
+                           (w, -1.21, 2.4 / 65535)),
+        "dequantize_codes": (q_ops.dequantize_codes,
+                             q_ref.dequantize_codes_ref,
+                             (q, -1.21, 2.4 / 65535)),
     }
 
 
