@@ -15,7 +15,12 @@ Phases, each of which raises on failure (nothing is caught):
    tiles, rows without candidates) and the fused kernels' bit-invariance
    across row and candidate buckets. The wire-quantization kernels K7-K9
    run over the whole DeepFFM weight space (~50.6 M weights) and must match
-   exactly (min/max, codes and floats bit for bit).
+   exactly (min/max, codes and floats bit for bit). K10, the §4.3 block-skip
+   weight gradient, runs at the trainer's two hidden-layer shapes (one
+   microbatch's pair of launches) and on ``test_kernels.py``'s sweep (rtol
+   1e-4, atol 1e-4), gives exact zeros for an all-zero gradient (also where
+   x is NaN: a skipped block adds nothing), and is bit-identical from launch
+   to launch; ``torch.matmul(x.T, g)`` is timed beside it.
 3. The main paths at full width (``FFMConfig()``, V = 2^18, random weights
    from a seed), all driven by the same microbatches (4 of 8 requests with
    16-64 candidates each):
@@ -43,10 +48,31 @@ Phases, each of which raises on failure (nothing is caught):
      generation, and both must be seen; K7 and K8 launch once per
      ``make_update``, K9 once per decode. Frame bytes per kind, the stage
      times and the scorers' p50 / p99 during the ingest are printed.
+   - training: a ``TrainingPipeline(FFMConfig(), "deepffm")`` on the card
+     runs 3 rounds of 8 microbatches of 512 from ``CTRStream(seed)`` (the
+     row-sparse AdaGrad step, its two hidden layers' weight gradients on
+     K10), and an int8 staged DeepFFM engine applies each round's frame
+     (full, then row deltas). After each frame the update phase's checks
+     hold (decoded weights within the grid's bound of ``pipe.params``,
+     tables equal to a full requantize, scores against the oracle); K10
+     launches exactly twice per microbatch; ``touched_rows`` is the number
+     of unique indices, and every untouched row of ``ffm/emb`` and ``lr/w``
+     and of their accumulators is byte-identical to before the round.
+     Round 1, re-run from a clone of the starting state, gives
+     byte-identical params and frame bytes; two microbatches through the
+     dense ``make_round_step`` and ``make_sparse_round_step`` from the same
+     start agree within rtol 2e-4, atol 1e-6 (scores rtol 1e-4). Both
+     steps take dW from K10, so one more trainer microbatch at the trained
+     weights holds K10 to plain autograd: its MLP weight gradients through
+     the §4.3 backward and through autograd (cuBLAS) agree within 1e-4 of
+     the gradient's largest magnitude. Per round it prints examples/s, the
+     step / ``make_update`` split, mean loss, progressive AUC, skip stats,
+     touched rows and frame bytes.
    Every kernel's launch counter must have risen during these runs.
 4. Where the time goes: one more microbatch per engine (and per staged
-   ``"ffm"`` twin) under torch.profiler (kernels launched, device-busy time
-   against wall time, top kernels).
+   ``"ffm"`` twin), and one training microbatch, under torch.profiler
+   (kernels launched, device-busy time against wall time, top kernels; for
+   training, K10's share).
 
 The second-to-last lines are the kernels' JSON record and the nvidia-smi
 line; the last line is ``{"ok": true, "device": {...}}``. Without a card (or
@@ -72,6 +98,12 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
 TIMING_ITERS = 200
+SCORE_RTOL, SCORE_ATOL = 2e-4, 2e-5  # staged scores vs the uncached oracle
+TRAIN_BATCH = 512  # examples per training microbatch (examples/train_ctr_100m.py)
+# K10's weight gradients in a training step vs plain autograd's, as a share
+# of the gradient's largest magnitude (two f32 sums of 512 products, in
+# different orders)
+GRAD_RTOL = 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -136,10 +168,11 @@ def make_traffic(cfg, rng, n_batches=4, per_batch=8, lo=16, hi=64):
     return batches
 
 
-def where_the_time_goes(name, eng, batch, smi, top=6):
-    """One more ``score_batch`` of ``batch`` under torch.profiler: the card's
-    kernel time against the call's wall time (profiler included), the number
-    of kernels the call launched, and the kernels with the most device time."""
+def where_the_time_goes(name, fn, smi, top=6, share_of=None):
+    """One more call of ``fn`` (a microbatch) under torch.profiler: the
+    card's kernel time against the call's wall time (profiler included), the
+    number of kernels the call launched, the kernels with the most device
+    time, and the share of device time of kernels named ``share_of``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -147,7 +180,7 @@ def where_the_time_goes(name, eng, batch, smi, top=6):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.score_batch(batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kern = [e for e in prof.events()
@@ -167,6 +200,11 @@ def where_the_time_goes(name, eng, batch, smi, top=6):
           f"({100 * dev_ms / wall_ms:.1f}% of wall) | {smi}")
     for kname, (n, t) in ranked:
         print(f"  {t:.4f} ms in {n} launches: {kname[:90]}")
+    if share_of is not None:
+        hits = [v for k, v in by_name.items() if share_of in k]
+        n, t = sum(c for c, _ in hits), sum(ms for _, ms in hits)
+        print(f"  {share_of}: {n} launches, {t:.4f} ms = "
+              f"{100 * t / dev_ms:.1f}% of device busy time")
     return len(kern)
 
 
@@ -201,6 +239,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.quantize import ref as q_ref
     from repro_torch.kernels.row_gather import ops as rg_ops
     from repro_torch.kernels.row_gather import ref as rg_ref
+    from repro_torch.kernels.sparse_mlp import ops as sk_ops
+    from repro_torch.kernels.sparse_mlp import ref as sk_ref
     from repro_torch.serving.engine import InferenceEngine
 
     # results are held to f32 references: no TF32 anywhere
@@ -233,7 +273,8 @@ def main(argv=None) -> int:
               f"{(fc_ * (f_ - fc_) * k_ + fc_) * 4} B, ffm_interaction_matrix "
               f"{(f_ * f_ * k_ + f_) * 4} B, ffm_fused_logits_(q8|rows) "
               f"{(fc_ * (f_ * k_ + 4) + fc_ + 4) * 4} B, minmax / "
-              "quantize_codes / dequantize_codes 0 B")
+              "quantize_codes / dequantize_codes / sparse_weight_grad 0 B "
+              "(sparse_weight_grad: 24 KiB static)")
     else:
         print("card: none (CPU rehearsal: plain versions, no timings)")
 
@@ -560,6 +601,69 @@ def main(argv=None) -> int:
           "with plain versions")
     del w, qw
 
+    # K10: one training microbatch's pair of launches, the weight gradients
+    # of the two hidden layers (x: MergeNorm output / first hidden layer's
+    # activations; g: the ReLU-masked gradient, about half of it zero)
+    dims = (cfg.n_pairs + 1,) + tuple(cfg.mlp_hidden)
+    pairs = []
+    for d_in, d_out in zip(dims[:-1], dims[1:]):
+        pairs.append((randn(TRAIN_BATCH, d_in),
+                      randn(TRAIN_BATCH, d_out)
+                      * (uniform(0, 1, TRAIN_BATCH, d_out) < 0.5)))
+    k10_bytes = sum((x.numel() + g.numel() + x.shape[1] * g.shape[1]) * 4
+                    for x, g in pairs)
+    # the products the data needs: each nonzero g[b, j] meets the I values
+    # of x[b] (a skipped block's would be zeros)
+    k10_flops = sum(2 * x.shape[1] * int((g != 0).sum()) for x, g in pairs)
+    kernel_case(
+        "sparse_weight_grad", "src/repro_torch/csrc/sparse_mlp.cu",
+        "src/repro/kernels/sparse_mlp/sparse_mlp.py:40",
+        lambda: tuple(sk_ops.sparse_weight_grad(x, g) for x, g in pairs),
+        lambda: tuple(sk_ref.sparse_weight_grad_ref(x, g) for x, g in pairs),
+        (1e-4, 1e-4), k10_bytes, k10_flops,
+        [[TRAIN_BATCH, x.shape[1], g.shape[1]] for x, g in pairs],
+        library=lambda: tuple(torch.matmul(x.T, g) for x, g in pairs))
+    for x, g in pairs:
+        b_ms, _ = bound((x.numel() + g.numel() + x.shape[1] * g.shape[1]) * 4,
+                        2 * x.shape[1] * int((g != 0).sum()))
+        print(f"kernel sparse_weight_grad {list(x.shape)} x {list(g.shape)}: "
+              f"device {device_ms(lambda: sk_ops.sparse_weight_grad(x, g))} "
+              f"ms | torch.matmul {device_ms(lambda: torch.matmul(x.T, g))} "
+              f"ms | bound {b_ms:.3e} ms")
+    # test_kernels.py's sweep; an all-zero g gives exact zeros, even where
+    # x is NaN (a skipped block adds nothing; the plain einsum gives NaN);
+    # a dead 128-row batch block (K10's block) is skipped whatever x holds
+    for (bb, ii, jj), sparsity in ((shape, sp) for shape in (
+            (16, 8, 8), (64, 32, 48), (200, 130, 260), (128, 128, 128),
+            (33, 257, 65)) for sp in (0.0, 0.5, 1.0)):
+        x = randn(bb, ii)
+        g = randn(bb, jj) * (uniform(0, 1, bb, jj) >= sparsity)
+        got, want = sk_ops.sparse_weight_grad(x, g), sk_ref.sparse_weight_grad_ref(x, g)
+        check(allclose(got, want, 1e-4, 1e-4) and
+              (sparsity < 1.0 or bool((got == 0).all())),
+              f"sparse_weight_grad {[bb, ii, jj]} sparsity {sparsity}: max "
+              f"abs err {max_err(got, want):.3e}")
+    if on_card:
+        x, g = randn(300, 40), randn(300, 24)
+        g[:128] = 0
+        x[:128] = float("nan")
+        clean = x.clone()
+        clean[:128] = 0
+        check(torch.equal(sk_ops.sparse_weight_grad(x, torch.zeros_like(g)),
+                          torch.zeros(40, 24, device=dev))
+              and allclose(sk_ops.sparse_weight_grad(x, g),
+                           sk_ref.sparse_weight_grad_ref(clean, g), 1e-4, 1e-4),
+              "sparse_weight_grad: a skipped block changed the result")
+    x, g = pairs[0]
+    check(torch.equal(sk_ops.sparse_weight_grad(x, g),
+                      sk_ops.sparse_weight_grad(x, g)),
+          "sparse_weight_grad differs between two launches")
+    print("kernel sparse_weight_grad: test_kernels.py sweep within 1e-4, "
+          "all-zero g exact zeros, "
+          + ("NaN x in skipped blocks ignored, " if on_card else "")
+          + "two launches bit-identical")
+    del pairs
+
     # -- phase 3: the main path at full width --------------------------------
     t0 = time.perf_counter()
     params = deepffm.init_params(cfg, args.seed, "deepffm", dev)
@@ -720,18 +824,26 @@ def main(argv=None) -> int:
 
     update_path(cfg, args, dev, on_card, smi, batches, run_phase,
                 phase_launches, randn, r_rows, n_cand)
+    train_step = training_path(cfg, args, dev, on_card, smi, batches,
+                               run_phase, phase_launches, r_rows, n_cand)
 
     if on_card:
         for name, c in main_launches.items():
             check(c > 0, f"kernel {name} was not launched on the main path")
         for name, eng in engines.items():
-            where_the_time_goes(name, eng, batches[-1], smi)
+            where_the_time_goes(name, lambda eng=eng: eng.score_batch(
+                batches[-1]), smi)
         for name, (eng, twin) in fused.items():
-            n_fused = where_the_time_goes(name, eng, batches[-1], smi)
-            n_staged = where_the_time_goes(f"{name} staged twin", twin,
-                                           batches[-1], smi)
+            n_fused = where_the_time_goes(
+                name, lambda eng=eng: eng.score_batch(batches[-1]), smi)
+            n_staged = where_the_time_goes(
+                f"{name} staged twin",
+                lambda twin=twin: twin.score_batch(batches[-1]), smi)
             print(f"launches per microbatch: {name} {n_fused}, its staged "
                   f"\"ffm\" twin {n_staged}")
+        where_the_time_goes("training microbatch (row-sparse step, B="
+                            f"{TRAIN_BATCH})", train_step, smi, top=8,
+                            share_of="sparse_weight_grad")
     for rec in kernels:
         rec["launches"] = main_launches[rec["name"]]
 
@@ -747,6 +859,77 @@ def main(argv=None) -> int:
     return 0
 
 
+def check_decoded_frame(label, frame, p, eng, wire, sender, batches):
+    """``frame``, decoded by ``wire`` (a receiver on the card), against
+    ``p``, the weights given to ``sender.make_update``: within the wire
+    grid's error bound, and exact where ``p`` lies outside the grid (the
+    outlier sidecar). Then ``eng`` (an int8 engine that has applied the
+    frame): its int8 tables byte-identical to a full requantize of the
+    decoded weights and its dense leaves equal to them, and its scores of
+    ``batches`` within the slice-1 tolerance of the uncached oracle.
+    Returns the scores and each microbatch's wall time (ms)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import layout
+    from repro_torch.core import quantization as Q
+
+    wire.apply_update(frame)
+    f32 = wire.materialize(manifest=sender.manifest, like=p)
+    meta = sender._last_meta
+    lo, hi = meta.w_min, meta.w_min + meta.bucket_size * (Q.B_MAX - 1)
+    # half a bucket, plus the f32 roundings of the encode's difference
+    # and quotient and the decode's product and sum (under 8 ulps of the
+    # grid's largest magnitude)
+    w_tol = Q.max_error(meta) + 8 * torch.finfo(torch.float32).eps * max(
+        abs(lo), abs(hi))
+    decoded = dict(layout.flatten_with_paths(f32))
+    w_err, n_out = 0.0, 0
+    for path, want in layout.flatten_with_paths(p):
+        got = decoded[path]
+        out = (want < lo) | (want > hi)  # f32 against the f32 bounds
+        n_out += int(out.sum())
+        check(torch.equal(got[out], want[out]),
+              f"{label}: {path} weights outside the grid were not "
+              "carried exactly")
+        err = float((got - want).abs().max())
+        check(err <= w_tol, f"{label}: {path} decoded max abs err "
+              f"{err:.3e} > the grid's bound {w_tol:.3e}")
+        w_err = max(w_err, err)
+    check(n_out == meta.n_outliers,
+          f"{label}: {n_out} weights outside the grid, the sender "
+          f"counted {meta.n_outliers}")
+    want = Q.quantize_params_rows(f32)
+    for path, leaf in layout.leaves(want):
+        got = eng.params
+        for key in path:
+            got = got[key]
+        check(torch.equal(got, leaf) if isinstance(leaf, torch.Tensor)
+              else got == leaf,
+              f"{label}: engine leaf {layout.path_str(path)} "
+              "differs from a full requantize of the decoded frame")
+    got, ms = [], []  # the microbatches' scores and wall times (ms)
+    for mb in batches:
+        t0 = time.perf_counter()
+        got.append(eng.score_batch(mb))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    worst = 0.0
+    for mb, g_mb in zip(batches, got):
+        for req, g in zip(mb, g_mb):
+            oracle = eng.score_uncached(*req).cpu().numpy()
+            check(g.shape == (req[2].shape[0],) and np.isfinite(g).all()
+                  and np.allclose(g, oracle, rtol=SCORE_RTOL, atol=SCORE_ATOL),
+                  f"{label}: scores vs the uncached oracle max "
+                  f"abs err {np.abs(g - oracle).max():.3e}")
+            worst = max(worst, float(np.abs(g - oracle).max()))
+    print(f"{label}: decoded weights within {w_err:.3e} of the "
+          f"sent ones (bound {w_tol:.3e}; {n_out} outside the grid, "
+          f"exact); engine tables and dense leaves equal a full "
+          f"requantize of them; scores vs oracle max abs err {worst:.3e} "
+          f"(rtol {SCORE_RTOL}, atol {SCORE_ATOL})")
+    return got, ms
+
+
 def update_path(cfg, args, dev, on_card, smi, batches, run_phase,
                 phase_launches, randn, r_rows, n_cand):
     """Phase 3, update path: ``Sender.make_update`` -> an int8 DeepFFM
@@ -757,7 +940,6 @@ def update_path(cfg, args, dev, on_card, smi, batches, run_phase,
     import numpy as np
     import torch
 
-    from repro_torch.checkpoint import layout
     from repro_torch.checkpoint import transfer as T
     from repro_torch.core import deepffm
     from repro_torch.core import quantization as Q
@@ -794,76 +976,13 @@ def update_path(cfg, args, dev, on_card, smi, batches, run_phase,
 
         return walk(p)
 
-    def score_all():
-        """The microbatches' scores and per-batch wall times (ms)."""
-        out, ms = [], []
-        for mb in batches:
-            t0 = time.perf_counter()
-            out.append(eng.score_batch(mb))
-            ms.append((time.perf_counter() - t0) * 1e3)
-        return out, ms
-
     def matches(got_mb, want_mb):
         return all(np.allclose(g, w, rtol=rtol, atol=atol)
                    for g, w in zip(got_mb, want_mb))
 
     def check_frame(label, frame, p):
-        """The decoded weights against ``p``, the weights given to
-        ``make_update``: within the wire grid's error bound, and exact where
-        ``p`` lies outside the grid (the outlier sidecar). Then the engine's
-        int8 tables byte-identical to a full requantize of the decoded
-        weights and its dense leaves equal to them, and its scores within
-        the slice-1 tolerance of the uncached oracle."""
-        wire.apply_update(frame)
-        f32 = wire.materialize(manifest=sender.manifest, like=p)
-        meta = sender._last_meta
-        lo, hi = meta.w_min, meta.w_min + meta.bucket_size * (Q.B_MAX - 1)
-        # half a bucket, plus the f32 roundings of the encode's difference
-        # and quotient and the decode's product and sum (under 8 ulps of the
-        # grid's largest magnitude)
-        w_tol = Q.max_error(meta) + 8 * torch.finfo(torch.float32).eps * max(
-            abs(lo), abs(hi))
-        decoded = dict(layout.flatten_with_paths(f32))
-        w_err, n_out = 0.0, 0
-        for path, want in layout.flatten_with_paths(p):
-            got = decoded[path]
-            out = (want < lo) | (want > hi)  # f32 against the f32 bounds
-            n_out += int(out.sum())
-            check(torch.equal(got[out], want[out]),
-                  f"update {label}: {path} weights outside the grid were not "
-                  "carried exactly")
-            err = float((got - want).abs().max())
-            check(err <= w_tol, f"update {label}: {path} decoded max abs err "
-                  f"{err:.3e} > the grid's bound {w_tol:.3e}")
-            w_err = max(w_err, err)
-        check(n_out == meta.n_outliers,
-              f"update {label}: {n_out} weights outside the grid, the sender "
-              f"counted {meta.n_outliers}")
-        want = Q.quantize_params_rows(f32)
-        for path, leaf in layout.leaves(want):
-            got = eng.params
-            for key in path:
-                got = got[key]
-            check(torch.equal(got, leaf) if isinstance(leaf, torch.Tensor)
-                  else got == leaf,
-                  f"update {label}: engine leaf {layout.path_str(path)} "
-                  "differs from a full requantize of the decoded frame")
-        got, ms = score_all()
-        worst = 0.0
-        for mb, g_mb in zip(batches, got):
-            for req, g in zip(mb, g_mb):
-                oracle = eng.score_uncached(*req).cpu().numpy()
-                check(g.shape == (req[2].shape[0],) and np.isfinite(g).all()
-                      and np.allclose(g, oracle, rtol=rtol, atol=atol),
-                      f"update {label}: scores vs the uncached oracle max "
-                      f"abs err {np.abs(g - oracle).max():.3e}")
-                worst = max(worst, float(np.abs(g - oracle).max()))
-        print(f"update {label}: decoded weights within {w_err:.3e} of the "
-              f"sent ones (bound {w_tol:.3e}; {n_out} outside the grid, "
-              f"exact); engine tables and dense leaves equal a full "
-              f"requantize of them; scores vs oracle max abs err {worst:.3e} "
-              f"(rtol {rtol}, atol {atol})")
-        return got, ms
+        return check_decoded_frame(f"update {label}", frame, p, eng, wire,
+                                   sender, batches)
 
     def frame_launches(label, want):
         if not on_card:
@@ -1018,6 +1137,187 @@ def update_path(cfg, args, dev, on_card, smi, batches, run_phase,
               f"{np.percentile(during_ms, 99):.3f} ms over {len(during_ms)} "
               f"microbatches | {smi}")
     pipe.close(timeout=60)
+
+
+def training_path(cfg, args, dev, on_card, smi, batches, run_phase,
+                  phase_launches, r_rows, n_cand):
+    """Phase 3, training: ``TrainingPipeline.run_round`` -> an int8 DeepFFM
+    engine's ``apply_update`` at full width; see the module docstring.
+    Returns a callable that runs one more training microbatch (phase 4)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import layout
+    from repro_torch.checkpoint import transfer as T
+    from repro_torch.core import deepffm
+    from repro_torch.data.synthetic import CTRStream
+    from repro_torch.kernels import _build
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.train.pipeline import (TrainingPipeline, make_round_step,
+                                            make_sparse_round_step)
+
+    n_rounds, n_micro = 3, 8
+    stream = CTRStream(cfg, seed=args.seed)
+    rounds = [[stream.sample(TRAIN_BATCH) for _ in range(n_micro)]
+              for _ in range(n_rounds)]
+    pipe = TrainingPipeline(cfg, "deepffm", seed=args.seed, device=dev)
+
+    def clone(tree):
+        return {k: clone(v) if isinstance(v, dict) else v.clone()
+                for k, v in tree.items()}
+
+    def same(a, b):
+        return all(torch.equal(x, y) for (_, x), (_, y) in
+                   zip(layout.flatten_with_paths(a), layout.flatten_with_paths(b)))
+
+    start = clone(pipe.params), clone(pipe.opt_state)
+    eng = InferenceEngine(cfg, "deepffm", backend="cuda", device=dev,
+                          quantized=True)
+    wire = T.Receiver(device=dev)
+    tables = (("params", "ffm/emb"), ("params", "lr/w"),
+              ("acc", "ffm/emb"), ("acc", "lr/w"))
+
+    def table(which, path):
+        tree = pipe.params if which == "params" else pipe.acc
+        for key in path.split("/"):
+            tree = tree[key]
+        return tree
+
+    k10 = "sparse_weight_grad"
+    for r, round_batches in enumerate(rounds, 1):
+        before = {t: table(*t).clone() for t in tables}
+        label = f"train round {r}"
+        frame = run_phase(label, lambda: pipe.run_round(iter(round_batches)))
+        rep = pipe.reports[-1]
+        want_kind = T.KIND_FULL if r == 1 else T.KIND_DELTA
+        check(T.unframe(frame).kind == want_kind and rep.round == r,
+              f"{label}: frame kind {T.unframe(frame).kind} (want "
+              f"{want_kind}), report round {rep.round}")
+        if on_card:
+            n = phase_launches[label][k10]
+            check(n == 2 * n_micro, f"{label}: {k10} launched {n} times, "
+                  f"want 2 per microbatch ({2 * n_micro})")
+        rows = np.unique(np.concatenate([b["idx"].ravel()
+                                         for b in round_batches]))
+        check(rep.touched_rows == rows.size,
+              f"{label}: touched_rows {rep.touched_rows}, unique indices "
+              f"{rows.size}")
+        untouched = torch.ones(cfg.hash_space, dtype=torch.bool, device=dev)
+        untouched[torch.from_numpy(rows).to(dev)] = False
+        for t in tables:
+            check(torch.equal(table(*t)[untouched], before[t][untouched]),
+                  f"{label}: an untouched row of {t[0]} {t[1]} changed")
+        del before
+        if r == 1:
+            # the same round again from a clone of the starting state
+            twin = TrainingPipeline(cfg, "deepffm", seed=args.seed, device=dev)
+            twin.params, twin.opt_state = clone(start[0]), clone(start[1])
+            twin_frame = twin.run_round(iter(round_batches))
+            check(same(twin.params, pipe.params)
+                  and same(twin.opt_state, pipe.opt_state)
+                  and twin_frame == frame,
+                  f"{label}: a re-run from the same start differs")
+            del twin
+        t0 = time.perf_counter()
+        run_phase(f"{label} apply_update", lambda: eng.apply_update(
+            frame, pipe.sender.manifest, pipe.params) if r == 1
+            else eng.apply_update(frame))
+        apply_ms = (time.perf_counter() - t0) * 1e3
+        if r == 1:
+            eng.warmup(max_requests=r_rows, max_candidates=n_cand)
+        check_decoded_frame(label, frame, pipe.params, eng, wire, pipe.sender,
+                            batches)
+        step_s = rep.seconds - rep.update_seconds
+        print(f"{label}: {rep.examples} examples, "
+              f"{rep.examples_per_s:.0f} examples/s | {rep.seconds * 1e3:.1f} "
+              f"ms = step {step_s * 1e3:.1f} ms ({rep.examples / step_s:.0f} "
+              f"examples/s) + make_update {rep.update_seconds * 1e3:.1f} ms | "
+              f"apply_update {apply_ms:.1f} ms | mean loss "
+              f"{rep.mean_loss:.5f}, progressive AUC {rep.progressive_auc:.5f}"
+              f" | skip {rep.skip_stats} | touched rows {rep.touched_rows} | "
+              f"{rep.update_kind} frame {rep.update_bytes} bytes | "
+              f"launches {phase_launches[label]} | {smi}")
+        check(np.isfinite(rep.mean_loss) and 0.0 <= rep.progressive_auc <= 1.0,
+              f"{label}: mean loss {rep.mean_loss}, AUC {rep.progressive_auc}")
+    check(eng.generation == n_rounds and eng.weights_version == n_rounds,
+          f"train: engine generation {eng.generation}, weights_version "
+          f"{eng.weights_version}")
+
+    # the dense reference step against the row-sparse one, two microbatches
+    # from the same start (their launches are not part of the main path)
+    stacked = {k: np.stack([b[k] for b in rounds[0][:2]])
+               for k in rounds[0][0]}
+    out = {}
+    for name, maker in (("dense", make_round_step),
+                        ("sparse", make_sparse_round_step)):
+        p, st = clone(start[0]), clone(start[1])
+        out[name] = maker(cfg, "deepffm", pipe.opt)(p, st, 0, stacked)
+    worst = 0.0
+    for (path, d), (_, sp) in zip(
+            layout.flatten_with_paths({"p": out["dense"][0],
+                                       "s": out["dense"][1]}),
+            layout.flatten_with_paths({"p": out["sparse"][0],
+                                       "s": out["sparse"][1]})):
+        check(torch.allclose(sp, d, rtol=2e-4, atol=1e-6),
+              f"train: dense and sparse steps differ at {path} (max abs err "
+              f"{float((sp - d).abs().max()):.3e})")
+        worst = max(worst, float((sp - d).abs().max()))
+    scores = (out["sparse"][3]["scores"], out["dense"][3]["scores"])
+    check(torch.allclose(*scores, rtol=1e-4, atol=1e-6),
+          "train: dense and sparse steps' scores differ")
+    print(f"train: dense and row-sparse steps agree over 2 microbatches "
+          f"(params and accumulators max abs err {worst:.3e}, rtol 2e-4, "
+          f"atol 1e-6; scores max abs err "
+          f"{float((scores[0] - scores[1]).abs().max()):.3e}); round 1 re-run "
+          "from a clone: byte-identical params and frame")
+    del out, start
+
+    # K10 inside the step, held to something independent of it: one more
+    # trainer microbatch at the trained weights (tiny gradients, some units
+    # dead), its MLP weight gradients through the §4.3 backward (dW on K10
+    # on the card) and through plain autograd (dW by cuBLAS)
+    mb = {k: torch.as_tensor(v).to(dev) for k, v in
+          stream.sample(TRAIN_BATCH).items()}
+    mb["idx"] = mb["idx"].to(torch.int64)
+    names = sorted(pipe.params["mlp"])
+    grads = {}
+    for sparse in (True, False):
+        var = dict(pipe.params)
+        var["mlp"] = {n: pipe.params["mlp"][n].detach().requires_grad_()
+                      for n in names}
+        _build.reset_launches()
+        loss = deepffm.loss_fn(cfg, var, mb, "deepffm", sparse_backward=sparse)
+        grads[sparse] = dict(zip(names, torch.autograd.grad(
+            loss, [var["mlp"][n] for n in names])))
+        if on_card:
+            n = _build.launches[k10]
+            want = len(cfg.mlp_hidden) if sparse else 0
+            check(n == want, f"train gradient check: {k10} launched {n} "
+                  f"times, want {want}")
+    with torch.no_grad():
+        _, masks = deepffm.forward(cfg, pipe.params, mb["idx"], mb["val"],
+                                   "deepffm", with_masks=True)
+    dead = [float((~m.any(dim=0)).float().mean()) for m in masks]
+    errs = []
+    for n in names:
+        got, want = grads[True][n], grads[False][n]
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        check(err <= GRAD_RTOL * scale,
+              f"train gradient check: mlp/{n} through K10 differs from plain "
+              f"autograd by {err:.3e} (limit {GRAD_RTOL} x max |g| "
+              f"{scale:.3e})")
+        errs.append(f"{n} {err:.3e} of max |g| {scale:.3e}")
+    print(f"train gradient check: one trainer microbatch's MLP weight "
+          f"gradients, §4.3 backward vs plain autograd, max abs err "
+          f"{'; '.join(errs)} (limit {GRAD_RTOL} x max |g|); dead hidden "
+          f"units {', '.join(f'{100 * d:.1f}%' for d in dead)}")
+    del grads
+    eng.update_pipe().close(timeout=60)
+
+    step = make_sparse_round_step(cfg, "deepffm", pipe.opt)
+    one = {k: v[None] for k, v in rounds[-1][0].items()}
+    return lambda: step(pipe.params, pipe.opt_state, 0, one)
 
 
 if __name__ == "__main__":

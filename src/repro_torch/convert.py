@@ -1,11 +1,12 @@
-"""Weights across the package boundary: numpy trees -> port tensors.
+"""Weights across the package boundary: numpy trees <-> port tensors.
 
 The JAX package's params (converted leaf by leaf with ``np.asarray``) and the
 port's share one tree layout: nested dicts whose leaves are arrays, int8
 row-quantized tables ``{"codes", "scale", "zero"}`` and blocked-LR tables
 ``{"codes", "scale", "zero", "block"}``. :func:`params_from_numpy` moves such
 a tree onto a device unchanged in value, so both packages compute on the
-same weights.
+same weights; :func:`params_to_numpy` is its inverse, so weights (or
+optimizer state) trained by the port can be handed back.
 """
 from __future__ import annotations
 
@@ -28,6 +29,16 @@ def params_from_numpy(tree, device: DeviceLike = None):
         return torch.from_numpy(np.array(node, copy=True)).to(dev)
 
     return walk(tree)
+
+
+def params_to_numpy(tree):
+    """Tensor tree -> numpy tree on the host (the inverse of
+    :func:`params_from_numpy`); ints stay ints, dtypes are kept."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return tree
 
 
 def to_device(tree, device: torch.device):

@@ -282,3 +282,16 @@ def lr_forward(cfg: FFMConfig, p, idx, val) -> torch.Tensor:
     """Logistic-regression part: (B,). ``p["w"]`` may be a blocked-int8
     dict (:func:`gather_lr`)."""
     return torch.sum(gather_lr(p["w"], idx) * val, dim=-1) + p["b"]
+
+
+def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Binary cross-entropy on logits; labels in {0, 1}. Spelled as the JAX
+    package spells it (``max``, ``log1p``, ``exp``), with JAX's gradients
+    at a logit of exactly 0 (a linear model's first step): ``torch.maximum``
+    splits a tie as ``jnp.maximum`` does, and ``|x|`` is a ``where`` with
+    slope 1 at 0, as ``jnp.abs`` (``torch.abs`` has slope 0 there)."""
+    lf = logits.to(torch.float32)
+    yl = labels.to(torch.float32)
+    abs_lf = torch.where(lf >= 0, lf, -lf)
+    return torch.mean(torch.maximum(lf, lf.new_zeros(())) - lf * yl
+                      + torch.log1p(torch.exp(-abs_lf)))

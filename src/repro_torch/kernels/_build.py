@@ -62,6 +62,8 @@ SIGNATURES = {
     "quantize_codes": (_P, _P, _F, _F, _I, _I, _P),
     # q, w, w_min, bucket, n, vec, stream
     "dequantize_codes": (_P, _P, _F, _F, _I, _I, _P),
+    # x, g, out, B, I, J, stream
+    "sparse_weight_grad": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 # launches per kernel since the last reset (plain integers; set them to 0 to

@@ -30,7 +30,11 @@ from repro_torch.kernels.quantize import ops as q_ops
 from repro_torch.kernels.quantize import ref as q_ref
 from repro_torch.kernels.row_gather import ops as rg_ops
 from repro_torch.kernels.row_gather import ref as rg_ref
+from repro_torch.kernels.sparse_mlp import ops as sk_ops
+from repro_torch.kernels.sparse_mlp import ref as sk_ref
 from repro_torch.serving.engine import InferenceEngine
+from repro_torch.train.loop import OnlineTrainer
+from repro_torch.train.pipeline import TrainingPipeline
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -71,11 +75,21 @@ def test_port_file_list_is_complete():
                 "repro_torch/checkpoint/transfer.py",
                 "repro_torch/kernels/quantize/ops.py",
                 "repro_torch/kernels/quantize/ref.py",
-                "repro_torch/serving/update_pipe.py"):
+                "repro_torch/serving/update_pipe.py",
+                "repro_torch/optim/optimizers.py",
+                "repro_torch/core/sparse_updates.py",
+                "repro_torch/kernels/sparse_mlp/ops.py",
+                "repro_torch/kernels/sparse_mlp/ref.py",
+                "repro_torch/common/metrics.py",
+                "repro_torch/data/synthetic.py",
+                "repro_torch/data/prefetch.py",
+                "repro_torch/checkpoint/store.py",
+                "repro_torch/train/pipeline.py",
+                "repro_torch/train/loop.py"):
         assert mod in names
     sources = {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu")}
     assert sources == {"row_gather.cu", "ffm_interaction.cu",
-                       "ffm_fused_logits.cu", "quantize.cu"}
+                       "ffm_fused_logits.cu", "quantize.cu", "sparse_mlp.cu"}
 
 
 @pytest.mark.parametrize("kw", [{}, {"n_fields": 8, "context_fields": 5,
@@ -141,6 +155,10 @@ def _cases():
     # wire quantization: a flat weight space and its uint16 codes
     w = t(rng.normal(0, 0.3, 1001).astype(np.float32))
     q = t(rng.integers(0, 2**16, 1001).astype(np.uint16).view(np.int16))
+    # the block-skip weight gradient: x (B, I) and a half-masked g (B, J)
+    x = t(rng.normal(size=(37, 19)).astype(np.float32))
+    gm = t((rng.normal(size=(37, 11)) * (rng.random((37, 11)) < 0.5)
+            ).astype(np.float32))
     return {
         "gather_dequant_rows_q8": (rg_ops.gather_dequant_rows_q8,
                                    rg_ref.gather_dequant_rows_q8_ref,
@@ -167,6 +185,8 @@ def _cases():
         "dequantize_codes": (q_ops.dequantize_codes,
                              q_ref.dequantize_codes_ref,
                              (q, -1.21, 2.4 / 65535)),
+        "sparse_weight_grad": (sk_ops.sparse_weight_grad,
+                               sk_ref.sparse_weight_grad_ref, (x, gm)),
     }
 
 
@@ -185,6 +205,26 @@ def test_cpu_tensors_take_the_plain_version(name, monkeypatch):
                     want if isinstance(want, tuple) else (want,)):
         assert torch.equal(g, w)
     assert _build.launches == before
+
+
+def test_trainer_defaults_to_the_card(tmp_path):
+    """The training entry points, like the serving ones, resolve
+    ``device=None`` to the card and raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves")
+    from repro_torch.checkpoint import store
+
+    cfg = FFMConfig(n_fields=8, context_fields=4, hash_space=2**10, k=4,
+                    mlp_hidden=(16, 8))
+    for make in (lambda: TrainingPipeline(cfg),
+                 lambda: OnlineTrainer(cfg, "ffm")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    pipe = TrainingPipeline(cfg, device="cpu")
+    assert pipe.params["lr"]["w"].device.type == "cpu"
+    pipe.checkpoint(str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        store.load(str(tmp_path))
 
 
 def test_build_command_targets_sm90a():
