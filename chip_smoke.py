@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                       # on the card, full width
     python3 chip_smoke.py --device cpu --tiny   # rehearsal with plain versions
+                                                # (llama32_1b.smoke() for the LLM)
 
 Phases, each of which raises on failure (nothing is caught):
 
@@ -20,7 +21,13 @@ Phases, each of which raises on failure (nothing is caught):
    microbatch's pair of launches) and on ``test_kernels.py``'s sweep (rtol
    1e-4, atol 1e-4), gives exact zeros for an all-zero gradient (also where
    x is NaN: a skipped block adds nothing), and is bit-identical from launch
-   to launch; ``torch.matmul(x.T, g)`` is timed beside it.
+   to launch; ``torch.matmul(x.T, g)`` is timed beside it. K11, flash
+   attention, runs at one prefill layer's shape (B=4, S=1024, 32 query and
+   8 KV heads, D=64, causal) in bf16 (3e-2, and within bf16's roundoff
+   bounds per element and per row) and f32 (2e-5), then on
+   ``test_kernels.py``'s sweep, D=128, ragged tiles and a window;
+   ``scaled_dot_product_attention`` is timed beside it as the library
+   yardstick, never used on the path.
 3. The main paths at full width (``FFMConfig()``, V = 2^18, random weights
    from a seed), all driven by the same microbatches (4 of 8 requests with
    16-64 candidates each):
@@ -68,11 +75,21 @@ Phases, each of which raises on failure (nothing is caught):
      the gradient's largest magnitude. Per round it prints examples/s, the
      step / ``make_update`` split, mean loss, progressive AUC, skip stats,
      touched rows and frame bytes.
+   - LLM serving: ``LLMServer(llama32_1b.config(), random bf16 weights from
+     the seed).generate`` on 4 prompts of 1024 tokens, 32 new tokens (one
+     warm-up call first): K11 must launch exactly once per layer (16) and
+     never in decode; the tokens are in range and equal the warm-up's;
+     prefill ms, decode ms per step, tokens/s and the card's peak
+     allocation are printed. The oracle, in f32 at the same widths (B=2,
+     P=256): the prefill's last logits and cache (through K11) against 256
+     stepwise ``decode_step``s over the prompt (never through K11), rel <
+     1e-4 (``ORACLE_REL``).
    Every kernel's launch counter must have risen during these runs.
 4. Where the time goes: one more microbatch per engine (and per staged
-   ``"ffm"`` twin), and one training microbatch, under torch.profiler
-   (kernels launched, device-busy time against wall time, top kernels; for
-   training, K10's share).
+   ``"ffm"`` twin), one training microbatch, one LLM prefill and one decode
+   step under torch.profiler (kernels launched, device-busy time against
+   wall time, top kernels; for training K10's share, for the prefill
+   K11's).
 
 The second-to-last lines are the kernels' JSON record and the nvidia-smi
 line; the last line is ``{"ok": true, "device": {...}}``. Without a card (or
@@ -96,6 +113,9 @@ SRC = ROOT / "src"
 # outside the tensor cores — the K=8 dots of these kernels are plain FMA
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# the same data sheet's dense bf16 tensor-core peak: the least time of
+# attention's bf16 work on this card, whatever K11 itself runs on
+PEAK_BF16_TENSOR_FLOPS = 989e12
 
 TIMING_ITERS = 200
 SCORE_RTOL, SCORE_ATOL = 2e-4, 2e-5  # staged scores vs the uncached oracle
@@ -104,6 +124,20 @@ TRAIN_BATCH = 512  # examples per training microbatch (examples/train_ctr_100m.p
 # of the gradient's largest magnitude (two f32 sums of 512 products, in
 # different orders)
 GRAD_RTOL = 1e-4
+# the LLM phase: served batch, prompt length, new tokens; the f32 oracle's
+# batch and prompt length (llama32_1b.config(); the rehearsal's smoke())
+LLM_FULL = {"batch": 4, "prompt": 1024, "gen": 32, "oracle": (2, 256)}
+LLM_TINY = {"batch": 2, "prompt": 16, "gen": 4, "oracle": (2, 12)}
+# K11 against its plain version (test_kernels.py's flash tolerances; bf16
+# launches are held to the roundoff bounds of flash_bf16_errors as well)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# the f32 oracle: prefill through K11 vs stepwise decode, rel of max |ref|.
+# Both are f32 sums in different orders (2.9e-6 on an H100); a bf16 or TF32
+# rounding anywhere on the f32 path gives ~1e-3, so the bound sits between
+# (test_archs.py's decode-vs-forward bound, 5e-3, covers every family)
+ORACLE_REL = 1e-4
+# bf16's unit roundoff (8 significant bits)
+BF16_U = 2.0 ** -8
 
 
 def check(cond: bool, msg: str) -> None:
@@ -111,12 +145,30 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def bound(bytes_moved: float, flops: float):
+def bound(bytes_moved: float, flops: float, peak_flops: float = PEAK_F32_FLOPS):
     """Least time (ms) the card needs for the work, and what bounds it."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_F32_FLOPS
+    t_ops = flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def flash_smem_bytes(d: int) -> int:
+    """K11's dynamic shared memory per block (csrc/flash_attention.cu
+    smem_floats: 64-row Q and K tiles with rows of D + 4 floats, the V tile,
+    the 64 x 68 P tile)."""
+    return (64 * (d + 4) * 2 + 64 * d + 64 * 68) * 4
+
+
+def attention_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """The (row, column) pairs attention's mask keeps: the score and PV work
+    a call needs (4 D operations each)."""
+    n = 0
+    for r in range(sq):
+        hi = min(r, sk - 1) if causal else sk - 1
+        lo = max(0, r - window + 1) if window > 0 else 0
+        n += max(0, hi - lo + 1)
+    return n
 
 
 def make_slate(cfg, rng, n):
@@ -195,7 +247,7 @@ def where_the_time_goes(name, fn, smi, top=6, share_of=None):
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
-    print(f"time {name}: one microbatch under the profiler: wall "
+    print(f"time {name}: one call under the profiler: wall "
           f"{wall_ms:.3f} ms, kernels {len(kern)}, device busy {dev_ms:.3f} ms "
           f"({100 * dev_ms / wall_ms:.1f}% of wall) | {smi}")
     for kname, (n, t) in ranked:
@@ -230,11 +282,14 @@ def main(argv=None) -> int:
     from repro_torch.checkpoint import layout
     from repro_torch.common import device as device_mod
     from repro_torch.common.config import FFMConfig
+    from repro_torch.configs import llama32_1b
     from repro_torch.core import deepffm
     from repro_torch.core import quantization as Q
     from repro_torch.kernels import _build
     from repro_torch.kernels.ffm_interaction import ops as fi_ops
     from repro_torch.kernels.ffm_interaction import ref as fi_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.quantize import ops as q_ops
     from repro_torch.kernels.quantize import ref as q_ref
     from repro_torch.kernels.row_gather import ops as rg_ops
@@ -250,6 +305,8 @@ def main(argv=None) -> int:
     on_card = dev.type == "cuda"
     cfg = (FFMConfig(n_fields=8, context_fields=5, hash_space=2**10, k=4,
                      mlp_hidden=(16, 8)) if args.tiny else FFMConfig())
+    llm_cfg = llama32_1b.smoke() if args.tiny else llama32_1b.config()
+    llm = LLM_TINY if args.tiny else LLM_FULL
 
     # -- phase 1: card and build -------------------------------------------
     smi = "not measured (no card)"
@@ -274,7 +331,9 @@ def main(argv=None) -> int:
               f"{(f_ * f_ * k_ + f_) * 4} B, ffm_fused_logits_(q8|rows) "
               f"{(fc_ * (f_ * k_ + 4) + fc_ + 4) * 4} B, minmax / "
               "quantize_codes / dequantize_codes / sparse_weight_grad 0 B "
-              "(sparse_weight_grad: 24 KiB static)")
+              "(sparse_weight_grad: 24 KiB static), flash_attention "
+              f"{flash_smem_bytes(llm_cfg.resolved_head_dim)} B (D = "
+              f"{llm_cfg.resolved_head_dim})")
     else:
         print("card: none (CPU rehearsal: plain versions, no timings)")
 
@@ -345,6 +404,31 @@ def main(argv=None) -> int:
         return bool(torch.allclose(got.float(), want.float(), rtol=rtol,
                                    atol=atol))
 
+    def flash_bf16_errors(got, want, q, k, v, causal=True, window=0):
+        """K11's bf16 output against the plain version's, in units of two
+        roundoff bounds. Both sum f32 products; K11 rounds P to bf16 (at
+        most u * A per element, A = sum_j p_j |v_j| >= |o|: the plain version
+        on |v| in f32) and both round the output (at most u |o| each). So
+        per element |got - want| <= 2u (A + |want|), with u A to spare; per
+        row (b, s, h) the output roundings give at most 2u of the row's
+        norm, and rows are held to 4u. Returns the worst element's and the
+        worst row's share of its bound; each must stay below 1."""
+        a = fa_ref.flash_attention_ref(q.float(), k.float(), v.float().abs(),
+                                       causal=causal, window=window)
+        w = want.float()
+        e = (got.float() - w).abs()
+        elem = float((e / (2 * BF16_U * (a + w.abs()))).max())
+        rows = (torch.linalg.vector_norm(e, dim=-1)
+                / torch.linalg.vector_norm(w, dim=-1).clamp_min(1e-30))
+        return elem, float(rows.max()) / (4 * BF16_U)
+
+    def check_flash_bf16(got, want, q, k, v, what, causal=True, window=0):
+        elem, row = flash_bf16_errors(got, want, q, k, v, causal, window)
+        check(elem < 1 and row < 1,
+              f"{what}: bf16 error {elem:.3f} of the element bound, {row:.3f}"
+              " of the row bound")
+        return elem, row
+
     r_rows, n_cand = 8, 64  # warmup(max_requests=8, max_candidates=64)
     f, fc, k = cfg.n_fields, cfg.context_fields, cfg.k
     fcand = f - fc
@@ -352,7 +436,8 @@ def main(argv=None) -> int:
     kernels = []
 
     def kernel_case(name, source, replaces, fn, plain, tol, bytes_moved,
-                    flops, shape, library=None, eager=False):
+                    flops, shape, library=None, eager=False,
+                    peak_flops=PEAK_F32_FLOPS):
         """``eager``: time eager calls (for kernels long next to a launch,
         whose plain versions would fill a captured graph's memory pool)."""
         timed = call_ms if eager else device_ms
@@ -368,7 +453,7 @@ def main(argv=None) -> int:
             ok = allclose(got, want, *tol)
         check(ok, f"{name}: kernel disagrees with its plain version "
                   f"(max abs err {err:.3e}, tolerance {tol})")
-        b_ms, b_by = bound(bytes_moved, flops)
+        b_ms, b_by = bound(bytes_moved, flops, peak_flops)
         rec = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": 0, "max_abs_err": err,
                "ms": timed(fn), "plain_ms": timed(plain),
@@ -664,6 +749,90 @@ def main(argv=None) -> int:
           + "two launches bit-identical")
     del pairs
 
+    # K11: one prefill layer's attention (B prompts of P tokens, the
+    # config's heads, causal) in bf16 as served, then in f32, then
+    # test_kernels.py's sweep and the kernel's other instances (D = 128,
+    # ragged tiles, a window whose first live tile is wholly masked for
+    # some rows, no mask)
+    fa_b, fa_s = llm["batch"], llm["prompt"]
+    fa_h, fa_kv = llm_cfg.n_heads, llm_cfg.n_kv_heads
+    fa_d = llm_cfg.resolved_head_dim
+
+    def qkv(b, s_, h, kv_, d, dtype):
+        return (randn(b, s_, h, d).to(dtype), randn(b, s_, kv_, d).to(dtype),
+                randn(b, s_, kv_, d).to(dtype))
+
+    fq, fk, fv = qkv(fa_b, fa_s, fa_h, fa_kv, fa_d, torch.bfloat16)
+    fa_io = 2 * (2 * fq.numel() + fk.numel() + fv.numel())
+    fa_flops = 4 * fa_d * fa_b * fa_h * attention_pairs(fa_s, fa_s, True, 0)
+    # the library yardstick: PyTorch's fused attention on (B, H, S, D)
+    # copies made outside the timed region
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lq, lk, lv = (t.transpose(1, 2).contiguous() for t in (fq, fk, fv))
+    if "enable_gqa" in (sdpa.__doc__ or ""):
+        def library():
+            return sdpa(lq, lk, lv, is_causal=True, enable_gqa=True)
+    else:
+        lk, lv = (t.repeat_interleave(fa_h // fa_kv, dim=1) for t in (lk, lv))
+
+        def library():
+            return sdpa(lq, lk, lv, is_causal=True)
+    kernel_case(
+        "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:85",
+        lambda: fa_ops.flash_attention(fq, fk, fv),
+        lambda: fa_ref.flash_attention_ref(fq, fk, fv),
+        (FLASH_TOL["bfloat16"],) * 2, fa_io, fa_flops,
+        [fa_b, fa_s, fa_h, fa_kv, fa_d], library=library, eager=True,
+        peak_flops=PEAK_BF16_TENSOR_FLOPS)
+    fa_want = fa_ref.flash_attention_ref(fq, fk, fv)
+    elem, row = check_flash_bf16(fa_ops.flash_attention(fq, fk, fv), fa_want,
+                                 fq, fk, fv, "flash_attention bf16 main path")
+    lib = flash_bf16_errors(library().transpose(1, 2), fa_want, fq, fk, fv)
+    print(f"kernel flash_attention bf16 {[fa_b, fa_s, fa_h, fa_kv, fa_d]}: "
+          f"worst element {elem:.3f} of 2u(A + |o|), worst row {row:.3f} of "
+          f"4u |o| (u = 2^-8); scaled_dot_product_attention vs the plain "
+          f"version: max abs err {max_err(library().transpose(1, 2), fa_want):.3e}"
+          f", {lib[0]:.3f} / {lib[1]:.3f} of the same bounds (the yardstick, "
+          "not checked)")
+    del fa_want
+    del fq, fk, fv, lq, lk, lv
+    fq, fk, fv = qkv(fa_b, fa_s, fa_h, fa_kv, fa_d, torch.float32)
+    got = fa_ops.flash_attention(fq, fk, fv)
+    err = max_err(got, fa_ref.flash_attention_ref(fq, fk, fv))
+    check(err <= FLASH_TOL["float32"],
+          f"flash_attention f32 {[fa_b, fa_s, fa_h, fa_kv, fa_d]}: max abs "
+          f"err {err:.3e} > {FLASH_TOL['float32']}")
+    f32_bound, f32_by = bound(2 * fa_io, fa_flops)
+    print(f"kernel flash_attention f32 {[fa_b, fa_s, fa_h, fa_kv, fa_d]}: max "
+          f"abs err {err:.3e} (tol {FLASH_TOL['float32']}) | device "
+          f"{call_ms(lambda: fa_ops.flash_attention(fq, fk, fv))} ms | bound "
+          f"{f32_bound:.3e} ms ({f32_by}, f32 peak)")
+    del fq, fk, fv, got
+    worst = [0.0, 0.0]
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = FLASH_TOL[str(dtype).removeprefix("torch.")]
+        for s_, h, kv_, d, causal, window in (
+                (64, 4, 4, 16, True, 0), (100, 8, 2, 32, True, 0),
+                (128, 4, 4, 16, True, 48), (96, 4, 2, 64, False, 0),
+                (200, 4, 2, 128, True, 0), (70, 4, 1, 64, False, 33)):
+            q_, k_, v_ = qkv(2, s_, h, kv_, d, dtype)
+            got = fa_ops.flash_attention(q_, k_, v_, causal=causal,
+                                         window=window)
+            want = fa_ref.flash_attention_ref(q_, k_, v_, causal=causal,
+                                              window=window)
+            what = (f"flash_attention {dtype} {[2, s_, h, kv_, d]} causal "
+                    f"{causal} window {window}")
+            check(allclose(got, want, tol, tol),
+                  f"{what}: max abs err {max_err(got, want):.3e} > {tol}")
+            if dtype == torch.bfloat16:
+                worst = [max(w, x) for w, x in zip(worst, check_flash_bf16(
+                    got, want, q_, k_, v_, what, causal, window))]
+    print("kernel flash_attention: test_kernels.py's sweep, D = 128, ragged "
+          "tiles and a window past the first tile agree with the plain "
+          f"version in f32 (2e-5) and bf16 (3e-2; worst element {worst[0]:.3f}"
+          f" and row {worst[1]:.3f} of the roundoff bounds)")
+
     # -- phase 3: the main path at full width --------------------------------
     t0 = time.perf_counter()
     params = deepffm.init_params(cfg, args.seed, "deepffm", dev)
@@ -826,6 +995,8 @@ def main(argv=None) -> int:
                 phase_launches, randn, r_rows, n_cand)
     train_step = training_path(cfg, args, dev, on_card, smi, batches,
                                run_phase, phase_launches, r_rows, n_cand)
+    llm_prefill, llm_decode = llm_path(llm_cfg, llm, args, dev, on_card, smi,
+                                       run_phase, phase_launches)
 
     if on_card:
         for name, c in main_launches.items():
@@ -844,6 +1015,13 @@ def main(argv=None) -> int:
         where_the_time_goes("training microbatch (row-sparse step, B="
                             f"{TRAIN_BATCH})", train_step, smi, top=8,
                             share_of="sparse_weight_grad")
+        where_the_time_goes(
+            f"LLM prefill ({llm_cfg.arch_id}, B={llm['batch']}, P="
+            f"{llm['prompt']})", llm_prefill, smi, top=8,
+            share_of="flash_attention_kernel")
+        where_the_time_goes(
+            f"LLM decode step ({llm_cfg.arch_id}, B={llm['batch']}, after the "
+            "prefill)", llm_decode, smi, top=8)
     for rec in kernels:
         rec["launches"] = main_launches[rec["name"]]
 
@@ -1318,6 +1496,111 @@ def training_path(cfg, args, dev, on_card, smi, batches, run_phase,
     step = make_sparse_round_step(cfg, "deepffm", pipe.opt)
     one = {k: v[None] for k, v in rounds[-1][0].items()}
     return lambda: step(pipe.params, pipe.opt_state, 0, one)
+
+
+def llm_path(cfg, llm, args, dev, on_card, smi, run_phase, phase_launches):
+    """Phase 3, LLM serving: ``LLMServer.generate`` (batched prefill, K11
+    once per layer, then greedy decode) on the config's bf16 weights, and
+    the f32 oracle (the prefill's last logits and cache against stepwise
+    decode over the prompt, which never reaches K11). Returns callables
+    that run one more prefill and one greedy decode step after it (phase
+    4)."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.models import registry, transformer
+    from repro_torch.serving.server import LLMServer
+    from repro_torch.train.steps import make_serve_step
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 4)
+    b, p_len, n_new = llm["batch"], llm["prompt"], llm["gen"]
+    t0 = time.perf_counter()
+    server = LLMServer(cfg, registry.init_params(cfg, args.seed, dev),
+                       device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (b, p_len), generator=gen,
+                            device=dev, dtype=torch.int32)
+    first = server.generate(prompts, n_new)  # first calls (cuBLAS, build)
+    print(f"llm: {cfg.arch_id} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, {cfg.dtype}) built and warmed in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    label = f"llm generate B={b} P={p_len} new={n_new}"
+    out = run_phase(label, lambda: server.generate(prompts, n_new))
+    n_k11 = phase_launches[label]["flash_attention"]
+    print(f"launches {label}: {phase_launches[label]}")
+    if on_card:
+        check(n_k11 == cfg.n_layers,
+              f"{label}: flash_attention launched {n_k11} times, want one "
+              f"per layer of the one prefill ({cfg.n_layers}) and none in "
+              "decode")
+    check(out.shape == (b, n_new) and out.dtype == torch.int32
+          and bool(((out >= 0) & (out < cfg.padded_vocab)).all()),
+          f"{label}: tokens {tuple(out.shape)} {out.dtype} out of range")
+    check(torch.equal(out, first), f"{label}: a second generate differs")
+    pre_ms, dec_s = server.last_prefill_s * 1e3, server.last_decode_s
+    peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
+            if on_card else "not measured (no card)")
+    print(f"llm generate: prefill {pre_ms:.2f} ms ({b * p_len / pre_ms * 1e3:.0f}"
+          f" prompt tokens/s) | decode {dec_s / n_new * 1e3:.3f} ms per step "
+          f"({b * n_new / dec_s:.0f} tokens/s) | end to end "
+          f"{b * n_new / (server.last_prefill_s + dec_s):.0f} new tokens/s | "
+          f"peak allocated {peak} | {smi}")
+
+    def prefill():
+        with torch.inference_mode():
+            state = registry.init_decode_state(cfg, b, p_len + 1, device=dev)
+            return transformer.prefill(cfg, server.params, prompts, state)
+
+    serve_step = make_serve_step(cfg)
+    lg, dec_state = prefill()
+
+    def decode():
+        with torch.inference_mode():
+            return serve_step(server.params, dec_state,
+                              torch.argmax(lg, dim=-1).to(torch.int32))
+
+    # the oracle, in f32 at the config's widths
+    ob, op = llm["oracle"]
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    p32 = registry.init_params(cfg32, args.seed, dev)
+    toks = torch.randint(0, cfg.vocab_size, (ob, op), generator=gen,
+                         device=dev, dtype=torch.int32)
+    with torch.inference_mode():
+        _build.reset_launches()
+        lg_pre, st_pre = transformer.prefill(
+            cfg32, p32, toks, registry.init_decode_state(cfg32, ob, op,
+                                                         device=dev))
+        n_pre = _build.launches["flash_attention"]
+        st = registry.init_decode_state(cfg32, ob, op, device=dev)
+        for i in range(op):
+            lg_dec, st = registry.decode_step(cfg32, p32, st, toks[:, i])
+        n_dec = _build.launches["flash_attention"] - n_pre
+    if on_card:
+        torch.cuda.synchronize()
+        check(n_pre == cfg.n_layers and n_dec == 0,
+              f"llm oracle: flash_attention launched {n_pre} times in the "
+              f"prefill, {n_dec} in stepwise decode")
+
+    def rel(a, ref):
+        return float((a - ref).abs().max()) / (float(ref.abs().max()) + 1e-9)
+
+    rels = {"logits": rel(lg_pre, lg_dec)}
+    for name in ("k", "v"):
+        rels[f"cache {name}"] = rel(st_pre["cache"][name],
+                                    st["cache"][name])
+    check(bool(torch.isfinite(lg_pre).all()) and lg_pre.shape ==
+          (ob, cfg.padded_vocab), "llm oracle: prefill logits")
+    for name, r in rels.items():
+        check(r < ORACLE_REL, f"llm oracle: prefill {name} vs {op} stepwise "
+              f"decode steps rel {r:.3e} >= {ORACLE_REL}")
+    print(f"llm oracle (f32, B={ob}, P={op}): prefill through "
+          f"flash_attention vs {op} decode steps without it: "
+          + ", ".join(f"{k} rel {v:.3e}" for k, v in rels.items())
+          + f" (bound {ORACLE_REL})")
+    del p32, st_pre, st
+    return prefill, decode
 
 
 if __name__ == "__main__":

@@ -58,6 +58,34 @@ def is_spec(x) -> bool:
     return isinstance(x, ParamSpec)
 
 
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """A config's dtype string (``"bfloat16"`` / ``"float32"``) as a torch
+    dtype."""
+    if name not in _DTYPES:
+        raise ValueError(f"unsupported dtype {name!r}; one of {sorted(_DTYPES)}")
+    return _DTYPES[name]
+
+
+def count(specs) -> int:
+    """Number of parameters in a spec tree (no memory is allocated)."""
+    if is_spec(specs):
+        return int(np.prod(specs.shape))
+    return sum(count(v) for v in specs.values())
+
+
+def stack(specs, n: int, axis_name: str = "layers"):
+    """Prepend a stacking dim (the layers' parameter stacks). ``fan_in`` is
+    kept: a stacked spec's ``shape[-2]`` is no longer its fan-in where the
+    spec set one (``gqa_specs``'s ``wq`` / ``wk`` / ``wv``)."""
+    if is_spec(specs):
+        return ParamSpec((n,) + specs.shape, (axis_name,) + specs.axes,
+                         specs.init, specs.dtype, specs.fan_in)
+    return {k: stack(v, n, axis_name) for k, v in specs.items()}
+
+
 def materialize(specs, seed: int = 0, device: DeviceLike = None):
     """Initialize real parameter tensors from the spec tree on ``device``.
 

@@ -7,6 +7,12 @@ row-quantized tables ``{"codes", "scale", "zero"}`` and blocked-LR tables
 a tree onto a device unchanged in value, so both packages compute on the
 same weights; :func:`params_to_numpy` is its inverse, so weights (or
 optimizer state) trained by the port can be handed back.
+
+bf16 leaves cross as their bits: numpy has no bfloat16 of its own (the JAX
+package's arrays carry ``ml_dtypes``' type, named ``"bfloat16"``, which
+``torch.from_numpy`` refuses), so such a leaf is read through an ``int16``
+view and a bf16 tensor goes back as its ``int16`` view; the caller rebuilds
+the bf16 array with ``.view(ml_dtypes.bfloat16)``.
 """
 from __future__ import annotations
 
@@ -26,18 +32,26 @@ def params_from_numpy(tree, device: DeviceLike = None):
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, int):
             return node
-        return torch.from_numpy(np.array(node, copy=True)).to(dev)
+        arr = np.array(node, copy=True)
+        if arr.dtype.name == "bfloat16":  # bit for bit through int16
+            return torch.from_numpy(arr.view(np.int16)).view(
+                torch.bfloat16).to(dev)
+        return torch.from_numpy(arr).to(dev)
 
     return walk(tree)
 
 
 def params_to_numpy(tree):
     """Tensor tree -> numpy tree on the host (the inverse of
-    :func:`params_from_numpy`); ints stay ints, dtypes are kept."""
+    :func:`params_from_numpy`); ints stay ints, dtypes are kept, except that
+    a bf16 tensor comes back as its ``int16`` bits."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
+        t = tree.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        return t.numpy()
     return tree
 
 

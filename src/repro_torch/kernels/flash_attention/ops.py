@@ -1,0 +1,59 @@
+"""Flash attention through the kernel (port of
+``repro/kernels/flash_attention/ops.py``).
+
+:func:`flash_attention` computes ``softmax(q kᵀ D^-½ + mask) v`` with GQA.
+A CPU tensor gets the plain version (``ref.py``); a CUDA tensor gets K11 in
+``csrc/flash_attention.cu`` or an exception. Unlike the Pallas wrapper
+nothing is padded or transposed and no block size is chosen here: the
+kernel reads q, k and v in their (B, S, heads, D) layouts, masks the ragged
+tail tiles and fixes its own tiling.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+HEAD_DIMS = (16, 32, 64, 128)  # the kernel's template instances
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B, Sq, H, D); k, v: (B, Sk, Kv, D), one dtype (f32 or bf16) on
+    one device -> (B, Sq, H, D) in q's dtype, f32 accumulation. The causal
+    mask is aligned at position 0 (``cols <= rows``); ``window`` > 0 keeps
+    ``cols > rows - window``."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q (B, Sq, H, D), k and v (B, Sk, Kv, D) expected, "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or kv == 0 or h % kv:
+        raise ValueError(f"k {tuple(k.shape)} does not fit q {tuple(q.shape)} "
+                         "(same B and D, H a multiple of Kv)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in the kernel's {HEAD_DIMS}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must share float32 or bfloat16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
+    if not q.is_cuda:
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _build.check(t, name, q.dtype)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    if sk == 0:
+        raise ValueError("k and v hold no positions")
+    _build.launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), b, sq, sk, h, kv, d, int(causal), window,
+                  int(q.dtype == torch.bfloat16), float(np.float32(d ** -0.5)))
+    return out

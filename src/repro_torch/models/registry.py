@@ -1,0 +1,66 @@
+"""Architecture registry (port of ``repro/models/registry.py``): arch id ->
+config, family -> module.
+
+Only ``llama3.2-1b`` (the ``dense`` family) is ported; the other nine arch
+ids and families wait for their slices (ROADMAP.md Queue 1 item 6).
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Any, Dict
+
+from repro_torch.common import pspec
+from repro_torch.common.config import ModelConfig
+from repro_torch.common.device import DeviceLike
+from repro_torch.models import transformer
+
+FAMILY_MODULES = {"dense": transformer}
+
+ARCH_IDS = ("llama3.2-1b",)
+
+_MODULE_FOR_ARCH = {"llama3.2-1b": "llama32_1b"}
+
+
+def _unported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported yet (ported: {', '.join(ARCH_IDS)}; "
+        "ROADMAP.md Queue 1 item 6)")
+
+
+def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
+    if arch_id not in _MODULE_FOR_ARCH:
+        raise _unported(f"arch {arch_id!r}")
+    mod = importlib.import_module(
+        f"repro_torch.configs.{_MODULE_FOR_ARCH[arch_id]}")
+    return mod.smoke() if smoke else mod.config()
+
+
+def module_for(cfg: ModelConfig):
+    if cfg.family not in FAMILY_MODULES:
+        raise _unported(f"family {cfg.family!r}")
+    return FAMILY_MODULES[cfg.family]
+
+
+def param_specs(cfg: ModelConfig):
+    return module_for(cfg).param_specs(cfg)
+
+
+def init_params(cfg: ModelConfig, seed: int, device: DeviceLike = None):
+    """Random weights from ``seed`` on ``device`` (the card by default)."""
+    return pspec.materialize(param_specs(cfg), seed, device)
+
+
+def forward(cfg: ModelConfig, params, batch: Dict[str, Any], *, window=None):
+    return module_for(cfg).forward(cfg, params, batch["tokens"],
+                                   window=window)
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
+                      window: int = 0, device: DeviceLike = None):
+    return module_for(cfg).init_decode_state(cfg, batch, max_len,
+                                             window=window, device=device)
+
+
+def decode_step(cfg: ModelConfig, params, state, tokens, *, window: int = 0):
+    return module_for(cfg).decode_step(cfg, params, state, tokens,
+                                       window=window)

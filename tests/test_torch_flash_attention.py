@@ -1,0 +1,90 @@
+"""The port's flash attention against the JAX package on the CPU.
+
+On CPU tensors ``kernels/flash_attention/ops.py`` runs its plain version
+(``ref.py``); both are held, on ``test_kernels.py``'s sweep (B = 2; causal,
+sliding-window and unmasked; GQA 1:1, 2:1 and 4:1; D 16 / 32 / 64; f32 and
+bf16), against three JAX functions on the same seeded inputs: the JAX
+``ref.py``, ``flash_attention_pallas`` in interpret mode with 32-row blocks,
+and the models' jnp flash (``repro.models.attention.flash_attention``) with
+32-row chunks. Tolerances are the reference's own (``test_kernels.py``):
+2e-5 for f32, 3e-2 for bf16. The wrapper's checks and its launch count
+(none on CPU tensors) are tested too.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.flash_attention import flash_attention_pallas
+from repro.kernels.flash_attention.ref import flash_attention_ref as j_ref
+from repro.models.attention import flash_attention as j_model_flash
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ops, ref
+from repro_torch.models import attention
+
+SWEEP = [(64, 4, 4, 16, True, 0), (100, 8, 2, 32, True, 0),
+         (128, 4, 4, 16, True, 48), (96, 4, 2, 64, False, 0)]
+
+
+def _qkv(s, h, kv, d, seed, b=2):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, s, h, d)).astype(np.float32),
+            rng.normal(size=(b, s, kv, d)).astype(np.float32),
+            rng.normal(size=(b, s, kv, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("S,H,Kv,D,causal,window", SWEEP)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_matches_jax(S, H, Kv, D, causal, window, dtype):
+    arrs = _qkv(S, H, Kv, D, S + H)
+    jq, jk, jv = (jnp.asarray(a).astype(dtype) for a in arrs)
+    tq, tk, tv = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs)
+    before = dict(_build.launches)
+    ours = {
+        "ref.py": ref.flash_attention_ref(tq, tk, tv, causal=causal,
+                                          window=window),
+        "ops.py": ops.flash_attention(tq, tk, tv, causal=causal,
+                                      window=window),
+        "models.attention": attention.flash_attention(
+            tq, tk, tv, causal=causal, window=window),
+    }
+    assert _build.launches == before  # CPU tensors: the plain version
+    theirs = {
+        "ref": j_ref(jq, jk, jv, causal=causal, window=window),
+        "pallas": flash_attention_pallas(jq, jk, jv, causal=causal,
+                                         window=window, block_q=32,
+                                         block_k=32),
+        "model flash": j_model_flash(jq, jk, jv, causal=causal, window=window,
+                                     chunk_q=32, chunk_k=32),
+    }
+    tol = 2e-5 if dtype == "float32" else 3e-2
+    for name, got in ours.items():
+        assert got.dtype == tq.dtype and got.shape == tq.shape, name
+        for jname, want in theirs.items():
+            np.testing.assert_allclose(
+                got.float().numpy(), np.asarray(want, np.float32), rtol=tol,
+                atol=tol, err_msg=f"port {name} vs JAX {jname}")
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "dtype_mix", "gqa", "shape",
+                                 "int", "window"])
+def test_flash_attention_refuses_what_the_kernel_does_not_take(bad):
+    q, k, v = (torch.from_numpy(a) for a in _qkv(8, 4, 2, 16, 0))
+    if bad == "head_dim":  # 48 is not one of the kernel's instances
+        q, k, v = (torch.zeros(*t.shape[:3], 48) for t in (q, k, v))
+    elif bad == "dtype_mix":
+        k = k.to(torch.bfloat16)
+    elif bad == "gqa":  # 4 query heads over 3 kv heads
+        k = v = torch.zeros(2, 8, 3, 16)
+    elif bad == "shape":
+        v = v[:, :4]
+    elif bad == "int":
+        q, k, v = (t.to(torch.int32) for t in (q, k, v))
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v, window=-1 if bad == "window" else 0)
+
+
+def test_flash_attention_head_dims_are_the_kernels():
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    for d in ops.HEAD_DIMS:
+        assert f"case {d}: return launch<T, {d}>" in src

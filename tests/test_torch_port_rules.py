@@ -3,8 +3,8 @@
 * ``src/repro_torch``, ``chip_smoke.py`` and ``ingest_pacing.py`` import
   neither ``jax`` nor the JAX package ``repro`` (nor ``ml_dtypes``, which
   the card's machine lacks);
-* the port's ``FFMConfig`` equals ``repro.common.config.FFMConfig`` field
-  for field;
+* the port's ``FFMConfig`` and ``ModelConfig`` equal
+  ``repro.common.config``'s field for field;
 * the card is the default: an entry point without ``device`` raises when
   CUDA is absent;
 * every kernel wrapper sends CPU tensors to its plain version and counts no
@@ -19,12 +19,17 @@ import pytest
 import torch
 
 from repro.common.config import FFMConfig as JFFMConfig
+from repro.common.config import ModelConfig as JModelConfig
+from repro.configs import llama32_1b as j_llama
 from repro_torch.checkpoint import transfer as T
-from repro_torch.common.config import FFMConfig
+from repro_torch.common.config import FFMConfig, ModelConfig
+from repro_torch.configs import llama32_1b
 from repro_torch.common.device import resolve_device
 from repro_torch.core import deepffm
 from repro_torch.kernels import _build
 from repro_torch.kernels.ffm_interaction import ops as fi_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.ffm_interaction import ref as fi_ref
 from repro_torch.kernels.quantize import ops as q_ops
 from repro_torch.kernels.quantize import ref as q_ref
@@ -32,7 +37,9 @@ from repro_torch.kernels.row_gather import ops as rg_ops
 from repro_torch.kernels.row_gather import ref as rg_ref
 from repro_torch.kernels.sparse_mlp import ops as sk_ops
 from repro_torch.kernels.sparse_mlp import ref as sk_ref
+from repro_torch.models import registry
 from repro_torch.serving.engine import InferenceEngine
+from repro_torch.serving.server import LLMServer
 from repro_torch.train.loop import OnlineTrainer
 from repro_torch.train.pipeline import TrainingPipeline
 
@@ -85,11 +92,22 @@ def test_port_file_list_is_complete():
                 "repro_torch/data/prefetch.py",
                 "repro_torch/checkpoint/store.py",
                 "repro_torch/train/pipeline.py",
-                "repro_torch/train/loop.py"):
+                "repro_torch/train/loop.py",
+                "repro_torch/configs/llama32_1b.py",
+                "repro_torch/models/layers.py",
+                "repro_torch/models/attention.py",
+                "repro_torch/models/transformer.py",
+                "repro_torch/models/registry.py",
+                "repro_torch/kernels/flash_attention/ops.py",
+                "repro_torch/kernels/flash_attention/ref.py",
+                "repro_torch/train/steps.py",
+                "repro_torch/serving/server.py",
+                "repro_torch/launch/serve.py"):
         assert mod in names
     sources = {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu")}
     assert sources == {"row_gather.cu", "ffm_interaction.cu",
-                       "ffm_fused_logits.cu", "quantize.cu", "sparse_mlp.cu"}
+                       "ffm_fused_logits.cu", "quantize.cu", "sparse_mlp.cu",
+                       "flash_attention.cu"}
 
 
 @pytest.mark.parametrize("kw", [{}, {"n_fields": 8, "context_fields": 5,
@@ -102,6 +120,25 @@ def test_ffm_config_matches_reference(kw):
     assert dataclasses.asdict(FFMConfig(**kw)) == \
         dataclasses.asdict(JFFMConfig(**kw))
     assert FFMConfig(**kw).n_pairs == JFFMConfig(**kw).n_pairs
+
+
+@pytest.mark.parametrize("make", [llama32_1b.config, llama32_1b.smoke,
+                                  lambda: ModelConfig(n_heads=8, head_dim=16)],
+                         ids=["config", "smoke", "custom"])
+def test_model_config_matches_reference(make):
+    ours = dataclasses.fields(ModelConfig)
+    theirs = dataclasses.fields(JModelConfig)
+    assert [(f.name, f.type, f.default) for f in ours] == \
+        [(f.name, f.type, f.default) for f in theirs]
+    cfg = make()
+    ref = JModelConfig(**dataclasses.asdict(cfg))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+    for prop in ("resolved_head_dim", "q_per_kv", "padded_vocab", "is_moe"):
+        assert getattr(cfg, prop) == getattr(ref, prop), prop
+    assert llama32_1b.config() == ModelConfig(
+        **dataclasses.asdict(j_llama.config()))
+    assert llama32_1b.smoke() == ModelConfig(
+        **dataclasses.asdict(j_llama.smoke()))
 
 
 def test_card_is_the_default():
@@ -125,6 +162,17 @@ def test_card_is_the_default():
     rcv.apply_update(snd.make_update(params))
     with pytest.raises(RuntimeError, match="CUDA"):
         rcv.materialize(manifest=snd.manifest)
+    # the LLM side: weights and the server go to the card unless told
+    llm = llama32_1b.smoke()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        registry.init_params(llm, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        registry.init_decode_state(llm, 1, 4)
+    cpu_params = registry.init_params(llm, 0, "cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LLMServer(llm, cpu_params)
+    assert LLMServer(llm, cpu_params, device="cpu").generate(
+        torch.zeros((1, 3), dtype=torch.int32), 2).shape == (1, 2)
 
 
 def _cases():
@@ -159,6 +207,10 @@ def _cases():
     x = t(rng.normal(size=(37, 19)).astype(np.float32))
     gm = t((rng.normal(size=(37, 11)) * (rng.random((37, 11)) < 0.5)
             ).astype(np.float32))
+    # attention: q (B, S, H, D), k / v (B, S, Kv, D), GQA 2:1
+    fq = t(rng.normal(size=(2, 9, 4, 16)).astype(np.float32))
+    fk = t(rng.normal(size=(2, 9, 2, 16)).astype(np.float32))
+    fv = t(rng.normal(size=(2, 9, 2, 16)).astype(np.float32))
     return {
         "gather_dequant_rows_q8": (rg_ops.gather_dequant_rows_q8,
                                    rg_ref.gather_dequant_rows_q8_ref,
@@ -187,6 +239,8 @@ def _cases():
                              (q, -1.21, 2.4 / 65535)),
         "sparse_weight_grad": (sk_ops.sparse_weight_grad,
                                sk_ref.sparse_weight_grad_ref, (x, gm)),
+        "flash_attention": (fa_ops.flash_attention, fa_ref.flash_attention_ref,
+                            (fq, fk, fv)),
     }
 
 
