@@ -23,11 +23,14 @@ Phases, each of which raises on failure (nothing is caught):
    x is NaN: a skipped block adds nothing), and is bit-identical from launch
    to launch; ``torch.matmul(x.T, g)`` is timed beside it. K11, flash
    attention, runs at one prefill layer's shape (B=4, S=1024, 32 query and
-   8 KV heads, D=64, causal) in bf16 (3e-2, and within bf16's roundoff
-   bounds per element and per row) and f32 (2e-5), then on
-   ``test_kernels.py``'s sweep, D=128, ragged tiles and a window;
-   ``scaled_dot_product_attention`` is timed beside it as the library
-   yardstick, never used on the path.
+   8 KV heads, D=64, causal) in bf16 (the TMA + wgmma body; 3e-2, and
+   within bf16's roundoff bounds per element and per row) and f32 (the
+   CUDA-core body; 2e-5), then on ``FLASH_SWEEP`` in both dtypes
+   (``test_kernels.py``'s sweep, D=128, ragged tiles, S below one tile,
+   windows); ``scaled_dot_product_attention`` is timed beside it as the
+   library yardstick, never used on the path, and K11's time is printed as
+   a multiple of it. Phase 1 prints the bf16 body's ptxas registers and
+   spills per head dim.
 3. The main paths at full width (``FFMConfig()``, V = 2^18, random weights
    from a seed), all driven by the same microbatches (4 of 8 requests with
    16-64 candidates each):
@@ -102,6 +105,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import sys
 import time
 from pathlib import Path
@@ -131,6 +135,16 @@ LLM_TINY = {"batch": 2, "prompt": 16, "gen": 4, "oracle": (2, 12)}
 # K11 against its plain version (test_kernels.py's flash tolerances; bf16
 # launches are held to the roundoff bounds of flash_bf16_errors as well)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# K11's sweep, each case in f32 and bf16: (B, S, H, Kv, D, causal, window).
+# test_kernels.py's four, D = 128, an unmasked window; then the edges of the
+# bf16 body's 128 x 128 tiles: the main path's GQA 4:1 with S ragged to both
+# 64 and 128, D = 128 ragged, S below one tile, and a window whose first
+# live tile is wholly masked for some rows
+FLASH_SWEEP = ((2, 64, 4, 4, 16, True, 0), (2, 100, 8, 2, 32, True, 0),
+               (2, 128, 4, 4, 16, True, 48), (2, 96, 4, 2, 64, False, 0),
+               (2, 200, 4, 2, 128, True, 0), (2, 70, 4, 1, 64, False, 33),
+               (1, 1000, 32, 8, 64, True, 0), (2, 300, 8, 2, 128, True, 0),
+               (2, 40, 4, 4, 64, True, 0), (2, 257, 4, 1, 32, True, 100))
 # the f32 oracle: prefill through K11 vs stepwise decode, rel of max |ref|.
 # Both are f32 sums in different orders (2.9e-6 on an H100); a bf16 or TF32
 # rounding anywhere on the f32 path gives ~1e-3, so the bound sits between
@@ -153,11 +167,33 @@ def bound(bytes_moved: float, flops: float, peak_flops: float = PEAK_F32_FLOPS):
                                        else "operations")
 
 
-def flash_smem_bytes(d: int) -> int:
-    """K11's dynamic shared memory per block (csrc/flash_attention.cu
-    smem_floats: 64-row Q and K tiles with rows of D + 4 floats, the V tile,
-    the 64 x 68 P tile)."""
+def flash_smem_bytes(d: int, bf16: bool) -> int:
+    """K11's dynamic shared memory per block (csrc/flash_attention.cu). The
+    bf16 body (Tile<D>): a 128-row Q tile, 3 stages of 128-key K and V tiles,
+    11 mbarriers and 1024 B of alignment slack. The f32 body (smem_floats):
+    64-row Q and K tiles with rows of D + 4 floats, the V tile, the 64 x 68
+    P tile."""
+    if bf16:
+        return 128 * d * 2 + 3 * 2 * 128 * d * 2 + 11 * 8 + 1024
     return (64 * (d + 4) * 2 + 64 * d + 64 * 68) * 4
+
+
+def ptxas_usage(log: str, needle: str):
+    """(kernel, registers, spill line) for each entry function of the build
+    log whose name contains ``needle``."""
+    found, name = [], None
+    for line in log.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            m = re.search(re.escape(needle) + r"ILi(\d+)E", line)
+            name = (f"{needle}<{m.group(1)}>" if m
+                    else needle if needle in line else None)
+        elif name and "spill" in line:
+            spill = line
+        elif name and "Used" in line and "registers" in line:
+            found.append((name, int(line.split("Used")[1].split()[0]), spill))
+            name = None
+    return found
 
 
 def attention_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
@@ -318,8 +354,8 @@ def main(argv=None) -> int:
         check(tuple(info["capability"]) == (9, 0),
               f"need compute capability 9.0, got {info['capability']}")
         lib = _build.load()
-        print(f"build: {lib.build_seconds:.2f} s (nvcc, one command over "
-              f"csrc/*.cu) -> {lib.path.name}")
+        print(f"build: {lib.build_seconds:.2f} s (one nvcc per csrc/*.cu, "
+              f"all started together, then a link) -> {lib.path.name}")
         for line in lib.log.splitlines():
             if "ptxas info" in line or "spill" in line:
                 print("  " + line.strip())
@@ -331,9 +367,14 @@ def main(argv=None) -> int:
               f"{(f_ * f_ * k_ + f_) * 4} B, ffm_fused_logits_(q8|rows) "
               f"{(fc_ * (f_ * k_ + 4) + fc_ + 4) * 4} B, minmax / "
               "quantize_codes / dequantize_codes / sparse_weight_grad 0 B "
-              "(sparse_weight_grad: 24 KiB static), flash_attention "
-              f"{flash_smem_bytes(llm_cfg.resolved_head_dim)} B (D = "
+              "(sparse_weight_grad: 24 KiB static), flash_attention bf16 "
+              f"{flash_smem_bytes(llm_cfg.resolved_head_dim, True)} B / f32 "
+              f"{flash_smem_bytes(llm_cfg.resolved_head_dim, False)} B (D = "
               f"{llm_cfg.resolved_head_dim})")
+        for name, regs, spill in ptxas_usage(lib.log,
+                                             "flash_attention_kernel_wgmma"):
+            print(f"  K11 bf16 body {name}: {regs} registers per thread at "
+                  f"entry (setmaxnreg: consumers 232, producer 40); {spill}")
     else:
         print("card: none (CPU rehearsal: plain versions, no timings)")
 
@@ -785,6 +826,13 @@ def main(argv=None) -> int:
         (FLASH_TOL["bfloat16"],) * 2, fa_io, fa_flops,
         [fa_b, fa_s, fa_h, fa_kv, fa_d], library=library, eager=True,
         peak_flops=PEAK_BF16_TENSOR_FLOPS)
+    rec = kernels[-1]
+    if on_card:
+        print(f"kernel flash_attention bf16 {[fa_b, fa_s, fa_h, fa_kv, fa_d]}:"
+              f" {rec['ms']:.4f} ms against scaled_dot_product_attention's "
+              f"{rec['library_ms']:.4f} ms in this run: "
+              f"{rec['ms'] / rec['library_ms']:.2f}x its time | "
+              f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of the bound | {smi}")
     fa_want = fa_ref.flash_attention_ref(fq, fk, fv)
     elem, row = check_flash_bf16(fa_ops.flash_attention(fq, fk, fv), fa_want,
                                  fq, fk, fv, "flash_attention bf16 main path")
@@ -812,24 +860,22 @@ def main(argv=None) -> int:
     worst = [0.0, 0.0]
     for dtype in (torch.float32, torch.bfloat16):
         tol = FLASH_TOL[str(dtype).removeprefix("torch.")]
-        for s_, h, kv_, d, causal, window in (
-                (64, 4, 4, 16, True, 0), (100, 8, 2, 32, True, 0),
-                (128, 4, 4, 16, True, 48), (96, 4, 2, 64, False, 0),
-                (200, 4, 2, 128, True, 0), (70, 4, 1, 64, False, 33)):
-            q_, k_, v_ = qkv(2, s_, h, kv_, d, dtype)
+        for b_, s_, h, kv_, d, causal, window in FLASH_SWEEP:
+            q_, k_, v_ = qkv(b_, s_, h, kv_, d, dtype)
             got = fa_ops.flash_attention(q_, k_, v_, causal=causal,
                                          window=window)
             want = fa_ref.flash_attention_ref(q_, k_, v_, causal=causal,
                                               window=window)
-            what = (f"flash_attention {dtype} {[2, s_, h, kv_, d]} causal "
+            what = (f"flash_attention {dtype} {[b_, s_, h, kv_, d]} causal "
                     f"{causal} window {window}")
             check(allclose(got, want, tol, tol),
                   f"{what}: max abs err {max_err(got, want):.3e} > {tol}")
             if dtype == torch.bfloat16:
                 worst = [max(w, x) for w, x in zip(worst, check_flash_bf16(
                     got, want, q_, k_, v_, what, causal, window))]
-    print("kernel flash_attention: test_kernels.py's sweep, D = 128, ragged "
-          "tiles and a window past the first tile agree with the plain "
+    print(f"kernel flash_attention: {len(FLASH_SWEEP)} sweep cases "
+          "(test_kernels.py's, D = 128, ragged tiles, S below one tile, "
+          "windows past the first tile) agree with the plain "
           f"version in f32 (2e-5) and bf16 (3e-2; worst element {worst[0]:.3f}"
           f" and row {worst[1]:.3f} of the roundoff bounds)")
 

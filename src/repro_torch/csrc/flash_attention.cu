@@ -12,63 +12,725 @@
 // What bounds it on the H100: at the serving prefill's shape (B = 4,
 //   S = 1024, H = 32, Kv = 8, D = 64, bf16, causal) the work is 17.2 GFLOP
 //   over 41.9 MB of Q, K, V and O: 17.4 us at the 989 TFLOP/s bf16 tensor
-//   peak against 12.5 us at 3.35 TB/s, so operations bound it. This kernel
-//   uses no tensor cores: its arithmetic runs as f32 FMAs (67 TFLOP/s peak,
-//   0.26 ms for the same work), fed from shared memory. It is the simple,
-//   right version; wgmma, TMA and bf16 tensor cores are later work.
+//   peak against 12.5 us at 3.35 TB/s, so operations bound it, and only the
+//   tensor cores (wgmma) can come near that.
 //
-// Design:
-//   - One CTA of 256 threads owns a (batch row b, query head h, 64-row query
-//     tile) outright and writes its output once: no atomics, no split of
-//     the k sweep across CTAs. The TPU grid's sequential k axis becomes a
-//     loop over 64-column k tiles. Query head h reads KV head h / (H / Kv)
-//     of the same batch row, as the Pallas index map does; q, k and v are
-//     read in place from their (B, S, heads, D) layouts.
-//   - A dead tile (every column above the causal diagonal, or every column
-//     at or before the window's start, for every row of the tile) is
-//     skipped by the whole CTA, with the Pallas kernel's predicate.
-//   - Tiles are staged in shared memory as f32 (bf16 widened exactly);
-//     rows past Sq or Sk are zero-filled and masked (cols < Sk), never
-//     padded in device memory.
-//   - Thread (ty, tx) = (tid / 16, tid % 16) owns the scores of rows
-//     ty + 16 i and columns tx + 16 j (i, j < 4) and the outputs of the same
-//     rows, columns tx * D/16 .. + D/16. A row's 64 scores sit in the 16
-//     lanes of one half-warp, so the row max and sum are xor-shuffle trees
-//     (identical in every lane) and m, l and the rescale factor stay in
-//     registers; only P goes through shared memory, rounded to v's dtype
-//     first (p.astype(v.dtype) in the Pallas kernel), while l sums the
-//     unrounded p as the Pallas kernel does.
-//   - The dot is scaled after it is taken; masked scores are -1e30, so a
-//     row whose first live tile is wholly masked for it gets p = 1 there
-//     and the next tile's exp(-1e30 - m) = 0 wipes it out, as in both JAX
-//     versions (with -INFINITY that would be inf - inf = NaN).
-//   - expf and IEEE division (no fast math): the f32 case is held to 2e-5.
+// Two bodies, chosen by dtype in one place (the C entry at the end):
+//   - bf16, D in {16, 32, 64, 128}: flash_attention_kernel_wgmma, below.
+//     It needs sm_90a (TMA, mbarriers, wgmma, setmaxnreg).
+//   - f32, D in {16, 32, 64, 128}: flash_attention_kernel, the CUDA-core
+//     body further down (f32 FMAs, expf, IEEE division). It is held to 2e-5,
+//     which a TF32 wgmma cannot meet, and serves the f32 oracle and sweeps.
+//
+// The bf16 body (FlashAttention-3's shape, its intra-warpgroup overlap and
+// its ping-pong between the two consumer warpgroups):
+//   - Work items are (batch row b, query head h, 128-row q tile), numbered
+//     longest first: (b, h) fastest, q tiles from the last one down, so the
+//     diagonal's short tiles fill the tail. The grid is persistent, one CTA
+//     per SM, and CTA c takes items c, c + gridDim, ...; each item's output
+//     is written once: no atomics, no split of the k sweep.
+//   - A CTA has three warpgroups. Warpgroups 0 and 1 are consumers and own
+//     64 q rows each; warpgroup 2 is the producer, lowers its registers with
+//     setmaxnreg (the consumers raise theirs), and one of its threads issues
+//     every TMA load, running ahead into the next item (its Q as soon as the
+//     consumers' last QK^T of this one is done, its K / V as stages free).
+//   - Q is loaded once per item by TMA (a full and an empty mbarrier); K
+//     and V tiles of 128 keys go through TMA into a ring of kStages stages,
+//     each with a K-full, a V-full and an empty mbarrier (the consumers'
+//     eight warps arrive on the empty one after the PV wgmma that read V has
+//     completed). The tensor maps are
+//     built per call over the 4-D (B, S, heads, D) arrays as they are (row
+//     stride H*D or Kv*D), so a tile never reads the next batch row and
+//     TMA's out-of-bounds zero fill replaces padding; ragged columns are
+//     still masked (cols < Sk).
+//   - S = Q K^T is wgmma m64n128k16 with Q and K read from shared memory
+//     (both K-major). O += P V is wgmma m64nDk16 with P as the A operand in
+//     registers, converted to bf16 in place from the S accumulator fragment
+//     (the m64n16 accumulator layout of keys 16kk..16kk+15 is the k16 A
+//     fragment), and V as the B operand from shared memory, MN-major
+//     (transpose bit set). P never goes through shared memory.
+//   - Shared tiles use the swizzle that equals a row's width: 128 B for
+//     D = 64, 64 B for D = 32, 32 B for D = 16; D = 128 is two 64-column
+//     boxes of 128 B swizzle, one after the other. The wgmma descriptors
+//     carry the same swizzle; every tile starts on a 1024 B boundary.
+//   - Each consumer issues S_i = Q K_i^T and O += P_{i-1} V_{i-1} as two
+//     wgmma groups, runs tile i's softmax while PV is still in flight, then
+//     waits for PV and releases stage i - 1: the exp2 work of one tile
+//     overlaps the tensor-core work of the last. The two consumers take
+//     turns issuing their wgmma groups (named barriers 1 and 2), so one
+//     warpgroup's softmax runs while the other's products do.
+//   - The online softmax runs on the accumulator fragment: a thread holds
+//     two rows, and a row's 128 scores sit in the 4 threads of a quad, so the
+//     row max is two __shfl_xor_sync (offsets 1 and 2); m, l and the rescale
+//     stay in registers, and l is summed per thread and reduced over the
+//     quad once at the end.
+//   - Numerics are _flash_kernel's: masked scores are the finite -1e30 (a
+//     row whose first live tile is wholly masked gets p = 1 there, wiped out
+//     by the next tile's exp(-1e30 - m) = 0); dead tiles are skipped with
+//     the Pallas predicate; P is rounded to bf16 before PV while l sums the
+//     unrounded f32 p; out = acc / max(l, 1e-30) in bf16. One departure,
+//     allowed for bf16: 2^x (ex2.approx.ftz, about 2 ulp) with log2(e)
+//     folded into the scale; the row max is kept in the log2 domain.
+//   - The wgmma groups of the main loop are straight-line code: a group
+//     waited for on one path and not on another makes ptxas serialize every
+//     wgmma (each followed by its own wait).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr float kNegInf = -1e30f;
+
+// ---------------------------------------------------------------------------
+// bf16 body: TMA, mbarriers and wgmma (sm_90a)
+// ---------------------------------------------------------------------------
+
+constexpr int kBM = 128;      // q rows per CTA (two consumer warpgroups)
+constexpr int kBN = 128;      // keys per K / V tile
+constexpr int kStages = 3;    // K / V ring depth
+constexpr int kWgThreads = 128;
+constexpr int kWgmmaThreads = 3 * kWgThreads;  // 2 consumers + 1 producer
+constexpr int kConsumerWarps = 8;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Tile {
+  static constexpr int kBox = D < 64 ? D : 64;  // columns per TMA box
+  static constexpr int kBoxes = D / kBox;       // 2 for D = 128
+  static constexpr int kRowBytes = kBox * 2;    // = the swizzle width
+  static constexpr uint32_t kSbo = 8 * kRowBytes;  // next 8 rows or keys
+  static constexpr int kQBytes = kBM * D * 2;
+  static constexpr int kKVBytes = kBN * D * 2;
+  // wgmma descriptor layout codes: 1 = 128 B, 2 = 64 B, 3 = 32 B swizzle
+  static constexpr uint64_t kLayout =
+      kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  // Q, then per stage K and V, then the barriers (Q full, Q empty, then per
+  // stage K full, V full, empty); 1024 B of slack to align
+  static constexpr int kBarOffset = kQBytes + kStages * 2 * kKVBytes;
+  static constexpr int kSmemBytes = kBarOffset + (2 + 3 * kStages) * 8 + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+
+// spin until the phase of parity `parity` has completed; a phase that never
+// completes is a fault, so trap after ~10 s rather than hang the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - start > (1ll << 34)) __trap();
+}
+
+// one TMA box of a 4-D (D, heads, S, B) tensor map into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d0, int head,
+                                         int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0),
+      "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+
+// shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (16 B units), swizzle layout in bits 62-63
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+// named barriers 1 and 2: the consumer warpgroups take turns issuing
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// keep the compiler from moving accumulator reads or writes across a wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// 2^x on the MUFU unit (about 2 ulp; results below 2^-126 flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// wgmma m64nNk16, bf16 in, f32 accumulators (the fragment: register i of a
+// thread is row 16 * warp + lane / 4 + 8 * ((i >> 1) & 1), column
+// 8 * (i >> 2) + 2 * (lane % 4) + (i & 1))
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  // D (64 x 16, f32) += A (64 x 16, registers) * B (16 x 16, smem, N-major)
+  __device__ __forceinline__ static void rs(float (&d)[8], const uint32_t* a,
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  // D (64 x 32, f32) += A (64 x 16, registers) * B (16 x 32, smem, N-major)
+  __device__ __forceinline__ static void rs(float (&d)[16], const uint32_t* a,
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  // D (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, smem, N-major)
+  __device__ __forceinline__ static void rs(float (&d)[32], const uint32_t* a,
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // D (64 x 128, f32) (+)= A (64 x 16, smem) * B (128 x 16, smem)^T
+  __device__ __forceinline__ static void ss(float (&d)[64], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+  // D (64 x 128, f32) += A (64 x 16, registers) * B (16 x 128, smem, N-major)
+  __device__ __forceinline__ static void rs(float (&d)[64], const uint32_t* a,
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+  }
+};
+
+// one work item: a (b, h, 128-row q tile), numbered longest first ((b, h)
+// fastest, q tiles from the last one down), and its live k tiles [t0, t1):
+// the Pallas kernel's block_live over rows q0 .. q0 + kBM - 1 (dead tiles
+// form a prefix and a suffix)
+struct Work {
+  int q0, b, h, t0, t1;
+};
+
+__device__ __forceinline__ Work work_item(int item, int Sq, int Sk, int H,
+                                          int BH, int causal, int window) {
+  Work w;
+  w.q0 = ((Sq + kBM - 1) / kBM - 1 - item / BH) * kBM;
+  w.b = item % BH / H;
+  w.h = item % BH % H;
+  w.t1 = (Sk + kBN - 1) / kBN;
+  if (causal) w.t1 = min(w.t1, (w.q0 + kBM - 1) / kBN + 1);  // k0 <= q_last
+  // live: k0 + kBN - 1 > q0 - window
+  const int first = w.q0 - window - kBN + 1;
+  w.t0 = (window > 0 && first >= 0) ? first / kBN + 1 : 0;
+  return w;
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// S = Q K^T over one warpgroup's 64 q rows, as one wgmma group (both
+// operands K-major: a k16 step is 32 B along a row, within its box)
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[kBN / 2], uint32_t q_rows,
+                                         uint32_t k_tile) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk * 16 / T::kBox, off = (kk * 16 % T::kBox) * 2;
+    Wgmma<kBN>::ss(s,
+                   gmma_desc(q_rows + c * kBM * T::kRowBytes + off, 16,
+                             T::kSbo, T::kLayout),
+                   gmma_desc(k_tile + c * kBN * T::kRowBytes + off, 16,
+                             T::kSbo, T::kLayout),
+                   kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V as one wgmma group: P from registers, V MN-major (a k16 step is
+// 16 keys down; D = 128's two boxes lie kBN rows apart)
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&p)[kBN / 4],
+                                         uint32_t v_tile) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk)
+    Wgmma<D>::rs(o, &p[4 * kk],
+                 gmma_desc(v_tile + kk * 16 * T::kRowBytes, kBN * T::kRowBytes,
+                           T::kSbo, T::kLayout));
+  wgmma_commit();
+}
+
+// one S tile through the online softmax on the accumulator fragment (a row
+// lives in the 4 threads of a quad; a thread holds rows row0 and row0 + 8):
+// scale into the log2 domain and mask (only where `masked`), update the row
+// max m and the per-thread partial sums l, leave the unrounded p in s and
+// the factor for O in corr
+__device__ __forceinline__ void softmax_tile(float (&s)[kBN / 2], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             bool masked, int row0, int col0,
+                                             int Sk, int causal, int window,
+                                             float scale_log2) {
+  if (masked) {
+#pragma unroll
+    for (int j = 0; j < kBN / 2; ++j) {
+      const int row = row0 + 8 * ((j >> 1) & 1);
+      const int col = col0 + 8 * (j >> 2) + (j & 1);
+      const bool live = col < Sk && (!causal || col <= row) &&
+                        (window <= 0 || col > row - window);
+      s[j] = live ? s[j] * scale_log2 : kNegInf;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kBN / 2; ++j) s[j] *= scale_log2;
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < kBN / 2; ++j)
+    mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], s[j]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    corr[r] = ex2(m[r] - mx[r]);
+    m[r] = mx[r];
+  }
+  float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < kBN / 2; ++j) {
+    s[j] = ex2(s[j] - m[(j >> 1) & 1]);
+    sum[(j >> 1) & 1] += s[j];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
+                             const __grid_constant__ CUtensorMap map_k,
+                             const __grid_constant__ CUtensorMap map_v,
+                             __nv_bfloat16* __restrict__ out, int Sq, int Sk,
+                             int B, int H, int Kv, int causal, int window,
+                             float scale_log2) {
+  using T = Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t smem_q = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_q = smem_q + T::kBarOffset, bar_q_empty = bar_q + 8;
+  auto smem_k = [&](int s) {
+    return smem_q + T::kQBytes + s * 2 * T::kKVBytes;
+  };
+  auto smem_v = [&](int s) { return smem_k(s) + T::kKVBytes; };
+  auto bar_k = [&](int s) { return bar_q + 8 * (2 + s); };
+  auto bar_v = [&](int s) { return bar_q + 8 * (2 + kStages + s); };
+  auto bar_empty = [&](int s) { return bar_q + 8 * (2 + 2 * kStages + s); };
+  const int n_items = (Sq + kBM - 1) / kBM * B * H;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    mbar_init(bar_q_empty, kConsumerWarps);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_k(s), 1);
+      mbar_init(bar_v(s), 1);
+      mbar_init(bar_empty(s), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // every CTA walks the items blockIdx.x, + gridDim.x, ...; `tile` counts
+  // the K / V tiles through the ring so far, on both sides
+  const int wg = threadIdx.x / kWgThreads;
+  if (wg == 2) {  // producer: one thread issues every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 2 * kWgThreads) {
+      int tile = 0;
+      for (int item = static_cast<int>(blockIdx.x), n = 0; item < n_items;
+           item += static_cast<int>(gridDim.x), ++n) {
+        const Work w = work_item(item, Sq, Sk, H, B * H, causal, window);
+        const int kvh = w.h / (H / Kv);
+        mbar_wait(bar_q_empty, (n & 1) ^ 1);  // the last item's QKs are done
+        mbar_expect_tx(bar_q, T::kQBytes);
+        for (int c = 0; c < T::kBoxes; ++c)
+          tma_load(smem_q + c * kBM * T::kRowBytes, &map_q, bar_q, c * T::kBox,
+                   w.h, w.q0, w.b);
+        for (int t = w.t0; t < w.t1; ++t, ++tile) {
+          const int s = tile % kStages;
+          mbar_wait(bar_empty(s), ((tile / kStages) & 1) ^ 1);
+          mbar_expect_tx(bar_k(s), T::kKVBytes);
+          for (int c = 0; c < T::kBoxes; ++c)
+            tma_load(smem_k(s) + c * kBN * T::kRowBytes, &map_k, bar_k(s),
+                     c * T::kBox, kvh, t * kBN, w.b);
+          mbar_expect_tx(bar_v(s), T::kKVBytes);
+          for (int c = 0; c < T::kBoxes; ++c)
+            tma_load(smem_v(s) + c * kBN * T::kRowBytes, &map_v, bar_v(s),
+                     c * T::kBox, kvh, t * kBN, w.b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns q rows q0 + 64 wg .. + 63 of each item.
+  // Step i issues S_i = Q K_i^T and O += P_{i-1} V_{i-1} back to back, runs
+  // the softmax of S_i while PV is in flight, then waits for PV, releases
+  // tile i - 1's stage, rounds P_i to bf16 and rescales O
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int warp = (threadIdx.x % kWgThreads) / 32, lane = threadIdx.x % 32;
+  const int col0 = 2 * (lane % 4);  // column of register 0 in an n8 block
+  const uint32_t q_rows = smem_q + wg * 64 * T::kRowBytes;
+  float s[kBN / 2], o[D / 2], m[2], l[2], corr[2];
+  uint32_t p[kBN / 4];
+#pragma unroll
+  for (int j = 0; j < kBN / 2; ++j) s[j] = 0.0f;
+  // P in bf16, in place: registers 8kk .. 8kk + 7 of S are the A fragment of
+  // the k16 step over keys 16kk .. 16kk + 15
+  auto round_p = [&]() {
+#pragma unroll
+    for (int j = 0; j < kBN / 4; ++j) p[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+  };
+  auto release = [&](uint32_t bar) {  // one arrival per consumer warp
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+
+  int tile = 0;
+  if (wg == 1) turn_pass(wg);  // warpgroup 0 issues first
+  for (int item = static_cast<int>(blockIdx.x), n = 0; item < n_items;
+       item += static_cast<int>(gridDim.x), ++n) {
+    const Work w = work_item(item, Sq, Sk, H, B * H, causal, window);
+    const int n_tiles = max(w.t1 - w.t0, 0);
+    const int row0 = w.q0 + wg * 64 + warp * 16 + lane / 4;  // and row0 + 8
+    const int rmin = w.q0 + wg * 64, rmax = rmin + 63;
+    // a tile inside every bound of the warpgroup's rows skips the mask
+    auto masked = [&](int k0) {
+      return k0 + kBN > Sk || (causal && k0 + kBN - 1 > rmin) ||
+             (window > 0 && k0 <= rmax - window);
+    };
+    m[0] = m[1] = kNegInf;
+    l[0] = l[1] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) o[j] = 0.0f;
+
+    // straight-line wgmma groups (no group waited for on one path and not on
+    // another), or ptxas serializes every wgmma
+    mbar_wait(bar_q, n & 1);
+    if (n_tiles > 0) {  // tile 0: S_0, its softmax and P_0 (O is still 0)
+      const int k0 = w.t0 * kBN;
+      mbar_wait(bar_k(tile % kStages), (tile / kStages) & 1);
+      fence_regs(s);
+      turn_wait(wg);
+      wgmma_fence();
+      issue_qk<D>(s, q_rows, smem_k(tile % kStages));
+      turn_pass(wg);
+      wgmma_wait<0>();
+      fence_regs(s);
+      softmax_tile(s, m, l, corr, masked(k0), row0, k0 + col0, Sk, causal,
+                   window, scale_log2);
+      round_p();
+    }
+    for (int i = 1; i < n_tiles; ++i) {
+      const int cur = tile + i, st = cur % kStages, prev = (cur - 1) % kStages;
+      const int k0 = (w.t0 + i) * kBN;
+      mbar_wait(bar_k(st), (cur / kStages) & 1);
+      mbar_wait(bar_v(prev), ((cur - 1) / kStages) & 1);
+      fence_regs(s);
+      fence_regs(o);
+      turn_wait(wg);
+      wgmma_fence();
+      issue_qk<D>(s, q_rows, smem_k(st));  // S_i
+      issue_pv<D>(o, p, smem_v(prev));     // O += P_{i-1} V_{i-1}
+      turn_pass(wg);
+      wgmma_wait<1>();                     // S_i done, PV may still run
+      fence_regs(s);
+      softmax_tile(s, m, l, corr, masked(k0), row0, k0 + col0, Sk, causal,
+                   window, scale_log2);
+      wgmma_wait<0>();
+      fence_regs(o);
+      release(bar_empty(prev));
+      round_p();
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) o[j] *= corr[(j >> 1) & 1];
+    }
+    release(bar_q_empty);  // every QK of the item is done: the next Q may load
+    if (n_tiles > 0) {     // the last tile's PV
+      const int last = tile + n_tiles - 1;
+      mbar_wait(bar_v(last % kStages), (last / kStages) & 1);
+      fence_regs(o);
+      turn_wait(wg);
+      wgmma_fence();
+      issue_pv<D>(o, p, smem_v(last % kStages));
+      turn_pass(wg);
+      wgmma_wait<0>();
+      fence_regs(o);
+      release(bar_empty(last % kStages));
+    }
+    tile += n_tiles;
+
+    float den[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      den[r] = fmaxf(l[r], 1e-30f);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + 8 * half;
+      if (row >= Sq) continue;
+      __nv_bfloat16* dst =
+          out + ((static_cast<int64_t>(w.b) * Sq + row) * H + w.h) * D + col0;
+#pragma unroll
+      for (int jb = 0; jb < D / 8; ++jb)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * jb) =
+            __floats2bfloat162_rn(o[4 * jb + 2 * half] / den[half],
+                                  o[4 * jb + 2 * half + 1] / den[half]);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API function and this library links no
+// libcuda: take it from the driver PyTorch has already loaded
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib == nullptr ? nullptr
+                          : reinterpret_cast<EncodeTiled>(
+                                dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// a (B, S, heads, D) bf16 array as it lies in memory, boxes of `rows` rows
+// of one head and kBox columns
+template <int D>
+bool encode_map(CUtensorMap* map, const void* base, int64_t B, int64_t S,
+                int64_t heads, uint32_t rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D * 2),
+                                 static_cast<cuuint64_t>(heads * D * 2),
+                                 static_cast<cuuint64_t>(S * heads * D * 2)};
+  const cuuint32_t box[4] = {Tile<D>::kBox, 1, rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, Tile<D>::kSwizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
+                         int64_t B, int64_t Sq, int64_t Sk, int64_t H,
+                         int64_t Kv, int64_t causal, int64_t window,
+                         float scale, cudaStream_t stream) {
+  CUtensorMap map_q, map_k, map_v;
+  if (!encode_map<D>(&map_q, q, B, Sq, H, kBM) ||
+      !encode_map<D>(&map_k, k, B, Sk, Kv, kBN) ||
+      !encode_map<D>(&map_v, v, B, Sk, Kv, kBN))
+    return cudaErrorInvalidValue;
+  auto* kernel = flash_attention_kernel_wgmma<D>;
+  const int smem = Tile<D>::kSmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  // persistent: one CTA per SM (or per item, if fewer)
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess)
+    return err;
+  const int64_t items = (Sq + kBM - 1) / kBM * B * H;
+  const unsigned blocks = static_cast<unsigned>(items < sms ? items : sms);
+  kernel<<<blocks, kWgmmaThreads, smem, stream>>>(
+      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(out),
+      static_cast<int>(Sq), static_cast<int>(Sk), static_cast<int>(B),
+      static_cast<int>(H), static_cast<int>(Kv), causal != 0,
+      static_cast<int>(window), scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// f32 body: CUDA-core FMAs (the f32 oracle and sweeps)
+// ---------------------------------------------------------------------------
+//   - One CTA of 256 threads owns a (b, h, 64-row q tile) and loops over
+//     64-column k tiles, skipping dead ones with the Pallas predicate.
+//   - Tiles are staged in shared memory; rows past Sq or Sk are zero-filled
+//     and masked (cols < Sk), never padded in device memory.
+//   - Thread (ty, tx) = (tid / 16, tid % 16) owns the scores of rows
+//     ty + 16 i and columns tx + 16 j (i, j < 4) and the outputs of the same
+//     rows, columns tx * D/16 .. + D/16. A row's 64 scores sit in the 16
+//     lanes of one half-warp, so the row max and sum are xor-shuffle trees
+//     and m, l and the rescale factor stay in registers; only P goes through
+//     shared memory.
+//   - The dot is scaled after it is taken; expf and IEEE division (no fast
+//     math): the f32 case is held to 2e-5.
+
 constexpr int kBQ = 64;         // query rows per CTA
 constexpr int kBK = 64;         // k columns per tile
 constexpr int kThreads = 256;   // 16 x 16 threads
-constexpr float kNegInf = -1e30f;
 constexpr int kPS = kBK + 4;    // row stride of P in shared memory (floats)
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float lane(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
@@ -81,10 +743,10 @@ constexpr int smem_floats() {
   return kBQ * (D + 4) + kBK * (D + 4) + kBK * D + kBQ * kPS;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
                        int64_t Sq, int64_t Sk, int H, int Kv, int causal,
                        int64_t window, float scale) {
   constexpr int QS = D + 4;
@@ -105,7 +767,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int idx = tid; idx < kBQ * D; idx += kThreads) {
     const int r = idx / D, d = idx % D;
     const int64_t row = q0 + r;
-    Qs[r * QS + d] = row < Sq ? to_f32(q[((b * Sq + row) * H + h) * D + d]) : 0.0f;
+    Qs[r * QS + d] = row < Sq ? q[((b * Sq + row) * H + h) * D + d] : 0.0f;
   }
 
   float m[4], l[4], acc[4][DC];
@@ -132,8 +794,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float kk = 0.0f, vv = 0.0f;
       if (col < Sk) {
         const int64_t off = ((b * Sk + col) * Kv + kvh) * D + d;
-        kk = to_f32(k[off]);
-        vv = to_f32(v[off]);
+        kk = k[off];
+        vv = v[off];
       }
       Ks[r * QS + d] = kk;
       Vs[r * D + d] = vv;
@@ -189,7 +851,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
         rs += p;
-        Ps[(ty + 16 * i) * kPS + tx + 16 * j] = to_f32(from_f32<T>(p));
+        Ps[(ty + 16 * i) * kPS + tx + 16 * j] = p;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -233,63 +895,66 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t row = q0 + ty + 16 * i;
     if (row >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* o = out + ((b * Sq + row) * H + h) * D + tx * DC;
+    float* o = out + ((b * Sq + row) * H + h) * D + tx * DC;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) o[c] = from_f32<T>(acc[i][c] / denom);
+    for (int c = 0; c < DC; ++c) o[c] = acc[i][c] / denom;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t Kv,
-                   int64_t causal, int64_t window, float scale,
-                   cudaStream_t stream) {
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
+                       int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t Kv,
+                       int64_t causal, int64_t window, float scale,
+                       cudaStream_t stream) {
   const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
-  auto* kernel = flash_attention_kernel<T, D>;
+  auto* kernel = flash_attention_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>((Sq + kBQ - 1) / kBQ),
                   static_cast<unsigned>(H), static_cast<unsigned>(B));
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk,
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk,
       static_cast<int>(H), static_cast<int>(Kv), causal != 0, window, scale);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(int64_t D, const void* q, const void* k, const void* v,
-                     void* out, int64_t B, int64_t Sq, int64_t Sk, int64_t H,
-                     int64_t Kv, int64_t causal, int64_t window, float scale,
-                     cudaStream_t s) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
-    case 32: return launch<T, 32>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
-    case 64: return launch<T, 64>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
-    case 128: return launch<T, 128>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
 // q: (B, Sq, H, D), k, v: (B, Sk, Kv, D), out: (B, Sq, H, D), all contiguous
 // and of one dtype (f32, or bf16 when bf16 != 0); D in {16, 32, 64, 128};
-// window 0 = no window; scale = D^-1/2 rounded to f32
+// window 0 = no window; scale = D^-1/2 rounded to f32. bf16 takes the wgmma
+// body and needs q, k and v on 16-byte boundaries (TMA); f32 the CUDA-core
+// body.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int64_t B, int64_t Sq, int64_t Sk,
                                int64_t H, int64_t Kv, int64_t D, int64_t causal,
                                int64_t window, int64_t bf16, float scale,
                                void* stream) {
+  constexpr int64_t kMax = 0x7fffffff;
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || Kv <= 0 || H % Kv != 0 ||
-      window < 0 || B > 65535 || H > 65535 || (Sq + kBQ - 1) / kBQ > 0x7fffffff)
+      window < 0 || window > kMax || Sq > kMax || Sk > kMax || B > 65535 ||
+      H > 65535 || (Sq + kBM - 1) / kBM * B * H > kMax)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      bf16 ? dispatch<__nv_bfloat16>(D, q, k, v, out, B, Sq, Sk, H, Kv, causal,
-                                     window, scale, s)
-           : dispatch<float>(D, q, k, v, out, B, Sq, Sk, H, Kv, causal, window,
-                             scale, s);
-  return static_cast<int>(err);
+  if (bf16) {
+    if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+         reinterpret_cast<uintptr_t>(v)) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    switch (D) {
+      case 16: return launch_wgmma<16>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
+      case 32: return launch_wgmma<32>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
+      case 64: return launch_wgmma<64>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
+      case 128: return launch_wgmma<128>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  switch (D) {
+    case 16: return launch_f32<16>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
+    case 32: return launch_f32<32>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
+    case 64: return launch_f32<64>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
+    case 128: return launch_f32<128>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

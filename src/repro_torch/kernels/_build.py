@@ -1,9 +1,10 @@
 """Build, load and launch the port's CUDA kernels.
 
-At first use, one ``nvcc`` command compiles every ``csrc/*.cu`` for
-``sm_90a`` into one shared library with a plain C interface, which is
-loaded with ``ctypes`` (no PyTorch headers are compiled, so the build takes
-seconds). The library lands in ``src/repro_torch/_build/`` (gitignored),
+At first use, one ``nvcc`` per ``csrc/*.cu``, all started together,
+compiles the sources for ``sm_90a``, and one more links them into one
+shared library with a plain C interface, which is loaded with ``ctypes``
+(no PyTorch headers are compiled, so the build takes seconds: as long as
+the slowest source). The library lands in ``src/repro_torch/_build/`` (gitignored),
 named by a hash of the sources and flags, so an edited source rebuilds and
 an unchanged one is reused within a checkout.
 
@@ -33,6 +34,9 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the link step's libraries: flash_attention.cu finds the driver's tensor-map
+# encoder with dlopen / dlsym
+LINK_LIBS = ("-ldl",)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 # C entry points and their argument types (pointers and the stream as
@@ -98,7 +102,7 @@ def nvcc_path() -> str:
 
 def _compile() -> Library:
     sources = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_LIBS).encode())
     for src in sources:
         h.update(src.name.encode() + src.read_bytes())
     so = BUILD_DIR / f"repro_torch_kernels_{h.hexdigest()[:16]}.so"
@@ -107,15 +111,39 @@ def _compile() -> Library:
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        nvcc = nvcc_path()
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-            capture_output=True, text=True, timeout=600)
+        objs = [so.with_name(f"{so.stem}.{os.getpid()}.{src.stem}.o")
+                for src in sources]
+        procs = []
+        try:
+            for src, obj in zip(sources, objs):
+                procs.append(subprocess.Popen(
+                    [nvcc, *compile_flags, "-c", "-o", str(obj), str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True))
+            logs = [proc.communicate(timeout=600)[0] for proc in procs]
+            failed = [f"{src.name} ({proc.returncode}):\n{out}"
+                      for src, proc, out in zip(sources, procs, logs)
+                      if proc.returncode != 0]
+            if failed:
+                raise RuntimeError("nvcc failed: " + "\n".join(failed))
+            proc = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objs),
+                 *LINK_LIBS], capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                                   f"{proc.stdout}{proc.stderr}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for obj in objs:
+                obj.unlink(missing_ok=True)
         seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        log_path.write_text(proc.stdout + proc.stderr)
+        log_path.write_text("".join(logs) + proc.stdout + proc.stderr)
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():

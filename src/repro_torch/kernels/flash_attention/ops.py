@@ -6,7 +6,9 @@ A CPU tensor gets the plain version (``ref.py``); a CUDA tensor gets K11 in
 ``csrc/flash_attention.cu`` or an exception. Unlike the Pallas wrapper
 nothing is padded or transposed and no block size is chosen here: the
 kernel reads q, k and v in their (B, S, heads, D) layouts, masks the ragged
-tail tiles and fixes its own tiling.
+tail tiles and fixes its own tiling. K11 has two bodies, picked by dtype
+(:data:`BODIES`): bf16 runs on TMA and ``wgmma`` (sm_90a), f32 on CUDA-core
+FMAs.
 """
 from __future__ import annotations
 
@@ -16,7 +18,30 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)  # the kernel's template instances
+# the body of csrc/flash_attention.cu that serves each dtype, and the head
+# dims it is instantiated for (the C entry's switch on D)
+BODIES = {torch.bfloat16: ("wgmma", (16, 32, 64, 128)),   # TMA + wgmma
+          torch.float32: ("cuda-core", (16, 32, 64, 128))}  # f32 FMAs
+TMA_ALIGN = 16  # bytes: a TMA tensor map's base address
+
+
+def kernel_body(dtype: torch.dtype, d: int) -> str:
+    """The K11 body that takes (dtype, head dim d); raise if none does."""
+    if dtype not in BODIES:
+        raise ValueError(f"flash_attention takes {tuple(BODIES)}, got {dtype}")
+    body, dims = BODIES[dtype]
+    if d not in dims:
+        raise ValueError(f"head dim {d} not in the {body} body's {dims} "
+                         f"({dtype})")
+    return body
+
+
+def check_tma_alignment(**ptrs: int) -> None:
+    """Raise unless every address (``name=data_ptr()``) is TMA-aligned."""
+    for name, ptr in ptrs.items():
+        if ptr % TMA_ALIGN:
+            raise ValueError(f"{name} at {ptr:#x} is not {TMA_ALIGN}-byte "
+                             "aligned, as the wgmma body's TMA loads need")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -34,12 +59,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape[0] != b or k.shape[3] != d or kv == 0 or h % kv:
         raise ValueError(f"k {tuple(k.shape)} does not fit q {tuple(q.shape)} "
                          "(same B and D, H a multiple of Kv)")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in the kernel's {HEAD_DIMS}")
-    if q.dtype not in (torch.float32, torch.bfloat16) or \
-            k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"q, k, v must share float32 or bfloat16, got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must share one dtype, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
+    body = kernel_body(q.dtype, d)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if not (q.device == k.device == v.device):
@@ -53,6 +76,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     if sk == 0:
         raise ValueError("k and v hold no positions")
+    if body == "wgmma":
+        check_tma_alignment(q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr())
     _build.launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   out.data_ptr(), b, sq, sk, h, kv, d, int(causal), window,
                   int(q.dtype == torch.bfloat16), float(np.float32(d ** -0.5)))

@@ -3,12 +3,17 @@
 On CPU tensors ``kernels/flash_attention/ops.py`` runs its plain version
 (``ref.py``); both are held, on ``test_kernels.py``'s sweep (B = 2; causal,
 sliding-window and unmasked; GQA 1:1, 2:1 and 4:1; D 16 / 32 / 64; f32 and
-bf16), against three JAX functions on the same seeded inputs: the JAX
+bf16) and on the shapes that hit the edges of the bf16 kernel's 128 x 128
+tiles (the main path's 32 / 8 heads with S ragged to 64 and 128, cut to
+S = 200 and B = 1 for interpret mode; D = 128 ragged; S below one tile; a
+window whose first live tile is wholly masked for some rows), against
+three JAX functions on the same seeded inputs: the JAX
 ``ref.py``, ``flash_attention_pallas`` in interpret mode with 32-row blocks,
 and the models' jnp flash (``repro.models.attention.flash_attention``) with
 32-row chunks. Tolerances are the reference's own (``test_kernels.py``):
-2e-5 for f32, 3e-2 for bf16. The wrapper's checks and its launch count
-(none on CPU tensors) are tested too.
+2e-5 for f32, 3e-2 for bf16. The wrapper's checks (the head dims and
+dtypes each kernel body takes, TMA's 16-byte alignment) and its launch
+count (none on CPU tensors) are tested too.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -22,8 +27,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops, ref
 from repro_torch.models import attention
 
-SWEEP = [(64, 4, 4, 16, True, 0), (100, 8, 2, 32, True, 0),
-         (128, 4, 4, 16, True, 48), (96, 4, 2, 64, False, 0)]
+# (B, S, H, Kv, D, causal, window); test_kernels.py's four keep their ids
+SWEEP = [pytest.param(*c, id="-".join(map(str, c[1:])) if c[0] == 2 else
+                      f"B{c[0]}-" + "-".join(map(str, c[1:])))
+         for c in [(2, 64, 4, 4, 16, True, 0), (2, 100, 8, 2, 32, True, 0),
+                   (2, 128, 4, 4, 16, True, 48), (2, 96, 4, 2, 64, False, 0),
+                   (1, 200, 32, 8, 64, True, 0), (2, 300, 8, 2, 128, True, 0),
+                   (2, 40, 4, 4, 64, True, 0), (2, 257, 4, 1, 32, True, 100)]]
 
 
 def _qkv(s, h, kv, d, seed, b=2):
@@ -33,10 +43,10 @@ def _qkv(s, h, kv, d, seed, b=2):
             rng.normal(size=(b, s, kv, d)).astype(np.float32))
 
 
-@pytest.mark.parametrize("S,H,Kv,D,causal,window", SWEEP)
+@pytest.mark.parametrize("B,S,H,Kv,D,causal,window", SWEEP)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_attention_matches_jax(S, H, Kv, D, causal, window, dtype):
-    arrs = _qkv(S, H, Kv, D, S + H)
+def test_flash_attention_matches_jax(B, S, H, Kv, D, causal, window, dtype):
+    arrs = _qkv(S, H, Kv, D, S + H, b=B)
     jq, jk, jv = (jnp.asarray(a).astype(dtype) for a in arrs)
     tq, tk, tv = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs)
     before = dict(_build.launches)
@@ -86,5 +96,34 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(bad):
 
 def test_flash_attention_head_dims_are_the_kernels():
     src = (_build.CSRC / "flash_attention.cu").read_text()
-    for d in ops.HEAD_DIMS:
-        assert f"case {d}: return launch<T, {d}>" in src
+    launcher = {"wgmma": "launch_wgmma", "cuda-core": "launch_f32"}
+    assert {body for body, _ in ops.BODIES.values()} == set(launcher)
+    for body, dims in ops.BODIES.values():
+        for d in dims:
+            assert f"case {d}: return {launcher[body]}<{d}>(" in src
+        assert src.count(f"return {launcher[body]}<") == len(dims)
+
+
+@pytest.mark.parametrize("d", [8, 16, 32, 48, 64, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_flash_attention_body_per_dtype_and_head_dim(dtype, d):
+    dtype = getattr(torch, dtype)
+    want = {torch.bfloat16: "wgmma", torch.float32: "cuda-core"}.get(dtype)
+    if want is None or d not in (16, 32, 64, 128):
+        with pytest.raises(ValueError):
+            ops.kernel_body(dtype, d)
+        q = torch.zeros(1, 4, 2, d, dtype=dtype)
+        with pytest.raises(ValueError):  # the wrapper asks the same helper
+            ops.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    else:
+        assert ops.kernel_body(dtype, d) == want
+
+
+@pytest.mark.parametrize("offset", [0, 2, 8, 16, 32])
+def test_flash_attention_tma_alignment(offset):
+    base = 0x7f0000001000
+    if offset % 16:
+        with pytest.raises(ValueError, match="16-byte"):
+            ops.check_tma_alignment(q=base, k=base + offset, v=base)
+    else:
+        ops.check_tma_alignment(q=base, k=base + offset, v=base + 2 * offset)
