@@ -13,15 +13,18 @@ Phases, each of which raises on failure (nothing is caught):
 2. Every kernel against its plain PyTorch version on the same CUDA tensors
    at the shapes the main path gives it, with its time, its bound and the
    plain version's time; then the kernels' general paths (K != 8, ragged
-   tiles, rows without candidates) and the fused kernels' bit-invariance
-   across row and candidate buckets. The wire-quantization kernels K7-K9
+   tiles, rows without candidates) and the fused and candidate-matrix
+   kernels' (K5/K6, K2/K3) bit-invariance across row and candidate
+   buckets. The wire-quantization kernels K7-K9
    run over the whole DeepFFM weight space (~50.6 M weights) and must match
    exactly (min/max, codes and floats bit for bit). K10, the §4.3 block-skip
    weight gradient, runs at the trainer's two hidden-layer shapes (one
-   microbatch's pair of launches) and on ``test_kernels.py``'s sweep (rtol
-   1e-4, atol 1e-4), gives exact zeros for an all-zero gradient (also where
-   x is NaN: a skipped block adds nothing), and is bit-identical from launch
-   to launch; ``torch.matmul(x.T, g)`` is timed beside it. K11, flash
+   microbatch's pair of launches) and on ``test_kernels.py``'s sweep plus
+   B = 129 / 1000 / 100 at both layer widths (rtol 1e-4, atol 1e-4), gives
+   exact zeros for an all-zero gradient (also where x is NaN: a skipped
+   block adds nothing, in the first block and in rows 256-383 of a 512
+   batch), and is bit-identical from launch
+   to launch; ``torch.matmul(x.T, g)`` is timed beside it, per layer. K11, flash
    attention, runs at one prefill layer's shape (B=4, S=1024, 32 query and
    8 KV heads, D=64, causal) in bf16 (the TMA + wgmma body; 3e-2, and
    within bf16's roundoff bounds per element and per row) and f32 (the
@@ -122,6 +125,9 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BF16_TENSOR_FLOPS = 989e12
 
 TIMING_ITERS = 200
+# K10's batch rows per block (kBK in csrc/sparse_mlp.cu; a block holds 16
+# floats of x and 16 of g per row)
+K10_BLOCK = 128
 SCORE_RTOL, SCORE_ATOL = 2e-4, 2e-5  # staged scores vs the uncached oracle
 TRAIN_BATCH = 512  # examples per training microbatch (examples/train_ctr_100m.py)
 # K10's weight gradients in a training step vs plain autograd's, as a share
@@ -362,12 +368,15 @@ def main(argv=None) -> int:
         # the kernels' shared memory is dynamic (ptxas reports static only)
         f_, fc_, k_ = cfg.n_fields, cfg.context_fields, cfg.k
         print("  dynamic shared memory per block at main-path shapes: "
-              f"gather_dequant_rows_q8 0 B, ffm_candidate_matrices(_q8) "
-              f"{(fc_ * (f_ - fc_) * k_ + fc_) * 4} B, ffm_interaction_matrix "
-              f"{(f_ * f_ * k_ + f_) * 4} B, ffm_fused_logits_(q8|rows) "
+              "gather_dequant_rows_q8 0 B, ffm_candidate_matrices(_q8) 0 B "
+              f"(the direct body; the staged body, off the main path, "
+              f"{(fc_ * (f_ - fc_) * k_ + fc_) * 4} B), "
+              f"ffm_interaction_matrix {(f_ * f_ * k_ + f_) * 4} B, "
+              f"ffm_fused_logits_(q8|rows) "
               f"{(fc_ * (f_ * k_ + 4) + fc_ + 4) * 4} B, minmax / "
-              "quantize_codes / dequantize_codes / sparse_weight_grad 0 B "
-              "(sparse_weight_grad: 24 KiB static), flash_attention bf16 "
+              "quantize_codes / dequantize_codes 0 B, sparse_weight_grad "
+              f"{K10_BLOCK * 32 * 4} B per {K10_BLOCK}-row block held (B = "
+              f"{TRAIN_BATCH}: 4; 8 KiB static), flash_attention bf16 "
               f"{flash_smem_bytes(llm_cfg.resolved_head_dim, True)} B / f32 "
               f"{flash_smem_bytes(llm_cfg.resolved_head_dim, False)} B (D = "
               f"{llm_cfg.resolved_head_dim})")
@@ -635,8 +644,46 @@ def main(argv=None) -> int:
         check(same(rows, full[:3]) and same(rows_d, full_d[:3])
               and same(cut, full[:, :37]) and same(cut_d, full_d),
               f"{fn.__name__}: logits change with the row or candidate bucket")
-    print("kernel ffm_fused_logits_(q8|rows): rows [:3] and candidates [:37] "
-          "agree with the full bucket's"
+    # K2/K3 likewise: an output depends on its own (row, candidate) only.
+    # At the main-path bucket the direct body takes them (it has no tiles);
+    # Fcand = 5 sends K = 8 rows through the staged body's vector loads,
+    # four candidates per CTA, where 37 cuts a tile
+    def candidate_args(r, n, fc_, f_, k_, q8, pad=0):
+        """K2 or K3 arguments as the engine passes them: the context and
+        candidate column halves are views of one gathered block. pad > 0
+        reads each K-row at an offset of `pad` elements in rows of
+        K + pad (unaligned, strided views)."""
+        fcand_ = f_ - fc_
+        ctx = randn(r, fc_, f_, k_)
+        blk = (codes(r, n, fcand_, f_, k_ + pad) if q8
+               else randn(r, n, fcand_, f_, k_ + pad))[..., pad:]
+        grids = ((uniform(1e-3, 1e-2, r, n, fcand_),
+                  randn(r, n, fcand_, scale=0.05)) if q8 else ())
+        return (ctx[:, :, fc_:], uniform(0.5, 1.5, r, fc_),
+                blk[..., :fc_, :], blk[..., fc_:, :], *grids,
+                uniform(0.5, 1.5, r, n, fcand_))
+
+    cand_fns = ((fi_ops.ffm_candidate_matrices,
+                 fi_ref.ffm_candidate_matrices_ref, False),
+                (fi_ops.ffm_candidate_matrices_q8,
+                 fi_ref.ffm_candidate_matrices_q8_ref, True))
+    for fn, plain, q8 in cand_fns:
+        for a in ((args_q8 if q8 else args_f32),
+                  candidate_args(4, 40, 6, 11, 8, q8)):
+            # args: two per-row tensors, then the candidate blocks and scalars
+            full = fn(*a)
+            rows = fn(*[x[:3] for x in a])
+            cut = fn(*a[:2], *[first_candidates(x, 37) for x in a[2:]])
+            check(allclose(full, plain(*a), 1e-5, 1e-6),
+                  f"{fn.__name__} {list(a[2].shape)}: max abs err "
+                  f"{max_err(full, plain(*a)):.3e}")
+            check(all(same(r_, m[:3]) and same(c_, m[:, :37])
+                      for r_, c_, m in zip(rows, cut, full)),
+                  f"{fn.__name__} {list(a[2].shape)}: outputs change with "
+                  "the row or candidate bucket")
+    print("kernels ffm_fused_logits_(q8|rows), ffm_candidate_matrices(_q8) "
+          "(direct body at the bucket, staged at Fcand=5): rows [:3] and "
+          "candidates [:37] agree with the full bucket's"
           + (" bit for bit" if on_card else " (plain versions, 1e-6)"))
 
     # the kernels' general paths, off the main path's shapes: rows that are
@@ -673,6 +720,17 @@ def main(argv=None) -> int:
               ec_e[..., fce:, :], vc_e))):
         check(allclose(fn(*a), plain(*a), 1e-5, 1e-5),
               f"{fn.__name__} (K={ke}) disagrees: {max_err(fn(*a), plain(*a))}")
+    # K2/K3's staged body: byte-sized int8 rows (K = 3), unaligned strided
+    # views at K = 8 (neither vector loads nor the direct body), and a
+    # context block past the default 48 KiB of shared memory (Fc = 40,
+    # Fcand = 41: 52,640 B)
+    for fn, plain, q8 in cand_fns:
+        for shape, pad in (((2, 7, 5, 9, 3), 0), ((2, 7, 5, 13, 8), 1),
+                           ((2, 5, 40, 81, 8), 0)):
+            a = candidate_args(*shape, q8, pad)
+            check(allclose(fn(*a), plain(*a), 1e-5, 1e-6),
+                  f"{fn.__name__} {list(shape)} pad {pad} disagrees: "
+                  f"{max_err(fn(*a), plain(*a)):.3e}")
     # rows without candidates still get their ctx pair matrix
     no_cand = (ctx_e, val_e, depth_e, base_e[:, :0], qc_e[:, :0, :, :fce],
                qc_e[:, :0, :, fce:], qg_e[0][:, :0], qg_e[1][:, :0],
@@ -682,8 +740,9 @@ def main(argv=None) -> int:
     check(got[0].shape == (2, 0) and allclose(got[1], want[1], 1e-5, 1e-5),
           f"ffm_fused_logits_q8 (N=0): ctx_dots max abs err "
           f"{max_err(got[1], want[1])}")
-    print("kernels' general paths (byte rows, K=4, ragged tiles, N=0): agree "
-          "with plain versions")
+    print("kernels' general paths (byte rows, K=4, ragged tiles, N=0; K2/K3 "
+          "K=3, unaligned K=8 views, 52,640 B of shared memory): agree with "
+          "plain versions")
 
     # K7-K9: the wire quantizer over the whole DeepFFM weight space, as
     # Sender.make_update and the receiver's decode run it, with weights on
@@ -759,9 +818,14 @@ def main(argv=None) -> int:
     # test_kernels.py's sweep; an all-zero g gives exact zeros, even where
     # x is NaN (a skipped block adds nothing; the plain einsum gives NaN);
     # a dead 128-row batch block (K10's block) is skipped whatever x holds
+    # (B = 129, 1000 and 100 cross the edges of the batch blocks: a last
+    # block of one row, eight blocks in two shared-memory stages of four,
+    # one ragged block)
     for (bb, ii, jj), sparsity in ((shape, sp) for shape in (
             (16, 8, 8), (64, 32, 48), (200, 130, 260), (128, 128, 128),
-            (33, 257, 65)) for sp in (0.0, 0.5, 1.0)):
+            (33, 257, 65), (129, 277, 64), (1000, 277, 64), (100, 277, 64),
+            (129, 64, 32), (1000, 64, 32), (100, 64, 32))
+            for sp in (0.0, 0.5, 1.0)):
         x = randn(bb, ii)
         g = randn(bb, jj) * (uniform(0, 1, bb, jj) >= sparsity)
         got, want = sk_ops.sparse_weight_grad(x, g), sk_ref.sparse_weight_grad_ref(x, g)
@@ -770,23 +834,32 @@ def main(argv=None) -> int:
               f"sparse_weight_grad {[bb, ii, jj]} sparsity {sparsity}: max "
               f"abs err {max_err(got, want):.3e}")
     if on_card:
-        x, g = randn(300, 40), randn(300, 24)
-        g[:128] = 0
-        x[:128] = float("nan")
-        clean = x.clone()
-        clean[:128] = 0
-        check(torch.equal(sk_ops.sparse_weight_grad(x, torch.zeros_like(g)),
-                          torch.zeros(40, 24, device=dev))
-              and allclose(sk_ops.sparse_weight_grad(x, g),
-                           sk_ref.sparse_weight_grad_ref(clean, g), 1e-4, 1e-4),
-              "sparse_weight_grad: a skipped block changed the result")
+        # the first block, then rows 256-383 of a 512 batch (the third
+        # block of those a CTA holds at once) at both layer widths
+        for bb, ii, jj, dead in ((300, 40, 24, slice(0, 128)),
+                                 (512, 64, 32, slice(256, 384)),
+                                 (512, 277, 64, slice(256, 384))):
+            x, g = randn(bb, ii), randn(bb, jj)
+            g[dead] = 0
+            x[dead] = float("nan")
+            clean = x.clone()
+            clean[dead] = 0
+            check(torch.equal(sk_ops.sparse_weight_grad(x, torch.zeros_like(g)),
+                              torch.zeros(ii, jj, device=dev))
+                  and allclose(sk_ops.sparse_weight_grad(x, g),
+                               sk_ref.sparse_weight_grad_ref(clean, g), 1e-4,
+                               1e-4),
+                  f"sparse_weight_grad {[bb, ii, jj]}: a skipped block (rows "
+                  f"{dead.start}-{dead.stop - 1}) changed the result")
     x, g = pairs[0]
     check(torch.equal(sk_ops.sparse_weight_grad(x, g),
                       sk_ops.sparse_weight_grad(x, g)),
           "sparse_weight_grad differs between two launches")
-    print("kernel sparse_weight_grad: test_kernels.py sweep within 1e-4, "
-          "all-zero g exact zeros, "
-          + ("NaN x in skipped blocks ignored, " if on_card else "")
+    print("kernel sparse_weight_grad: test_kernels.py sweep and B = 129 / "
+          "1000 / 100 at (277, 64) and (64, 32) within 1e-4, all-zero g "
+          "exact zeros, "
+          + ("NaN x in skipped blocks (rows 0-127, 256-383) ignored, "
+             if on_card else "")
           + "two launches bit-identical")
     del pairs
 
@@ -1468,14 +1541,23 @@ def training_path(cfg, args, dev, on_card, smi, batches, run_phase,
           f"{eng.weights_version}")
 
     # the dense reference step against the row-sparse one, two microbatches
-    # from the same start (their launches are not part of the main path)
+    # from the same start (their launches are not part of the main path).
+    # On the CPU both run on one host thread: PyTorch's multi-threaded CPU
+    # sums change their order from run to run, and AdaGrad's first step on
+    # a fresh row magnifies a last-bit difference past the bound
     stacked = {k: np.stack([b[k] for b in rounds[0][:2]])
                for k in rounds[0][0]}
     out = {}
-    for name, maker in (("dense", make_round_step),
-                        ("sparse", make_sparse_round_step)):
-        p, st = clone(start[0]), clone(start[1])
-        out[name] = maker(cfg, "deepffm", pipe.opt)(p, st, 0, stacked)
+    threads = torch.get_num_threads()
+    if not on_card:
+        torch.set_num_threads(1)
+    try:
+        for name, maker in (("dense", make_round_step),
+                            ("sparse", make_sparse_round_step)):
+            p, st = clone(start[0]), clone(start[1])
+            out[name] = maker(cfg, "deepffm", pipe.opt)(p, st, 0, stacked)
+    finally:
+        torch.set_num_threads(threads)
     worst = 0.0
     for (path, d), (_, sp) in zip(
             layout.flatten_with_paths({"p": out["dense"][0],

@@ -16,24 +16,42 @@
 //   itself. Every output is one K=8 dot (16 flops) over 32-64 bytes of
 //   inputs, far below any tensor-core shape, so the arithmetic is plain FMA.
 //   At R=8 rows x N=64 candidates K3 reads ~0.87 MB and writes ~0.39 MB
-//   (~0.38 us at 3.35 TB/s), less than a kernel launch costs.
+//   (~0.38 us at 3.35 TB/s), less than a kernel launch costs, so what sets
+//   its time is the launch and the chain of dependent steps inside a thread
+//   block: the loads, a barrier, the work that waits for them, the stores.
 //
-// Design: the Pallas kernels keep a request's context block resident in VMEM
-//   while the grid walks candidate tiles. Here one CTA takes one (request row,
-//   tile of kTileN candidates): it stages the row's context block
-//   (Fc, Fcand, K) f32 — 4 KiB at the default width — and its values in
-//   shared memory once, then its threads walk the tile's (n, i, jc) and
-//   (n, ic, jc) outputs, one output per thread per step. Candidate rows are
-//   each read once straight from global memory (K=8: two float4, or one 8-byte
-//   load of int8 codes), so nothing else is staged. The int8 rows are
-//   dequantized in registers with __fmul_rn/__fadd_rn, bit-identical to the
+// K2/K3 design: two bodies with one arithmetic, picked per call by the C
+//   entry. Both compute each output as the plain version does: int8 rows
+//   dequantized in registers with __fmul_rn/__fadd_rn (bit-identical to the
 //   plain version's dequantized rows; the f32 candidate block of K3 never
-//   exists in device memory. Strided candidate blocks are read in place (the
-//   context/candidate column halves of one gathered block are views), only
-//   the K axis must be contiguous. K4 gives each example one CTA that stages
-//   its (F, F, K) block (18 KiB f32 at F=24, K=8) in shared memory, so each
-//   E[b,i,j,:] crosses device memory once although two outputs read it; it
-//   reads f32 or bf16, accumulates in f32 and writes the input type.
+//   exists in device memory), fmaf over k in order, then the value
+//   products, so the two bodies give the same bits.
+//   - The main path (K = 8, Fcand a multiple of 4, context and candidate-
+//     by-candidate rows contiguous along (jc, k), every row aligned, as the
+//     engine's gathered views are): ffm_candidate_direct_kernel, no shared
+//     memory and no barrier. Each thread owns four neighbouring outputs of
+//     one (request row, candidate), xc[r,n,i,4q..4q+3] or aa[r,n,ic,4q..4q+3];
+//     it issues every load they need at once (the four context rows as eight
+//     float4, the four candidate rows, float4s of scale / zero / vcand),
+//     then computes and stores one float4. 24,576 threads at the main-path
+//     bucket, kDirectThreads to a block.
+//   - Every other shape (runtime K, Fcand not a multiple of 4, unaligned
+//     views): ffm_candidate_matrices_kernel. The Pallas kernels keep a
+//     request's context block resident in VMEM while the grid walks
+//     candidate tiles; here one CTA takes one (request row, tile of kTileN
+//     candidates): it stages the row's context block (Fc, Fcand, K) f32 and
+//     its values in shared memory once, then its threads walk the tile's
+//     (n, i, jc) and (n, ic, jc) outputs, one output per thread per step.
+//     Candidate rows are each read once straight from global memory (K=8
+//     with aligned rows: two float4, or one 8-byte load of int8 codes).
+//     Strided candidate blocks are read in place (the context/candidate
+//     column halves of one gathered block are views); only the K axis must
+//     be contiguous.
+//
+// K4 gives each example one CTA that stages its (F, F, K) block (18 KiB f32
+//   at F=24, K=8) in shared memory, so each E[b,i,j,:] crosses device memory
+//   once although two outputs read it; it reads f32 or bf16, accumulates in
+//   f32 and writes the input type.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,8 +62,32 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileN = 4;
+constexpr int kTileN = 4;          // candidates per CTA, staged body
+constexpr int kDirectThreads = 128;  // threads per block, direct body
 constexpr int kDefaultSmem = 48 * 1024;
+
+// n / d for n < 2^31 by a multiply and a shift (the divisor's magic number
+// is found on the host): the direct body splits each thread's index by
+// runtime extents
+struct FastDiv {
+  uint32_t d, mul, shr;
+};
+
+FastDiv fast_div(uint32_t d) {
+  FastDiv f{d, 0, 0};
+  if (d > 1) {
+    int l = 0;
+    while ((1u << l) < d) ++l;  // ceil(log2 d)
+    const int p = 31 + l;
+    f.mul = static_cast<uint32_t>(((1ull << p) + d - 1) / d);
+    f.shr = static_cast<uint32_t>(p - 32);
+  }
+  return f;
+}
+
+__device__ __forceinline__ uint32_t quo(uint32_t n, FastDiv f) {
+  return f.d == 1 ? n : __umulhi(n, f.mul) >> f.shr;
+}
 
 template <bool Q8>
 __device__ __forceinline__ float dq(float c, float s, float z) {
@@ -226,6 +268,158 @@ int launch_candidates(const void* ectx, const void* vctx, const void* ecx,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The main path's body (see the header): a thread owns four outputs of one
+// (r, n) row; the first n_xc threads take xc, the rest aa.
+struct DirectPlan {
+  int64_t ctx_r, ctx_i;          // element strides of ectx (ctx_j == 8)
+  int64_t x_r, x_n, x_j, x_i;    // of ecx
+  int64_t c_r, c_n, c_i;         // of ecc (c_j == 8)
+  int N, Fc, Fcand;
+  FastDiv quads, fc, fcand, n;   // Fcand / 4, Fc, Fcand, N
+  int n_xc, total;               // threads of the xc part, of both parts
+};
+
+template <typename CandT>
+__global__ void __launch_bounds__(kDirectThreads)
+ffm_candidate_direct_kernel(const float* __restrict__ ectx,
+                            const float* __restrict__ vctx,
+                            const CandT* __restrict__ ecx,
+                            const CandT* __restrict__ ecc,
+                            const float* __restrict__ scale,
+                            const float* __restrict__ zero,
+                            const float* __restrict__ vcand,
+                            float* __restrict__ xc, float* __restrict__ aa,
+                            const DirectPlan p) {
+  constexpr bool Q8 = std::is_same<CandT, int8_t>::value;
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= p.total) return;
+  const bool is_xc = g < p.n_xc;
+  const uint32_t u = is_xc ? g : g - p.n_xc;
+  const uint32_t t = quo(u, p.quads);
+  const int jc0 = 4 * static_cast<int>(u - t * p.quads.d);
+  const uint32_t rn = quo(t, is_xc ? p.fc : p.fcand);   // the (r, n) row
+  const int row = t - rn * (is_xc ? p.fc.d : p.fcand.d);  // i or ic
+  const uint32_t r = quo(rn, p.n);
+  const int n = rn - r * p.n.d;
+  const int64_t g0 = static_cast<int64_t>(rn) * p.Fcand + jc0;  // (r, n, jc0)
+  const float4 v4 = *reinterpret_cast<const float4*>(vcand + g0);
+  float4 s4 = {}, z4 = {};
+  if constexpr (Q8) {
+    s4 = *reinterpret_cast<const float4*>(scale + g0);
+    z4 = *reinterpret_cast<const float4*>(zero + g0);
+  }
+  const float sj[4] = {s4.x, s4.y, s4.z, s4.w};
+  const float zj[4] = {z4.x, z4.y, z4.z, z4.w};
+  const float vj[4] = {v4.x, v4.y, v4.z, v4.w};
+  float o[4];
+  if (is_xc) {
+    // context rows (i, jc0..jc0+3), candidate rows (r, n, jc, i)
+    const float* a = ectx + r * p.ctx_r + row * p.ctx_i + jc0 * 8;
+    float av[32], c[4][8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      *reinterpret_cast<float4*>(&av[4 * q]) =
+          reinterpret_cast<const float4*>(a)[q];
+    const CandT* x = ecx + r * p.x_r + n * p.x_n + row * p.x_i;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) load8(x + (jc0 + q) * p.x_j, c[q]);
+    const float sv = vctx[static_cast<int64_t>(r) * p.Fc + row];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        acc = fmaf(av[8 * q + k], dq<Q8>(c[q][k], sj[q], zj[q]), acc);
+      o[q] = acc * sv * vj[q];
+    }
+    *reinterpret_cast<float4*>(xc + (static_cast<int64_t>(rn) * p.Fc + row) *
+                                        p.Fcand + jc0) =
+        make_float4(o[0], o[1], o[2], o[3]);
+  } else {
+    // rows (r, n, ic, jc0..jc0+3) and (r, n, jc, ic), each with its grid
+    const CandT* base = ecc + r * p.c_r + n * p.c_n;
+    float pr[4][8], qr[4][8];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      load8(base + row * p.c_i + (jc0 + q) * 8, pr[q]);
+      load8(base + (jc0 + q) * p.c_i + row * 8, qr[q]);
+    }
+    const int64_t gi = static_cast<int64_t>(rn) * p.Fcand + row;
+    const float vi = vcand[gi];
+    float si = 0.f, zi = 0.f;
+    if constexpr (Q8) {
+      si = scale[gi];
+      zi = zero[gi];
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        acc = fmaf(dq<Q8>(pr[q][k], si, zi), dq<Q8>(qr[q][k], sj[q], zj[q]),
+                   acc);
+      o[q] = acc * vi * vj[q];
+    }
+    *reinterpret_cast<float4*>(aa + gi * p.Fcand + jc0) =
+        make_float4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+// Whether a call fits the direct body: K = 8, Fcand a multiple of 4, the
+// context rows (jc, k) and candidate-by-candidate rows (jc, k) contiguous,
+// every row aligned for its vector loads (16 bytes; int8 candidate rows 8).
+template <typename CandT>
+bool direct_fits(const void* ectx, const void* ecx, const void* ecc,
+                 const void* scale, const void* zero, const void* vcand,
+                 const int64_t* st, int64_t R, int64_t N, int64_t Fc,
+                 int64_t Fcand, int64_t K) {
+  const int64_t sz = sizeof(CandT);
+  const int64_t ra = sz == 1 ? 8 : 16;
+  auto aligned = [](const void* q, int64_t a) {
+    return reinterpret_cast<uintptr_t>(q) % a == 0;
+  };
+  bool ok = K == 8 && Fcand > 0 && Fcand % 4 == 0 &&
+            R * N * (Fc + Fcand) * (Fcand / 4) < (int64_t{1} << 31) &&
+            st[2] == 8 && st[10] == 8 && st[0] % 4 == 0 && st[1] % 4 == 0 &&
+            aligned(ectx, 16) && aligned(vcand, 16) && aligned(ecx, ra) &&
+            aligned(ecc, ra) &&
+            (sz == 4 || (aligned(scale, 16) && aligned(zero, 16)));
+  for (int q = 3; q < 10; ++q) ok = ok && st[q] * sz % ra == 0;
+  return ok;
+}
+
+template <typename CandT>
+int launch_direct(const void* ectx, const void* vctx, const void* ecx,
+                  const void* ecc, const void* scale, const void* zero,
+                  const void* vcand, void* xc, void* aa, const int64_t* st,
+                  int64_t R, int64_t N, int64_t Fc, int64_t Fcand,
+                  cudaStream_t stream) {
+  const int64_t quads = Fcand / 4;
+  const int64_t total = R * N * (Fc + Fcand) * quads;
+  DirectPlan p;
+  p.ctx_r = st[0]; p.ctx_i = st[1];
+  p.x_r = st[3]; p.x_n = st[4]; p.x_j = st[5]; p.x_i = st[6];
+  p.c_r = st[7]; p.c_n = st[8]; p.c_i = st[9];
+  p.N = static_cast<int>(N);
+  p.Fc = static_cast<int>(Fc);
+  p.Fcand = static_cast<int>(Fcand);
+  p.quads = fast_div(static_cast<uint32_t>(quads));
+  p.fc = fast_div(static_cast<uint32_t>(Fc));
+  p.fcand = fast_div(static_cast<uint32_t>(Fcand));
+  p.n = fast_div(static_cast<uint32_t>(N));
+  p.n_xc = static_cast<int>(R * N * Fc * quads);
+  p.total = static_cast<int>(total);
+  ffm_candidate_direct_kernel<CandT>
+      <<<static_cast<unsigned>((total + kDirectThreads - 1) / kDirectThreads),
+         kDirectThreads, 0, stream>>>(
+          static_cast<const float*>(ectx), static_cast<const float*>(vctx),
+          static_cast<const CandT*>(ecx), static_cast<const CandT*>(ecc),
+          static_cast<const float*>(scale), static_cast<const float*>(zero),
+          static_cast<const float*>(vcand), static_cast<float*>(xc),
+          static_cast<float*>(aa), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -287,6 +481,10 @@ extern "C" int ffm_candidate_matrices(const void* ectx, const void* vctx,
   if (R <= 0 || N <= 0) return 0;
   const auto* st = static_cast<const int64_t*>(strides);
   auto s = static_cast<cudaStream_t>(stream);
+  if (direct_fits<float>(ectx, ecx, ecc, nullptr, nullptr, vcand, st, R, N,
+                         Fc, Fcand, K))
+    return launch_direct<float>(ectx, vctx, ecx, ecc, nullptr, nullptr, vcand,
+                                xc, aa, st, R, N, Fc, Fcand, s);
   if (vec8)
     return launch_candidates<float, 8>(ectx, vctx, ecx, ecc, nullptr, nullptr,
                                        vcand, xc, aa, st, R, N, Fc, Fcand, K, s);
@@ -304,6 +502,10 @@ extern "C" int ffm_candidate_matrices_q8(const void* ectx, const void* vctx,
   if (R <= 0 || N <= 0) return 0;
   const auto* st = static_cast<const int64_t*>(strides);
   auto s = static_cast<cudaStream_t>(stream);
+  if (direct_fits<int8_t>(ectx, qcx, qcc, scale, zero, vcand, st, R, N, Fc,
+                          Fcand, K))
+    return launch_direct<int8_t>(ectx, vctx, qcx, qcc, scale, zero, vcand, xc,
+                                 aa, st, R, N, Fc, Fcand, s);
   if (vec8)
     return launch_candidates<int8_t, 8>(ectx, vctx, qcx, qcc, scale, zero,
                                         vcand, xc, aa, st, R, N, Fc, Fcand, K, s);

@@ -51,7 +51,7 @@ def test_ffm_interaction_matrix_matches_pallas(B, F, K, dtype):
 
 
 CAND_SHAPES = [(1, 5, 3, 2, 4), (3, 9, 8, 4, 8), (2, 64, 4, 7, 2),
-               (2, 6, 5, 1, 4), (8, 37, 16, 8, 8)]
+               (2, 6, 5, 1, 4), (8, 37, 16, 8, 8), (3, 53, 16, 8, 8)]
 
 
 @pytest.mark.parametrize("R,N,Fc,Fcand,K", CAND_SHAPES)

@@ -31,7 +31,8 @@ def _xg(b, i, j, sparsity, seed):
 
 
 @pytest.mark.parametrize("B,I,J", [(16, 8, 8), (64, 32, 48), (200, 130, 260),
-                                   (128, 128, 128), (33, 257, 65)])
+                                   (128, 128, 128), (33, 257, 65),
+                                   (129, 277, 64), (1000, 277, 64)])
 @pytest.mark.parametrize("sparsity", [0.0, 0.5, 1.0])
 def test_sparse_weight_grad_matches_pallas(B, I, J, sparsity):
     x, g = _xg(B, I, J, sparsity, B + I + J)
