@@ -9,13 +9,20 @@ Phases, each of which raises on failure (nothing is caught):
 
 1. Card and build: the card's name, capability (must be 9.0) and power
    limit; the kernels built from ``src/repro_torch/csrc/*.cu`` with nvcc,
-   with ptxas' register / shared-memory / spill lines per kernel.
-2. Every kernel against its plain PyTorch version on the same CUDA tensors
-   at the shapes the main path gives it, with its time, its bound and the
-   plain version's time; then the kernels' general paths (K != 8, ragged
-   tiles, rows without candidates) and the fused and candidate-matrix
-   kernels' (K5/K6, K2/K3) bit-invariance across row and candidate
-   buckets. The wire-quantization kernels K7-K9
+   with ptxas' register / shared-memory / spill lines per kernel (K1's, K4's
+   and K11's bf16 body's registers and spills by name).
+2. The launch floor (a CUDA graph of one-element ``zero_()`` calls, timed as
+   the kernels are), then every kernel against its plain PyTorch version on
+   the same CUDA tensors at the shapes the main path gives it, with its
+   time, its bound and the plain version's time; then the kernels' general
+   paths (K != 8, ragged tiles, rows without candidates) and the fused and
+   candidate-matrix kernels' (K5/K6, K2/K3) bit-invariance across row and
+   candidate buckets. K1 must equal its plain version bit for bit also on a
+   ragged last block, rows 0 and V-1, 2-D indices, rows of 40 and 15 codes
+   and codes off alignment; K4 must agree with its plain version on
+   ``test_kernels.py``'s sweep and at F = 64, K = 16 in f32 and bf16 (that
+   test's tolerances), and give D == D^T bit for bit at the main shape.
+   The wire-quantization kernels K7-K9
    run over the whole DeepFFM weight space (~50.6 M weights) and must match
    exactly (min/max, codes and floats bit for bit). K10, the §4.3 block-skip
    weight gradient, runs at the trainer's two hidden-layer shapes (one
@@ -151,6 +158,12 @@ FLASH_SWEEP = ((2, 64, 4, 4, 16, True, 0), (2, 100, 8, 2, 32, True, 0),
                (2, 200, 4, 2, 128, True, 0), (2, 70, 4, 1, 64, False, 33),
                (1, 1000, 32, 8, 64, True, 0), (2, 300, 8, 2, 128, True, 0),
                (2, 40, 4, 4, 64, True, 0), (2, 257, 4, 1, 32, True, 100))
+# K4 against its plain version: test_kernels.py::test_ffm_interaction_sweep's
+# shapes and tolerances (rtol, atol), then F = 64, K = 16, whose (F, F, K)
+# f32 block would not fit in one CTA's shared memory (262,400 > 232,448 B)
+K4_SWEEP = ((4, 4, 2), (32, 24, 8), (100, 24, 8), (7, 10, 16), (1, 6, 4),
+            (3, 64, 16))
+K4_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (5e-2, 5e-1)}
 # the f32 oracle: prefill through K11 vs stepwise decode, rel of max |ref|.
 # Both are f32 sums in different orders (2.9e-6 on an H100); a bf16 or TF32
 # rounding anywhere on the f32 path gives ~1e-3, so the bound sits between
@@ -184,15 +197,23 @@ def flash_smem_bytes(d: int, bf16: bool) -> int:
     return (64 * (d + 4) * 2 + 64 * d + 64 * 68) * 4
 
 
+# template arguments as the mangled names spell them
+MANGLED_TYPES = {"f": "float", "13__nv_bfloat16": "bf16", "a": "int8_t"}
+
+
 def ptxas_usage(log: str, needle: str):
     """(kernel, registers, spill line) for each entry function of the build
-    log whose name contains ``needle``."""
+    log whose name contains ``needle``, named with its template arguments
+    (a type, then an int, as ``needle<float, 8>``)."""
     found, name = [], None
     for line in log.splitlines():
         line = line.strip()
         if "Compiling entry function" in line:
-            m = re.search(re.escape(needle) + r"ILi(\d+)E", line)
-            name = (f"{needle}<{m.group(1)}>" if m
+            m = re.search(re.escape(needle) + r"I(f|13__nv_bfloat16|a)?"
+                          r"(?:Li(\d+)E)?", line)
+            targs = [MANGLED_TYPES[m.group(1)]] if m and m.group(1) else []
+            targs += [m.group(2)] if m and m.group(2) else []
+            name = (f"{needle}<{', '.join(targs)}>" if targs
                     else needle if needle in line else None)
         elif name and "spill" in line:
             spill = line
@@ -371,7 +392,7 @@ def main(argv=None) -> int:
               "gather_dequant_rows_q8 0 B, ffm_candidate_matrices(_q8) 0 B "
               f"(the direct body; the staged body, off the main path, "
               f"{(fc_ * (f_ - fc_) * k_ + fc_) * 4} B), "
-              f"ffm_interaction_matrix {(f_ * f_ * k_ + f_) * 4} B, "
+              "ffm_interaction_matrix 0 B, "
               f"ffm_fused_logits_(q8|rows) "
               f"{(fc_ * (f_ * k_ + 4) + fc_ + 4) * 4} B, minmax / "
               "quantize_codes / dequantize_codes 0 B, sparse_weight_grad "
@@ -384,6 +405,10 @@ def main(argv=None) -> int:
                                              "flash_attention_kernel_wgmma"):
             print(f"  K11 bf16 body {name}: {regs} registers per thread at "
                   f"entry (setmaxnreg: consumers 232, producer 40); {spill}")
+        for kid, needle in (("K1", "gather_dequant_rows_q8_kernel"),
+                            ("K4", "ffm_interaction_matrix_kernel")):
+            for name, regs, spill in ptxas_usage(lib.log, needle):
+                print(f"  {kid} {name}: {regs} registers per thread; {spill}")
     else:
         print("card: none (CPU rehearsal: plain versions, no timings)")
 
@@ -519,11 +544,24 @@ def main(argv=None) -> int:
               f"{rec['plain_ms']} ms | {bytes_moved} bytes ({rate}) | bound "
               f"{b_ms:.3e} ms ({b_by})")
 
+    # the launch floor: a CUDA graph node that does no work worth the name
+    # (zero_() of one f32), timed as device_ms times a kernel. A yardstick
+    # for the small kernels below, as library_ms is; the port never calls it
+    one = torch.zeros(1, device=dev)
+    floor_ms = device_ms(one.zero_)
+    print("launch floor: "
+          + ("not measured (no card)" if floor_ms is None else
+             f"{floor_ms} ms per zero_() of one f32, {TIMING_ITERS} in a CUDA "
+             f"graph | {smi}"))
+
+    def idx_in(hi, *shape):
+        return torch.randint(0, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
     # K1: the gather of score_uncached's (N, F) feature block (context tails
     # gather up to Fc rows through the same kernel)
     tbl = (codes(v, f, k), uniform(1e-4, 1e-2, v), randn(v, scale=0.05))
-    idx = torch.randint(0, v, (n_cand, f), generator=gen, device=dev,
-                        dtype=torch.int32)
+    idx = idx_in(v, n_cand, f)
     m, rowlen = idx.numel(), f * k
     kernel_case(
         "gather_dequant_rows_q8", "src/repro_torch/csrc/row_gather.cu",
@@ -532,6 +570,31 @@ def main(argv=None) -> int:
         lambda: rg_ref.gather_dequant_rows_q8_ref(*tbl, idx), "exact",
         m * (rowlen + 4 + 8) + m * rowlen * 4, 2 * m * rowlen,
         [list(tbl[0].shape), list(idx.shape)])
+    # K1 bit for bit off the main shape: a ragged last block, the table's
+    # first and last rows, 2-D indices, rows of 40 codes (8-code pieces
+    # that are no multiple of 16 bytes), rows of 15 codes and codes one byte
+    # off alignment (both one code per thread)
+    def grid_of(n):
+        return uniform(1e-3, 1e-2, n), randn(n, scale=0.05)
+
+    tbl40 = (codes(1000, 5, 8), *grid_of(1000))
+    tbl15 = (codes(50, 3, 5), *grid_of(50))
+    flat = codes(1000 * 40 + 1)
+    tbl_off = (flat[1:].view(1000, 5, 8), *tbl40[1:])
+    ends = torch.tensor([[0, v - 1, 0], [v - 1, 7, v - 1]], dtype=torch.int32,
+                        device=dev)
+    for what, t_, i_ in (("1537 rows", tbl, idx_in(v, 1537)),
+                         ("rows 0 and V-1", tbl, ends),
+                         ("(3, 7) indices", tbl, idx_in(v, 3, 7)),
+                         ("rows of 40 codes", tbl40, idx_in(1000, 300)),
+                         ("rows of 15 codes", tbl15, idx_in(50, 7, 3)),
+                         ("codes off alignment", tbl_off, idx_in(1000, 300))):
+        check(torch.equal(rg_ops.gather_dequant_rows_q8(*t_, i_),
+                          rg_ref.gather_dequant_rows_q8_ref(*t_, i_)),
+              f"gather_dequant_rows_q8 ({what}) disagrees")
+    print("kernel gather_dequant_rows_q8: 1537 rows, rows 0 and V-1, (3, 7) "
+          "indices, rows of 40 and 15 codes and codes off alignment equal "
+          "the plain version bit for bit")
 
     # K2/K3: one (rb=8, nb=64) bucket of the candidate forward; context and
     # candidate column halves are views of one block, as the engine passes them
@@ -584,6 +647,28 @@ def main(argv=None) -> int:
         n_cand * (f * f * k + f + f * f) * 4, n_cand * f * f * (2 * k + 2),
         [n_cand, f, k],
         library=lambda: torch.einsum("bijk,bjik,bi,bj->bij", e4, e4, v4, v4))
+    # K4 on test_kernels.py's sweep and at F = 64, K = 16, in f32 and bf16;
+    # D symmetric bit for bit at the main shape (the CPU rehearsal's einsum
+    # may order its sums by position, so it is held to 1e-6 there)
+    for dtype, (rt, at) in K4_TOL.items():
+        dt = getattr(torch, dtype)
+        for bb, ff, kk in K4_SWEEP:
+            e_, v_ = randn(bb, ff, ff, kk).to(dt), randn(bb, ff).to(dt)
+            got = fi_ops.ffm_interaction_matrix(e_, v_)
+            want = fi_ref.ffm_interaction_matrix_ref(e_, v_)
+            check(got.dtype == dt and allclose(got, want, rt, at),
+                  f"ffm_interaction_matrix {dtype} {[bb, ff, kk]}: max abs "
+                  f"err {max_err(got, want):.3e} (rtol {rt}, atol {at})")
+        d = fi_ops.ffm_interaction_matrix(e4.to(dt), v4.to(dt))
+        check(torch.equal(d, d.transpose(1, 2)) if on_card
+              else allclose(d, d.transpose(1, 2), 1e-6, 1e-6),
+              f"ffm_interaction_matrix {dtype} {[n_cand, f, k]}: D is not "
+              "symmetric")
+    print(f"kernel ffm_interaction_matrix: {len(K4_SWEEP)} shapes "
+          "(test_kernels.py's sweep, F = 64 and K = 16) agree with the plain "
+          "version in f32 (1e-5, 1e-4) and bf16 (5e-2, 5e-1); D == D^T at "
+          f"{[n_cand, f, k]} in both"
+          + (" bit for bit" if on_card else " (plain version, 1e-6)"))
 
     # K5/K6: one (rb=8, nb=64) bucket of the fused forward with mixed cached
     # prefix depths (0 and Fc among them); the context and candidate column
@@ -686,15 +771,8 @@ def main(argv=None) -> int:
           "candidates [:37] agree with the full bucket's"
           + (" bit for bit" if on_card else " (plain versions, 1e-6)"))
 
-    # the kernels' general paths, off the main path's shapes: rows that are
-    # not a multiple of 16 bytes (K1's byte loop) and K != 8 (K2/K3/K4/K5/K6's
-    # runtime-K loop, with a ragged candidate tile)
-    idx_e = torch.randint(0, 50, (7, 3), generator=gen, device=dev,
-                          dtype=torch.int32)
-    tbl_e = (codes(50, 3, 5), uniform(1e-3, 1e-2, 50), randn(50, scale=0.05))
-    check(torch.equal(rg_ops.gather_dequant_rows_q8(*tbl_e, idx_e),
-                      rg_ref.gather_dequant_rows_q8_ref(*tbl_e, idx_e)),
-          "gather_dequant_rows_q8 (byte path) disagrees")
+    # the kernels' general paths, off the main path's shapes: K != 8
+    # (K2/K3/K4/K5/K6's runtime-K loop, with a ragged candidate tile)
     ke, fce, fe = 4, 5, 9
     ctx_e, val_e = randn(2, fce, fe, ke), uniform(0.5, 1.5, 2, fce)
     ec_e, vc_e = randn(2, 7, fe - fce, fe, ke), uniform(0.5, 1.5, 2, 7, fe - fce)
@@ -740,7 +818,7 @@ def main(argv=None) -> int:
     check(got[0].shape == (2, 0) and allclose(got[1], want[1], 1e-5, 1e-5),
           f"ffm_fused_logits_q8 (N=0): ctx_dots max abs err "
           f"{max_err(got[1], want[1])}")
-    print("kernels' general paths (byte rows, K=4, ragged tiles, N=0; K2/K3 "
+    print("kernels' general paths (K=4, ragged tiles, N=0; K2/K3 "
           "K=3, unaligned K=8 views, 52,640 B of shared memory): agree with "
           "plain versions")
 

@@ -16,8 +16,9 @@
 //   itself. Every output is one K=8 dot (16 flops) over 32-64 bytes of
 //   inputs, far below any tensor-core shape, so the arithmetic is plain FMA.
 //   At R=8 rows x N=64 candidates K3 reads ~0.87 MB and writes ~0.39 MB
-//   (~0.38 us at 3.35 TB/s), less than a kernel launch costs, so what sets
-//   its time is the launch and the chain of dependent steps inside a thread
+//   (~0.38 us at 3.35 TB/s) and K4 at B=64, F=24 reads 1.19 MB and writes
+//   0.15 MB (~0.40 us), less than a kernel launch costs, so what sets their
+//   time is the launch and the chain of dependent steps inside a thread
 //   block: the loads, a barrier, the work that waits for them, the stores.
 //
 // K2/K3 design: two bodies with one arithmetic, picked per call by the C
@@ -48,10 +49,21 @@
 //     column halves of one gathered block are views); only the K axis must
 //     be contiguous.
 //
-// K4 gives each example one CTA that stages its (F, F, K) block (18 KiB f32
-//   at F=24, K=8) in shared memory, so each E[b,i,j,:] crosses device memory
-//   once although two outputs read it; it reads f32 or bf16, accumulates in
-//   f32 and writes the input type.
+// K4 design: ffm_interaction_matrix_kernel, the same kind of register-
+//   direct body, one thread per output D[b,i,j] (consecutive threads on
+//   consecutive j, so the stores coalesce), kDirectThreads to a block: B*F^2
+//   threads, 36,864 (288 blocks) at the main path's B=64, F=24. Each thread
+//   issues its loads at once: E[b,i,j,:] and E[b,j,i,:] (at K = 8 two float4
+//   each in f32, one 16-byte word each in bf16; a runtime-K loop of scalar
+//   loads otherwise) and v[b,i], v[b,j]; then fmaf over k in order and one
+//   store. No shared memory and no barrier, so nothing bounds F. Each E row
+//   is read by two threads but crosses device memory once (the second read
+//   finds it in L2). Staging each example's (F, F, K) block in shared memory
+//   instead would give B=64 examples 64 CTAs for 132 SMs, put a barrier
+//   behind the copies, and read the transposed rows F*K words apart, all in
+//   one bank. It reads f32 or bf16, accumulates in f32 and writes the input
+//   type; fmaf and v_i * v_j commute in their operands, so D[b,i,j] ==
+//   D[b,j,i] exactly.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,35 +71,14 @@
 
 #include <type_traits>
 
+#include "fast_div.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;       // threads per CTA, K2/K3's staged body
 constexpr int kTileN = 4;          // candidates per CTA, staged body
-constexpr int kDirectThreads = 128;  // threads per block, direct body
+constexpr int kDirectThreads = 128;  // threads per block, direct bodies
 constexpr int kDefaultSmem = 48 * 1024;
-
-// n / d for n < 2^31 by a multiply and a shift (the divisor's magic number
-// is found on the host): the direct body splits each thread's index by
-// runtime extents
-struct FastDiv {
-  uint32_t d, mul, shr;
-};
-
-FastDiv fast_div(uint32_t d) {
-  FastDiv f{d, 0, 0};
-  if (d > 1) {
-    int l = 0;
-    while ((1u << l) < d) ++l;  // ceil(log2 d)
-    const int p = 31 + l;
-    f.mul = static_cast<uint32_t>(((1ull << p) + d - 1) / d);
-    f.shr = static_cast<uint32_t>(p - 32);
-  }
-  return f;
-}
-
-__device__ __forceinline__ uint32_t quo(uint32_t n, FastDiv f) {
-  return f.d == 1 ? n : __umulhi(n, f.mul) >> f.shr;
-}
 
 template <bool Q8>
 __device__ __forceinline__ float dq(float c, float s, float z) {
@@ -98,7 +89,7 @@ __device__ __forceinline__ float dq(float c, float s, float z) {
   }
 }
 
-// Eight consecutive candidate elements as floats (codes not yet dequantized).
+// Eight consecutive elements as floats (int8 codes not yet dequantized).
 __device__ __forceinline__ void load8(const float* p, float* out) {
   const float4 a = __ldg(reinterpret_cast<const float4*>(p));
   const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
@@ -429,44 +420,71 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// Eight consecutive bf16 elements as floats: one 16-byte load.
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
+  const uint4 w = __ldg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&w);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) out[k] = __bfloat162float(h[k]);
+}
+
+struct InteractionPlan {
+  FastDiv ff, f;  // F * F, F
+  int K;
+  int total;      // B * F * F threads, one per output
+};
+
+// K4 (see the header): thread g computes D[b, i, j] = out[g]. KC == 8
+// loads both K = 8 rows as vectors; KC == 0 loops over a runtime K.
+template <typename T, int KC>
+__global__ void __launch_bounds__(kDirectThreads)
 ffm_interaction_matrix_kernel(const T* __restrict__ e, const T* __restrict__ v,
-                              T* __restrict__ out, int F, int K) {
-  extern __shared__ float4 smem4[];
-  float* se = reinterpret_cast<float*>(smem4);  // (F, F, K) as f32
-  const int blk = F * F * K;
-  float* sv = se + blk;                         // (F,)
-  const int64_t b = blockIdx.x;
-  const T* eb = e + b * blk;
-  for (int t = threadIdx.x; t < blk; t += blockDim.x) se[t] = to_f32(eb[t]);
-  for (int t = threadIdx.x; t < F; t += blockDim.x) sv[t] = to_f32(v[b * F + t]);
-  __syncthreads();
-  for (int o = threadIdx.x; o < F * F; o += blockDim.x) {
-    const int i = o / F;
-    const int j = o - i * F;
-    const float* a = se + (i * F + j) * K;
-    const float* c = se + (j * F + i) * K;
-    float acc = 0.f;
-    for (int k = 0; k < K; ++k) acc = fmaf(a[k], c[k], acc);
-    store(out + b * F * F + o, acc * (sv[i] * sv[j]));
+                              T* __restrict__ out, const InteractionPlan p) {
+  const uint32_t g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= static_cast<uint32_t>(p.total)) return;
+  const uint32_t b = quo(g, p.ff);
+  const uint32_t ij = g - b * p.ff.d;
+  const uint32_t i = quo(ij, p.f);
+  const uint32_t j = ij - i * p.f.d;
+  const int64_t F = p.f.d;
+  const int64_t K = KC ? KC : p.K;
+  const int64_t bf = static_cast<int64_t>(b) * F;  // row (b, 0) of v
+  const T* a = e + ((bf + i) * F + j) * K;         // E[b, i, j, :]
+  const T* c = e + ((bf + j) * F + i) * K;         // E[b, j, i, :]
+  const float vi = to_f32(v[bf + i]);
+  const float vj = to_f32(v[bf + j]);
+  float acc = 0.f;
+  if constexpr (KC == 8) {
+    float x[8], y[8];
+    load8(a, x);
+    load8(c, y);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc = fmaf(x[k], y[k], acc);
+  } else {
+    for (int k = 0; k < K; ++k) acc = fmaf(to_f32(a[k]), to_f32(c[k]), acc);
   }
+  store(out + g, acc * (vi * vj));
 }
 
 template <typename T>
 int launch_interaction(const void* e, const void* v, void* out, int64_t B,
                        int64_t F, int64_t K, cudaStream_t stream) {
-  const size_t smem = (F * F * K + F) * sizeof(float);
-  auto kernel = ffm_interaction_matrix_kernel<T>;
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  kernel<<<static_cast<unsigned>(B), kThreads, smem, stream>>>(
+  const int64_t total = B * F * F;
+  if (total >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  InteractionPlan p;
+  p.ff = fast_div(static_cast<uint32_t>(F * F));
+  p.f = fast_div(static_cast<uint32_t>(F));
+  p.K = static_cast<int>(K);
+  p.total = static_cast<int>(total);
+  const unsigned blocks =
+      static_cast<unsigned>((total + kDirectThreads - 1) / kDirectThreads);
+  // K = 8 rows (32 bytes f32, 16 bf16) are all 16-byte aligned when e is
+  auto kernel = K == 8 && reinterpret_cast<uintptr_t>(e) % 16 == 0
+                    ? &ffm_interaction_matrix_kernel<T, 8>
+                    : &ffm_interaction_matrix_kernel<T, 0>;
+  kernel<<<blocks, kDirectThreads, 0, stream>>>(
       static_cast<const T*>(e), static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<int>(F), static_cast<int>(K));
+      p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -516,7 +534,7 @@ extern "C" int ffm_candidate_matrices_q8(const void* ectx, const void* vctx,
 extern "C" int ffm_interaction_matrix(const void* e, const void* v, void* out,
                                       int64_t B, int64_t F, int64_t K,
                                       int64_t bf16, void* stream) {
-  if (B <= 0) return 0;
+  if (B <= 0 || F <= 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   if (bf16) return launch_interaction<__nv_bfloat16>(e, v, out, B, F, K, s);
   return launch_interaction<float>(e, v, out, B, F, K, s);

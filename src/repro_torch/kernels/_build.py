@@ -5,7 +5,8 @@ compiles the sources for ``sm_90a``, and one more links them into one
 shared library with a plain C interface, which is loaded with ``ctypes``
 (no PyTorch headers are compiled, so the build takes seconds: as long as
 the slowest source). The library lands in ``src/repro_torch/_build/`` (gitignored),
-named by a hash of the sources and flags, so an edited source rebuilds and
+named by a hash of the sources, the headers beside them (``csrc/*.cuh``) and
+the flags, so an edited source or header rebuilds and
 an unchanged one is reused within a checkout.
 
 Each C entry point launches on the stream it is given (PyTorch's current
@@ -103,7 +104,7 @@ def nvcc_path() -> str:
 def _compile() -> Library:
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_LIBS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):  # headers too
         h.update(src.name.encode() + src.read_bytes())
     so = BUILD_DIR / f"repro_torch_kernels_{h.hexdigest()[:16]}.so"
     log_path = so.with_suffix(".log")

@@ -47,10 +47,10 @@ def ffm_interaction_matrix(e: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"e must be (B, F, F, K), got {tuple(e.shape)}")
     _build.check(e, "e", e.dtype)
     _build.check(v, "v", e.dtype, (b, f))
-    if (f * f * k + f) * 4 > _SMEM_MAX:
-        raise ValueError(f"(F, F, K) = {(f, f, k)} exceeds shared memory")
+    if b * f * f >= 2**31:  # one thread per output
+        raise ValueError(f"(B, F) = {(b, f)} exceeds one launch")
     out = torch.empty((b, f, f), dtype=e.dtype, device=e.device)
-    if b:
+    if out.numel():
         _build.launch("ffm_interaction_matrix", e.data_ptr(), v.data_ptr(),
                       out.data_ptr(), b, f, k, int(e.dtype == torch.bfloat16))
     return out

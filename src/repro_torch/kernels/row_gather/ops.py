@@ -32,10 +32,13 @@ def gather_dequant_rows_q8(codes: torch.Tensor, scale: torch.Tensor,
     _build.check(idx, "idx", torch.int32)
     rowlen = codes[0].numel() if v else 0
     m = idx.numel()
+    # one thread per 8 codes where rows allow (out, fresh from the
+    # allocator, is aligned), else one per code
+    vec = rowlen % 8 == 0 and codes.data_ptr() % 8 == 0
+    if m * rowlen // (8 if vec else 1) >= 2**31:
+        raise ValueError(f"{m} rows of {rowlen} codes exceed one launch")
     out = torch.empty((m, rowlen), dtype=torch.float32, device=codes.device)
-    if m:
-        vec = (rowlen % 16 == 0 and codes.data_ptr() % 16 == 0
-               and out.data_ptr() % 16 == 0)
+    if out.numel():
         _build.launch("gather_dequant_rows_q8", codes.data_ptr(),
                       scale.data_ptr(), zero.data_ptr(), idx.data_ptr(),
                       out.data_ptr(), m, rowlen, int(vec))

@@ -32,8 +32,11 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+# test_kernels.py's sweep, then the main path's shape (B = 64 candidates of
+# the default config) and an odd F with K != 8 (the kernel's runtime-K loop)
 @pytest.mark.parametrize("B,F,K", [(4, 4, 2), (32, 24, 8), (100, 24, 8),
-                                   (7, 10, 16), (1, 6, 4)])
+                                   (7, 10, 16), (1, 6, 4), (64, 24, 8),
+                                   (5, 13, 3)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ffm_interaction_matrix_matches_pallas(B, F, K, dtype):
     rng = np.random.default_rng(B * F + K)
@@ -86,7 +89,7 @@ def test_candidate_matrices_match_pallas(R, N, Fc, Fcand, K, quantized):
 
 @pytest.mark.parametrize("V,row,idx_shape", [
     (64, (6, 4), (17,)), (256, (12, 8), (48,)), (33, (3, 2), (5,)),
-    (128, (4, 2), (3, 7)), (1024, (24, 8), (64, 24))])
+    (128, (4, 2), (3, 7)), (1024, (24, 8), (64, 24)), (512, (5, 8), (9, 4))])
 def test_gather_dequant_rows_matches_pallas(V, row, idx_shape):
     rng = np.random.default_rng(V + len(idx_shape))
     codes = rng.integers(-127, 128, (V,) + row).astype(np.int8)
