@@ -22,6 +22,10 @@ Phases, each of which raises on failure (nothing is caught):
    and codes off alignment; K4 must agree with its plain version on
    ``test_kernels.py``'s sweep and at F = 64, K = 16 in f32 and bf16 (that
    test's tolerances), and give D == D^T bit for bit at the main shape.
+   K5/K6 must give the same bits through unaligned strided views (their
+   scalar path) as through the aligned ones, and agree with their plain
+   versions at Fc = 64, F = 128 (past their register slots); the digest of
+   their main-bucket outputs is printed, to compare builds run by run.
    The wire-quantization kernels K7-K9
    run over the whole DeepFFM weight space (~50.6 M weights) and must match
    exactly (min/max, codes and floats bit for bit). K10, the §4.3 block-skip
@@ -113,6 +117,7 @@ reason.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import re
@@ -393,8 +398,8 @@ def main(argv=None) -> int:
               f"(the direct body; the staged body, off the main path, "
               f"{(fc_ * (f_ - fc_) * k_ + fc_) * 4} B), "
               "ffm_interaction_matrix 0 B, "
-              f"ffm_fused_logits_(q8|rows) "
-              f"{(fc_ * (f_ * k_ + 4) + fc_ + 4) * 4} B, minmax / "
+              "ffm_fused_logits_(q8|rows) 0 B (16 B static: the tail's "
+              "four warp sums), minmax / "
               "quantize_codes / dequantize_codes 0 B, sparse_weight_grad "
               f"{K10_BLOCK * 32 * 4} B per {K10_BLOCK}-row block held (B = "
               f"{TRAIN_BATCH}: 4; 8 KiB static), flash_attention bf16 "
@@ -406,7 +411,8 @@ def main(argv=None) -> int:
             print(f"  K11 bf16 body {name}: {regs} registers per thread at "
                   f"entry (setmaxnreg: consumers 232, producer 40); {spill}")
         for kid, needle in (("K1", "gather_dequant_rows_q8_kernel"),
-                            ("K4", "ffm_interaction_matrix_kernel")):
+                            ("K4", "ffm_interaction_matrix_kernel"),
+                            ("K5/K6", "ffm_fused_logits_kernel")):
             for name, regs, spill in ptxas_usage(lib.log, needle):
                 print(f"  {kid} {name}: {regs} registers per thread; {spill}")
     else:
@@ -708,6 +714,22 @@ def main(argv=None) -> int:
         lambda: fi_ref.ffm_fused_logits_rows_ref(*args_k6), (1e-5, 1e-5),
         fused_io + rnc * f * k * 4, fused_flops(False),
         [r_rows, n_cand, fc, fcand, k])
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    # the outputs' bits, for comparing builds of the kernels run by run:
+    # ctx_dots, the first tile's logits (candidates 0-3), all logits
+    def digests(logits, dots):
+        return "/".join((digest(dots), digest(logits[:, :4]), digest(logits)))
+
+    print("kernels ffm_fused_logits_(q8|rows) "
+          f"{[r_rows, n_cand, fc, fcand, k]}: sha256 of ctx_dots / tile-0 "
+          f"logits / logits: q8 {digests(*fi_ops.ffm_fused_logits_q8(*args_k5))}"
+          f" rows {digests(*fi_ops.ffm_fused_logits_rows(*args_k6))}")
     # a row's logits depend on neither the row bucket nor the candidate
     # bucket (fixed-order sums, no atomics): fewer rows, fewer candidates
     # and the full bucket agree bit for bit
@@ -729,6 +751,16 @@ def main(argv=None) -> int:
         check(same(rows, full[:3]) and same(rows_d, full_d[:3])
               and same(cut, full[:, :37]) and same(cut_d, full_d),
               f"{fn.__name__}: logits change with the row or candidate bucket")
+    # every tile of a row adds the same tail: with the base and the
+    # candidates' values zeroed, each logit is the tail its tile added (at
+    # depth 0: all Fc (Fc - 1) / 2 context pairs), so a row's logits must be
+    # one value
+    for fn, a in ((fi_ops.ffm_fused_logits_q8, args_k5),
+                  (fi_ops.ffm_fused_logits_rows, args_k6)):
+        lg, _ = fn(a[0], a[1], torch.zeros_like(a[2]), torch.zeros_like(a[3]),
+                   *a[4:-1], torch.zeros_like(a[-1]))
+        check(same(lg, lg[:, :1].expand_as(lg)),
+              f"{fn.__name__}: the tiles of a row add different tails")
     # K2/K3 likewise: an output depends on its own (row, candidate) only.
     # At the main-path bucket the direct body takes them (it has no tiles);
     # Fcand = 5 sends K = 8 rows through the staged body's vector loads,
@@ -768,7 +800,8 @@ def main(argv=None) -> int:
                   "the row or candidate bucket")
     print("kernels ffm_fused_logits_(q8|rows), ffm_candidate_matrices(_q8) "
           "(direct body at the bucket, staged at Fcand=5): rows [:3] and "
-          "candidates [:37] agree with the full bucket's"
+          "candidates [:37] agree with the full bucket's, and K5/K6's tiles "
+          "of a row add one tail"
           + (" bit for bit" if on_card else " (plain versions, 1e-6)"))
 
     # the kernels' general paths, off the main path's shapes: K != 8
@@ -821,6 +854,54 @@ def main(argv=None) -> int:
     print("kernels' general paths (K=4, ragged tiles, N=0; K2/K3 "
           "K=3, unaligned K=8 views, 52,640 B of shared memory): agree with "
           "plain versions")
+    # K5/K6 at the main bucket on the same values through unaligned strided
+    # views (K-rows one element into rows of K + 1: the scalar runtime-K
+    # loads) give the vector path's bits; and a width past the register
+    # slots (R=2, N=7, Fc=64, F=128, K=8, depths 0 and 37), where the
+    # parent's context staging would not fit in shared memory
+    def unaligned(x):
+        y = torch.empty((*x.shape[:-1], x.shape[-1] + 1), dtype=x.dtype,
+                        device=dev)[..., 1:]
+        return y.copy_(x)
+
+    qc_u, ec_u = unaligned(qc), unaligned(ec)
+    ctx_u = unaligned(emb_ctx)
+    for fn, a, a_u in (
+            (fi_ops.ffm_fused_logits_q8, args_k5,
+             (ctx_u, *args_k5[1:4], qc_u[..., :fc, :], qc_u[..., fc:, :],
+              *args_k5[6:])),
+            (fi_ops.ffm_fused_logits_rows, args_k6,
+             (ctx_u, *args_k6[1:4], ec_u[..., :fc, :], ec_u[..., fc:, :],
+              *args_k6[6:]))):
+        check(all(same(g_, w_) for g_, w_ in zip(fn(*a_u), fn(*a))),
+              f"{fn.__name__}: unaligned views disagree with the vector path")
+    wr, wn, wfc, wf, wk = 2, 7, 64, 128, 8
+    wq = codes(wr, wn, wf - wfc, wf, wk)
+    we = randn(wr, wn, wf - wfc, wf, wk, scale=0.1)
+    wide = (randn(wr, wfc, wf, wk, scale=0.1), uniform(0.5, 1.5, wr, wfc),
+            torch.tensor([0, 37], dtype=torch.int32, device=dev),
+            randn(wr, wn, scale=0.5))
+    wvc = uniform(0.5, 1.5, wr, wn, wf - wfc)
+    wide_errs = []
+    for fn, plain, a in (
+            (fi_ops.ffm_fused_logits_q8, fi_ref.ffm_fused_logits_q8_ref,
+             (*wide, wq[..., :wfc, :], wq[..., wfc:, :],
+              uniform(1e-4, 1e-3, wr, wn, wf - wfc),
+              randn(wr, wn, wf - wfc, scale=0.01), wvc)),
+            (fi_ops.ffm_fused_logits_rows, fi_ref.ffm_fused_logits_rows_ref,
+             (*wide, we[..., :wfc, :], we[..., wfc:, :], wvc))):
+        got, want = fn(*a), plain(*a)
+        wide_errs.append(max_err(got, want))
+        check(allclose(got, want, 1e-5, 1e-5),
+              f"{fn.__name__} {[wr, wn, wfc, wf - wfc, wk]}: max abs err "
+              f"{wide_errs[-1]:.3e} (tol (1e-5, 1e-5))")
+    print(f"kernels ffm_fused_logits_(q8|rows): unaligned strided views at "
+          f"{[r_rows, n_cand, fc, fcand, k]} (the scalar path) equal the "
+          "vector path" + (" bit for bit" if on_card else
+                           " (plain versions, 1e-6)")
+          + f"; {[wr, wn, wfc, wf - wfc, wk]} with depths 0 and 37 within "
+          f"(1e-5, 1e-5) of the plain versions (max abs err q8 "
+          f"{wide_errs[0]:.3e}, rows {wide_errs[1]:.3e})")
 
     # K7-K9: the wire quantizer over the whole DeepFFM weight space, as
     # Sender.make_update and the receiver's decode run it, with weights on

@@ -1,8 +1,9 @@
 // Division by a runtime divisor with a multiply and a shift, for kernels
-// that split a flat thread index by runtime extents (K1, K2/K3, K4). The
-// divisor's magic number is found once on the host; on the device the
-// quotient costs one __umulhi and one shift instead of a ~20-instruction
-// integer division, on the chain each thread walks before its first load.
+// that split a flat thread index by runtime extents (K1, K2/K3, K4,
+// K5/K6). The divisor's magic number is found once on the host; on the
+// device the quotient costs one __umulhi and one shift instead of a
+// ~20-instruction integer division, on the chain each thread walks before
+// its first load.
 // Exact for n < 2^31 (the callers keep their flat indices below that).
 
 #pragma once

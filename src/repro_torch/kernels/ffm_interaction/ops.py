@@ -30,9 +30,6 @@ from repro_torch.kernels.ffm_interaction.ref import (
     ffm_interaction_matrix_ref)
 
 _SMEM_MAX = 232_448  # bytes of shared memory one block may use on sm_90
-# csrc/ffm_fused_logits.cu: warps per CTA and floats of padding per staged
-# context field (its shared memory is Fc * (F*K + pad) + Fc + warps floats)
-_FUSED_WARPS, _FUSED_ROW_PAD = 4, 4
 
 
 def ffm_interaction_matrix(e: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -156,8 +153,6 @@ def _fused_launch(name, ectx, vctx, depth, base, ecx, ecc, grids, vcand):
                  contiguous=False)
     _build.check(vcand, "vcand", torch.float32, (r, n, fcand))
     _check_k_contiguous(k, ectx=ectx, ecx=ecx, ecc=ecc)
-    if (fc * (f * k + _FUSED_ROW_PAD) + fc + _FUSED_WARPS) * 4 > _SMEM_MAX:
-        raise ValueError(f"(Fc, F, K) = {(fc, f, k)} exceeds shared memory")
     if r > 65535:
         raise ValueError(f"R = {r} rows exceeds the grid's y extent")
     logits = torch.empty((r, n), dtype=torch.float32, device=ectx.device)
@@ -165,7 +160,10 @@ def _fused_launch(name, ectx, vctx, depth, base, ecx, ecc, grids, vcand):
     if r == 0:
         return logits, dots
     strides = ectx.stride()[:3] + ecx.stride()[:4] + ecc.stride()[:4]
-    vec8 = _vec8(k, strides[3:], ecx, ecc, grids is not None)
+    # K5/K6 load the context rows as two float4 too: 16-byte aligned
+    vec8 = (_vec8(k, strides[3:], ecx, ecc, grids is not None)
+            and all(s % 4 == 0 for s in strides[:3])
+            and ectx.data_ptr() % 16 == 0)
     c_strides = (ctypes.c_int64 * len(strides))(*strides)
     grid_ptrs = ()
     if grids is not None:

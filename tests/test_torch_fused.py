@@ -75,6 +75,8 @@ _ROWS_KEYS = ("ectx", "vctx", "depth", "base", "ecx", "ecc", "vcand")
     (1, 4, 2, 2, 3, 4),     # single row, candidate pad (3 -> 4) in Pallas
     (4, 8, 4, 4, 10, 4),    # multi-tile candidate axis with ragged pad
     (3, 6, 6, 8, 16, 16),   # tile == bucket (no pad)
+    (1, 64, 64, 8, 3, 4),   # F = 128: past the ctx x ctx, ctx x cand and
+                            # cand x cand register slots of the CUDA body
 ])
 @pytest.mark.parametrize("quantized", [True, False])
 def test_fused_logits_match_pallas(R, Fc, Fcand, K, N, block_n, quantized):
