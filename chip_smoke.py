@@ -92,6 +92,30 @@ Phases, each of which raises on failure (nothing is caught):
      the gradient's largest magnitude. Per round it prints examples/s, the
      step / ``make_update`` split, mean loss, progressive AUC, skip stats,
      touched rows and frame bytes.
+   - servers: an ``FFMServer`` (f32 tables, ``backend="cuda"``) ingests one
+     full frame from a ``Sender`` of the phase's weights, and a
+     ``CachedServer`` serves the same frame as a receiver decodes it; both
+     answer the microbatches (``serve_batch`` and ``serve``; the
+     ``CachedServer`` request by request), every probability and logit
+     within rtol 2e-4, atol 2e-5 of the plain ``score_uncached``; K2
+     (``ffm_candidate_matrices``) must launch on each; p50 / p99 per call.
+   - quickstart: ``repro_torch.quickstart.main()`` on the card (3 rounds of
+     30 x 512, ``Sender`` patches into an engine, scoring); the weights
+     version must reach 3 and the served model's AUC exceed 0.5.
+   - local SGD: ``TrainingPipeline(..., "local_sgd", local_sgd_workers=W)``
+     at W = 2, then 4: 2 rounds of W x 4 microbatches of 512 into an int8
+     engine, with the training phase's frame checks (full, then delta);
+     K10 launched 2 x W x 4 times a round; untouched rows of params and
+     accumulators byte-identical; each worker, as its steps leave it before
+     the merge, equal bit for bit to the ``jit`` backend's round on its
+     batches from the same start, and the pairwise merge of those rounds to
+     the pipeline's; round 1 re-run from a clone bit-identical.
+   - Hogwild: ``TrainingPipeline(..., "hogwild", hogwild_threads=4)``, 2
+     rounds of 16 microbatches of 512 into an int8 engine with the same
+     frame checks; K10 launched exactly 2 x 16 times a round; untouched
+     rows byte-identical; a finite loss; then a 1-thread ``HogwildTrainer``
+     round twice from the same start, bit for bit. Examples/s per round at
+     4 threads and per run at 1.
    - LLM serving: ``LLMServer(llama32_1b.config(), random bf16 weights from
      the seed).generate`` on 4 prompts of 1024 tokens, 32 new tokens (one
      warm-up call first): K11 must launch exactly once per layer (16) and
@@ -103,8 +127,9 @@ Phases, each of which raises on failure (nothing is caught):
      1e-4 (``ORACLE_REL``).
    Every kernel's launch counter must have risen during these runs.
 4. Where the time goes: one more microbatch per engine (and per staged
-   ``"ffm"`` twin), one training microbatch, one LLM prefill and one decode
-   step under torch.profiler (kernels launched, device-busy time against
+   ``"ffm"`` twin), one training microbatch, 8 Hogwild microbatches at 1
+   and at 4 threads, one LLM prefill and one decode step under
+   torch.profiler (kernels launched, device-busy time against
    wall time, top kernels; for training K10's share, for the prefill
    K11's).
 
@@ -142,6 +167,8 @@ TIMING_ITERS = 200
 K10_BLOCK = 128
 SCORE_RTOL, SCORE_ATOL = 2e-4, 2e-5  # staged scores vs the uncached oracle
 TRAIN_BATCH = 512  # examples per training microbatch (examples/train_ctr_100m.py)
+LOCAL_STEPS = 4     # local-SGD steps per worker and round
+HOGWILD_MICRO = 16  # microbatches per Hogwild round
 # K10's weight gradients in a training step vs plain autograd's, as a share
 # of the gradient's largest magnitude (two f32 sums of 512 products, in
 # different orders)
@@ -1273,6 +1300,13 @@ def main(argv=None) -> int:
                 phase_launches, randn, r_rows, n_cand)
     train_step = training_path(cfg, args, dev, on_card, smi, batches,
                                run_phase, phase_launches, r_rows, n_cand)
+    server_path(cfg, args, dev, on_card, smi, batches, run_phase,
+                phase_launches, params, r_rows, n_cand)
+    quickstart_path(on_card, smi, run_phase, phase_launches)
+    local_sgd_path(cfg, args, dev, on_card, smi, batches, run_phase,
+                   phase_launches, r_rows, n_cand)
+    hogwild_train = hogwild_path(cfg, args, dev, on_card, smi, batches,
+                                 run_phase, phase_launches, r_rows, n_cand)
     llm_prefill, llm_decode = llm_path(llm_cfg, llm, args, dev, on_card, smi,
                                        run_phase, phase_launches)
 
@@ -1293,6 +1327,10 @@ def main(argv=None) -> int:
         where_the_time_goes("training microbatch (row-sparse step, B="
                             f"{TRAIN_BATCH})", train_step, smi, top=8,
                             share_of="sparse_weight_grad")
+        for n in (1, 4):
+            where_the_time_goes(f"hogwild {n} thread(s), 8 microbatches (B="
+                                f"{TRAIN_BATCH})", lambda n=n: hogwild_train(n),
+                                smi, top=8, share_of="sparse_weight_grad")
         where_the_time_goes(
             f"LLM prefill ({llm_cfg.arch_id}, B={llm['batch']}, P="
             f"{llm['prompt']})", llm_prefill, smi, top=8,
@@ -1617,31 +1655,14 @@ def training_path(cfg, args, dev, on_card, smi, batches, run_phase,
     rounds = [[stream.sample(TRAIN_BATCH) for _ in range(n_micro)]
               for _ in range(n_rounds)]
     pipe = TrainingPipeline(cfg, "deepffm", seed=args.seed, device=dev)
-
-    def clone(tree):
-        return {k: clone(v) if isinstance(v, dict) else v.clone()
-                for k, v in tree.items()}
-
-    def same(a, b):
-        return all(torch.equal(x, y) for (_, x), (_, y) in
-                   zip(layout.flatten_with_paths(a), layout.flatten_with_paths(b)))
-
-    start = clone(pipe.params), clone(pipe.opt_state)
+    start = clone_tree(pipe.params), clone_tree(pipe.opt_state)
     eng = InferenceEngine(cfg, "deepffm", backend="cuda", device=dev,
                           quantized=True)
     wire = T.Receiver(device=dev)
-    tables = (("params", "ffm/emb"), ("params", "lr/w"),
-              ("acc", "ffm/emb"), ("acc", "lr/w"))
-
-    def table(which, path):
-        tree = pipe.params if which == "params" else pipe.acc
-        for key in path.split("/"):
-            tree = tree[key]
-        return tree
 
     k10 = "sparse_weight_grad"
     for r, round_batches in enumerate(rounds, 1):
-        before = {t: table(*t).clone() for t in tables}
+        before = {t: x.clone() for t, x in row_tables(pipe).items()}
         label = f"train round {r}"
         frame = run_phase(label, lambda: pipe.run_round(iter(round_batches)))
         rep = pipe.reports[-1]
@@ -1658,19 +1679,16 @@ def training_path(cfg, args, dev, on_card, smi, batches, run_phase,
         check(rep.touched_rows == rows.size,
               f"{label}: touched_rows {rep.touched_rows}, unique indices "
               f"{rows.size}")
-        untouched = torch.ones(cfg.hash_space, dtype=torch.bool, device=dev)
-        untouched[torch.from_numpy(rows).to(dev)] = False
-        for t in tables:
-            check(torch.equal(table(*t)[untouched], before[t][untouched]),
-                  f"{label}: an untouched row of {t[0]} {t[1]} changed")
+        check_untouched(label, cfg, dev, before, pipe, round_batches)
         del before
         if r == 1:
             # the same round again from a clone of the starting state
             twin = TrainingPipeline(cfg, "deepffm", seed=args.seed, device=dev)
-            twin.params, twin.opt_state = clone(start[0]), clone(start[1])
+            twin.params = clone_tree(start[0])
+            twin.opt_state = clone_tree(start[1])
             twin_frame = twin.run_round(iter(round_batches))
-            check(same(twin.params, pipe.params)
-                  and same(twin.opt_state, pipe.opt_state)
+            check(same_tree(twin.params, pipe.params)
+                  and same_tree(twin.opt_state, pipe.opt_state)
                   and twin_frame == frame,
                   f"{label}: a re-run from the same start differs")
             del twin
@@ -1713,7 +1731,7 @@ def training_path(cfg, args, dev, on_card, smi, batches, run_phase,
     try:
         for name, maker in (("dense", make_round_step),
                             ("sparse", make_sparse_round_step)):
-            p, st = clone(start[0]), clone(start[1])
+            p, st = clone_tree(start[0]), clone_tree(start[1])
             out[name] = maker(cfg, "deepffm", pipe.opt)(p, st, 0, stacked)
     finally:
         torch.set_num_threads(threads)
@@ -1783,6 +1801,341 @@ def training_path(cfg, args, dev, on_card, smi, batches, run_phase,
     step = make_sparse_round_step(cfg, "deepffm", pipe.opt)
     one = {k: v[None] for k, v in rounds[-1][0].items()}
     return lambda: step(pipe.params, pipe.opt_state, 0, one)
+
+
+def clone_tree(tree):
+    return {k: clone_tree(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def same_tree(a, b):
+    """Every leaf of ``a`` equal to ``b``'s bit for bit."""
+    import torch
+
+    from repro_torch.checkpoint import layout
+
+    fa, fb = layout.flatten_with_paths(a), layout.flatten_with_paths(b)
+    return [p for p, _ in fa] == [p for p, _ in fb] and all(
+        torch.equal(x, y) for (_, x), (_, y) in zip(fa, fb))
+
+
+# the row tables of a trainer (params and AdaGrad accumulators) that a
+# round may change only at the rows its batches touch
+ROW_TABLES = (("params", "ffm/emb"), ("params", "lr/w"), ("acc", "ffm/emb"),
+              ("acc", "lr/w"))
+
+
+def row_tables(pipe):
+    out = {}
+    for which, path in ROW_TABLES:
+        tree = pipe.params if which == "params" else pipe.acc
+        for key in path.split("/"):
+            tree = tree[key]
+        out[(which, path)] = tree
+    return out
+
+
+def check_untouched(label, cfg, dev, before, pipe, round_batches):
+    """Rows no batch of the round touched are byte-identical in the
+    trainer's row tables to ``before`` (a clone of them)."""
+    import numpy as np
+    import torch
+
+    rows = np.unique(np.concatenate([b["idx"].ravel() for b in round_batches]))
+    untouched = torch.ones(cfg.hash_space, dtype=torch.bool, device=dev)
+    untouched[torch.from_numpy(rows).to(dev)] = False
+    for t, now in row_tables(pipe).items():
+        check(torch.equal(now[untouched], before[t][untouched]),
+              f"{label}: an untouched row of {t[0]} {t[1]} changed")
+    return int(untouched.sum())
+
+
+def server_path(cfg, args, dev, on_card, smi, batches, run_phase,
+                phase_launches, params, r_rows, n_cand):
+    """Phase 3, servers: ``FFMServer`` and ``CachedServer`` on the card, fed
+    one full frame, answering the microbatches; see the module
+    docstring."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import transfer as T
+    from repro_torch.serving.context_cache import CachedServer
+    from repro_torch.serving.server import FFMServer
+
+    snd = T.Sender(device=dev)
+    srv = FFMServer(cfg, device=dev)
+
+    def ingest():
+        frame = snd.make_update(params)
+        srv.apply_update(frame, snd.manifest, params)
+        return frame
+
+    frame = run_phase("servers ingest", ingest)
+    wire = T.Receiver(device=dev)
+    wire.apply_update(frame)
+    cached = CachedServer(cfg, wire.materialize(manifest=snd.manifest,
+                                                like=params), device=dev)
+    srv.engine.warmup(max_requests=r_rows, max_candidates=n_cand)
+    cached.engine.warmup(max_requests=r_rows, max_candidates=n_cand)
+    label_b = f"FFMServer serve_batch x{len(batches)}"
+    probs = run_phase(label_b, lambda: [srv.serve_batch(mb) for mb in batches])
+    reqs = [req for mb in batches for req in mb]
+    label_s = f"FFMServer serve x{len(reqs)}"
+    single = run_phase(label_s, lambda: [srv.serve(*req) for req in reqs])
+    label_c = f"CachedServer serve x{len(reqs)}"
+    t0 = time.perf_counter()
+    logits = run_phase(label_c, lambda: [cached.serve(*req) for req in reqs])
+    cached_ms = (time.perf_counter() - t0) * 1e3 / len(reqs)
+    worst = [0.0, 0.0, 0.0]
+    for req, p_b, p_s, lg in zip(reqs, [p for mb in probs for p in mb],
+                                 single, logits):
+        oracle = srv.engine.score_uncached(*req)
+        want_p = torch.sigmoid(oracle).cpu().numpy()
+        want_l = cached.serve_uncached(*req).cpu().numpy()
+        for i, (got, want) in enumerate(((p_b, want_p), (p_s, want_p),
+                                         (lg, want_l))):
+            check(got.shape == (req[2].shape[0],) and np.isfinite(got).all()
+                  and np.allclose(got, want, rtol=SCORE_RTOL, atol=SCORE_ATOL),
+                  f"servers: {('serve_batch', 'serve', 'CachedServer')[i]} vs "
+                  f"score_uncached max abs err {np.abs(got - want).max():.3e}")
+            worst[i] = max(worst[i], float(np.abs(got - want).max()))
+    st = srv.stats
+    check(st.updates_applied == 1 and srv.cache_hit_rate > 0
+          and cached.hits > 0 and cached.misses > 0,
+          f"servers: updates {st.updates_applied}, hit rate "
+          f"{srv.cache_hit_rate}, CachedServer hits {cached.hits} misses "
+          f"{cached.misses}")
+    for label in ("servers ingest", label_b, label_s, label_c):
+        print(f"launches {label}: {phase_launches[label]}")
+    if on_card:
+        for label in (label_b, label_s, label_c):
+            n = phase_launches[label]["ffm_candidate_matrices"]
+            check(n > 0, f"{label}: ffm_candidate_matrices launched {n} times")
+    print(f"servers: FFMServer {st.requests} requests, hit rate "
+          f"{srv.cache_hit_rate:.3f}; CachedServer hits {cached.hits} misses "
+          f"{cached.misses}; max abs err vs score_uncached: serve_batch "
+          f"{worst[0]:.3e}, serve {worst[1]:.3e} (probabilities), "
+          f"CachedServer {worst[2]:.3e} (logits) (rtol {SCORE_RTOL}, atol "
+          f"{SCORE_ATOL})")
+    if on_card:
+        print(f"servers: FFMServer p50 {st.p50_ms:.3f} ms per call, p99 "
+              f"{st.p99_ms:.3f} ms over {len(batches)} microbatches and "
+              f"{len(reqs)} single requests, {st.predictions_per_s:.0f} "
+              f"predictions/s; CachedServer {cached_ms:.3f} ms per request "
+              f"(host clock) | {smi}")
+    srv.engine.update_pipe().close(timeout=60)
+
+
+def quickstart_path(on_card, smi, run_phase, phase_launches):
+    """Phase 3, quickstart: ``repro_torch.quickstart.main`` on the device."""
+    from repro_torch import quickstart
+
+    out = run_phase("quickstart", lambda: quickstart.main(
+        None if on_card else "cpu"))
+    check(out["weights_version"] == quickstart.ROUNDS and out["auc"] > 0.5,
+          f"quickstart: weights v{out['weights_version']}, AUC {out['auc']}")
+    print(f"launches quickstart: {phase_launches['quickstart']}")
+    print(f"quickstart: weights v{out['weights_version']}, served-model AUC "
+          f"{out['auc']:.4f}, update bytes "
+          f"{[r['update_bytes'] for r in out['rounds']]}, p50 "
+          f"{out['p50_ms']:.3f} ms p99 {out['p99_ms']:.3f} ms per call | {smi}")
+
+
+def local_sgd_path(cfg, args, dev, on_card, smi, batches, run_phase,
+                   phase_launches, r_rows, n_cand):
+    """Phase 3, local SGD: ``TrainingPipeline(backend="local_sgd")`` at
+    W = 2 and 4 into an int8 engine; see the module docstring."""
+    import numpy as np
+
+    from repro_torch.checkpoint import transfer as T
+    from repro_torch.data.synthetic import CTRStream
+    from repro_torch.optim import make_optimizer
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.train import hogwild
+    from repro_torch.train.pipeline import JitBackend, TrainingPipeline
+
+    k10, k, n_rounds = "sparse_weight_grad", LOCAL_STEPS, 2
+    # each worker's state as its steps leave it, before the merge
+    seen = []
+    real = hogwild.make_sparse_round_step
+
+    def recording(*a):
+        step = real(*a)
+
+        def rec(*b):
+            out = step(*b)
+            seen.append((out[0], out[1]))
+            return out
+        return rec
+
+    for w in (2, 4):
+        stream = CTRStream(cfg, seed=args.seed + w)
+        rounds = [[stream.sample(TRAIN_BATCH) for _ in range(w * k)]
+                  for _ in range(n_rounds)]
+        hogwild.make_sparse_round_step = recording
+        try:
+            pipe = TrainingPipeline(cfg, "deepffm", "local_sgd",
+                                    local_sgd_workers=w, seed=args.seed,
+                                    device=dev)
+        finally:
+            hogwild.make_sparse_round_step = real
+        eng = InferenceEngine(cfg, "deepffm", backend="cuda", device=dev,
+                              quantized=True)
+        wire = T.Receiver(device=dev)
+        for r, round_batches in enumerate(rounds, 1):
+            label = f"local_sgd W={w} round {r}"
+            start = clone_tree(pipe.params), clone_tree(pipe.opt_state)
+            before = {t: x.clone() for t, x in row_tables(pipe).items()}
+            seen.clear()
+            frame = run_phase(label, lambda: pipe.run_round(iter(round_batches)))
+            rep = pipe.reports[-1]
+            want_kind = T.KIND_FULL if r == 1 else T.KIND_DELTA
+            check(T.unframe(frame).kind == want_kind and rep.round == r,
+                  f"{label}: frame kind {T.unframe(frame).kind} (want "
+                  f"{want_kind}), report round {rep.round}")
+            check(np.isfinite(rep.mean_loss), f"{label}: loss {rep.mean_loss}")
+            if on_card:
+                n = phase_launches[label][k10]
+                check(n == 2 * w * k, f"{label}: {k10} launched {n} times, "
+                      f"want 2 per worker step ({2 * w * k})")
+            n_keep = check_untouched(label, cfg, dev, before, pipe,
+                                     round_batches)
+            del before
+            # each worker before the merge against the jit backend's round on
+            # its batches from the same start
+            check(len(seen) == w, f"{label}: {len(seen)} workers seen")
+            jit = []
+            for i, (wp, ws) in enumerate(seen):
+                jp, js, _ = JitBackend(cfg, "deepffm", make_optimizer(
+                    "adagrad", lr=pipe.lr)).run(
+                        clone_tree(start[0]), clone_tree(start[1]),
+                        round_batches[i * k:(i + 1) * k])
+                check(same_tree(wp, jp) and same_tree(ws, js),
+                      f"{label}: worker {i} differs from the jit round on "
+                      "its batches")
+                jit.append((jp, js["acc"]))
+            seen.clear()
+            check(same_tree(pipe.params, hogwild._merge([j[0] for j in jit]))
+                  and same_tree(pipe.acc, hogwild._merge([j[1] for j in jit])),
+                  f"{label}: the merge of the jit rounds differs")
+            del jit
+            if r == 1:
+                twin = TrainingPipeline(cfg, "deepffm", "local_sgd",
+                                        local_sgd_workers=w, seed=args.seed,
+                                        device=dev)
+                twin.params, twin.opt_state = start
+                twin_frame = twin.run_round(iter(round_batches))
+                check(same_tree(twin.params, pipe.params)
+                      and same_tree(twin.opt_state, pipe.opt_state)
+                      and twin_frame == frame,
+                      f"{label}: a re-run from the same start differs")
+                del twin
+            del start
+            eng.apply_update(frame, pipe.sender.manifest, pipe.params)
+            if r == 1:
+                eng.warmup(max_requests=r_rows, max_candidates=n_cand)
+            check_decoded_frame(label, frame, pipe.params, eng, wire,
+                                pipe.sender, batches)
+            step_s = rep.seconds - rep.update_seconds
+            print(f"{label}: {rep.examples} examples ({w} workers x {k} x "
+                  f"{TRAIN_BATCH}), {rep.examples_per_s:.0f} examples/s | "
+                  f"{rep.seconds * 1e3:.1f} ms = workers + merge "
+                  f"{step_s * 1e3:.1f} ms ({rep.examples / step_s:.0f} "
+                  f"examples/s) + make_update {rep.update_seconds * 1e3:.1f} "
+                  f"ms | mean loss {rep.mean_loss:.5f}, progressive AUC "
+                  f"{rep.progressive_auc:.5f} | {rep.update_kind} frame "
+                  f"{rep.update_bytes} bytes | untouched rows {n_keep} "
+                  f"byte-stable; workers equal the jit rounds bit for bit"
+                  f"{'; re-run bit-identical' if r == 1 else ''} | launches "
+                  f"{phase_launches[label]} | {smi}")
+        eng.update_pipe().close(timeout=60)
+
+
+def hogwild_path(cfg, args, dev, on_card, smi, batches, run_phase,
+                 phase_launches, r_rows, n_cand):
+    """Phase 3, Hogwild: ``TrainingPipeline(backend="hogwild")`` at 4
+    threads into an int8 engine, and a 1-thread round twice; see the module
+    docstring."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import transfer as T
+    from repro_torch.data.synthetic import CTRStream
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.train.hogwild import HogwildTrainer
+    from repro_torch.train.pipeline import TrainingPipeline
+
+    k10, n_micro, n_rounds = "sparse_weight_grad", HOGWILD_MICRO, 2
+    stream = CTRStream(cfg, seed=args.seed + 8)
+    rounds = [[stream.sample(TRAIN_BATCH) for _ in range(n_micro)]
+              for _ in range(n_rounds)]
+    pipe = TrainingPipeline(cfg, "deepffm", "hogwild", hogwild_threads=4,
+                            seed=args.seed, device=dev)
+    start = clone_tree(pipe.params)
+    eng = InferenceEngine(cfg, "deepffm", backend="cuda", device=dev,
+                          quantized=True)
+    wire = T.Receiver(device=dev)
+    for r, round_batches in enumerate(rounds, 1):
+        label = f"hogwild 4 threads round {r}"
+        before = {t: x.clone() for t, x in row_tables(pipe).items()}
+        frame = run_phase(label, lambda: pipe.run_round(iter(round_batches)))
+        rep = pipe.reports[-1]
+        want_kind = T.KIND_FULL if r == 1 else T.KIND_DELTA
+        check(T.unframe(frame).kind == want_kind and rep.round == r,
+              f"{label}: frame kind {T.unframe(frame).kind} (want "
+              f"{want_kind}), report round {rep.round}")
+        check(np.isfinite(rep.mean_loss) and rep.examples == n_micro
+              * TRAIN_BATCH, f"{label}: loss {rep.mean_loss}, examples "
+              f"{rep.examples}")
+        if on_card:
+            n = phase_launches[label][k10]
+            check(n == 2 * n_micro, f"{label}: {k10} launched {n} times, "
+                  f"want 2 per microbatch ({2 * n_micro})")
+        n_keep = check_untouched(label, cfg, dev, before, pipe, round_batches)
+        del before
+        eng.apply_update(frame, pipe.sender.manifest, pipe.params)
+        if r == 1:
+            eng.warmup(max_requests=r_rows, max_candidates=n_cand)
+        check_decoded_frame(label, frame, pipe.params, eng, wire, pipe.sender,
+                            batches)
+        step_s = rep.seconds - rep.update_seconds
+        print(f"{label}: {rep.examples} examples, {rep.examples_per_s:.0f} "
+              f"examples/s | {rep.seconds * 1e3:.1f} ms = threads "
+              f"{step_s * 1e3:.1f} ms ({rep.examples / step_s:.0f} "
+              f"examples/s) + make_update {rep.update_seconds * 1e3:.1f} ms | "
+              f"mean loss {rep.mean_loss:.5f}, progressive AUC "
+              f"{rep.progressive_auc:.5f} | {rep.update_kind} frame "
+              f"{rep.update_bytes} bytes | untouched rows {n_keep} "
+              f"byte-stable | launches {phase_launches[label]} | {smi}")
+    eng.update_pipe().close(timeout=60)
+    # one thread: the same round twice from the same start, bit for bit (on
+    # the CPU with one host thread, as the training phase's dense-vs-sparse
+    # check: PyTorch's multi-threaded CPU sums change their order run to run)
+    runs = []
+    threads = torch.get_num_threads()
+    if not on_card:
+        torch.set_num_threads(1)
+    try:
+        for i in range(2):
+            tr = HogwildTrainer(cfg, lr=pipe.lr, params=start, device=dev)
+            stats = run_phase(f"hogwild 1 thread run {i + 1}",
+                              lambda: tr.train(iter(rounds[0]), n_threads=1))
+            runs.append((tr, stats))
+    finally:
+        torch.set_num_threads(threads)
+    (a, sa), (b, sb) = runs
+    check(same_tree(a.params(), b.params())
+          and same_tree(a.opt_state(), b.opt_state()) and sa.losses == sb.losses,
+          "hogwild: two 1-thread runs from the same start differ")
+    if on_card:
+        n = phase_launches["hogwild 1 thread run 1"][k10]
+        check(n == 2 * n_micro, f"hogwild 1 thread: {k10} launched {n} "
+              f"times, want {2 * n_micro}")
+    print(f"hogwild 1 thread: {sa.examples} examples, "
+          f"{sa.examples_per_s:.0f} / {sb.examples_per_s:.0f} examples/s (two "
+          f"runs), mean loss {np.mean(sa.losses):.5f}; the runs equal bit for "
+          f"bit | {smi}")
+    return lambda n_threads: a.train(iter(rounds[1][:8]), n_threads=n_threads)
 
 
 def llm_path(cfg, llm, args, dev, on_card, smi, run_phase, phase_launches):

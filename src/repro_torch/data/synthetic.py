@@ -5,8 +5,7 @@ interaction structure (so FFM-class models beat linear ones, as in the
 paper's Table 1) plus optional distribution drift. Features are hashed as
 Fwumious Wabbit hashes them: each (field, raw value) pair maps to one index
 in a single shared hash space. The same seed gives the same batches as the
-JAX package's stream, bit for bit. ``lm_batches`` comes with the LLM side,
-``request`` with a port caller that needs it.
+JAX package's stream, bit for bit. ``lm_batches`` comes with the LLM side.
 """
 from __future__ import annotations
 
@@ -86,3 +85,10 @@ class CTRStream:
     def batches(self, batch: int, n: int) -> Iterator[Dict[str, np.ndarray]]:
         for _ in range(n):
             yield self.sample(batch)
+
+    def request(self, n_candidates: int):
+        """A serving request: one shared context + N candidate completions."""
+        fc = self.cfg.context_fields
+        full = self.sample(n_candidates)
+        ctx_idx, ctx_val = full["idx"][0, :fc], full["val"][0, :fc]
+        return ctx_idx, ctx_val, full["idx"][:, fc:], full["val"][:, fc:]

@@ -77,6 +77,9 @@ SIGNATURES = {
 # launches per kernel since the last reset (plain integers; set them to 0 to
 # reset). Only a launch of the CUDA kernel counts, never the plain version.
 launches: Dict[str, int] = dict.fromkeys(SIGNATURES, 0)
+# a count's read-modify-write is not atomic across threads (Hogwild's
+# workers, the update pipe's thread and the scorers launch concurrently)
+_count_lock = threading.Lock()
 
 
 @dataclass
@@ -174,12 +177,19 @@ def launch(name: str, *args) -> None:
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
-    launches[name] += 1
+    count_launch(name)
+
+
+def count_launch(name: str) -> None:
+    """Add one to ``launches[name]``, safely from any thread."""
+    with _count_lock:
+        launches[name] += 1
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _count_lock:
+        for name in launches:
+            launches[name] = 0
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype,

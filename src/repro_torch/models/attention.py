@@ -13,7 +13,7 @@ sliding-window, with its decode cache.
   plain torch (einsum, softmax, einsum), as in the JAX package.
 
 MLA, the int8 KV cache, QKV biases and QK norms come with the configs that
-use them (ROADMAP.md Queue 1 item 6).
+use them (ROADMAP.md Queue 1, LLM side).
 """
 from __future__ import annotations
 
@@ -47,7 +47,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _check_gqa(cfg) -> None:
     if cfg.qkv_bias or cfg.qk_norm:
         raise NotImplementedError("QKV biases and QK norms are not ported yet "
-                                  "(ROADMAP.md Queue 1 item 6)")
+                                  "(ROADMAP.md Queue 1, LLM side)")
 
 
 def gqa_specs(cfg) -> Dict[str, ParamSpec]:

@@ -7,7 +7,7 @@ gate's ``silu`` in f32 and casts it to the activation dtype before the
 product. Only what llama3.2-1b runs is here: RMSNorm, SwiGLU and tied
 embeddings. LayerNorm, the ReLU / GELU FFNs, an untied unembedding and
 ``cross_entropy`` come with the configs and the training step that use
-them (ROADMAP.md Queue 1 item 6).
+them (ROADMAP.md Queue 1, LLM side).
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from repro_torch.common.pspec import ParamSpec, torch_dtype
 
 def _unported(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue 1 item 6)")
+        f"{what} is not ported yet (ROADMAP.md Queue 1, LLM side)")
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 config, family -> module.
 
 Only ``llama3.2-1b`` (the ``dense`` family) is ported; the other nine arch
-ids and families wait for their slices (ROADMAP.md Queue 1 item 6).
+ids and families wait for their slices (ROADMAP.md Queue 1, LLM side).
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ _MODULE_FOR_ARCH = {"llama3.2-1b": "llama32_1b"}
 def _unported(what: str):
     return NotImplementedError(
         f"{what} is not ported yet (ported: {', '.join(ARCH_IDS)}; "
-        "ROADMAP.md Queue 1 item 6)")
+        "ROADMAP.md Queue 1, LLM side)")
 
 
 def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:

@@ -9,7 +9,7 @@ or a prefill returns a state that shares its cache tensors with the state
 it was given. ``pos`` is a Python int.
 
 MoE FFNs, MLA and the int8 KV cache come with the configs that use them
-(ROADMAP.md Queue 1 item 6).
+(ROADMAP.md Queue 1, LLM side).
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ def _check(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.arch_id}: only GQA attention, dense FFNs and a native KV "
             "cache are ported (MLA, MoE and the int8 cache: ROADMAP.md "
-            "Queue 1 item 6)")
+            "Queue 1, LLM side)")
 
 
 def _layer_specs(cfg) -> Dict[str, Any]:

@@ -45,8 +45,9 @@ microbatch stack into one forward. Host-side request bookkeeping (tokens,
 dedup, chunking, scatter-back) is numpy, exactly as in the JAX engine; the
 tables, cached states and all scoring arithmetic live on the device.
 
-Waiting for later slices: the host pre-gather, the parallel span pipeline,
-engine rotation, and ``deadline_ms``.
+Waiting for later slices (ROADMAP.md Queue 1, "The parallel span pipeline
+and the host pre-gather" and "Fleet"): the host pre-gather, the parallel
+span pipeline, engine rotation, and ``deadline_ms``.
 """
 from __future__ import annotations
 

@@ -4,21 +4,27 @@ rounds, §4.3 sparse updates, §6 transfer; port of
 
 One :class:`TrainingPipeline` round closes the train->serve loop:
 
-  prefetched ingest (§4.1) -> a row-sparse AdaGrad step per microbatch
+  prefetched ingest (§4.1) -> AdaGrad updates from one of three backends
   (§4.3 ReLU-masked backward, its weight gradients on the block-skip
   kernel) -> touched-row tracking -> a versioned update frame (a row
   **delta** in steady state, §6) for the serving engine.
 
-The JAX package runs a round as one jitted ``lax.scan`` with donated
-buffers. Here a round is a Python loop of eager microbatch steps that
-update the trainer's own tensors in place: the embedding and LR tables and
+The backends share the update rule (``optim.adagrad``):
+
+* ``jit``       — the sequential reference: a row-sparse step per
+  microbatch (:func:`make_sparse_round_step`).
+* ``hogwild``   — §4.2: threads over shared weight buffers on the device
+  (``train/hogwild.py:HogwildTrainer``).
+* ``local_sgd`` — the device analogue of Hogwild: W workers from one
+  start, merged by averaging (``train/hogwild.py:make_local_sgd_round``).
+
+The JAX package runs a ``jit`` round as one jitted ``lax.scan`` with
+donated buffers. Here a round is a Python loop of eager microbatch steps
+that update the trainer's own tensors in place: the embedding and LR tables and
 their accumulators are written only at the rows a microbatch touched. The
 step keeps its outputs on the device; the round copies losses, scores and
 column-alive masks to the host once. ``torch.unique`` (the touched rows,
 whose count sets the shapes that follow) synchronizes once per microbatch.
-
-Only the sequential ``jit`` backend is ported so far; the ``hogwild`` and
-``local_sgd`` backends come with ``train/hogwild.py``.
 """
 from __future__ import annotations
 
@@ -38,7 +44,7 @@ from repro_torch.data.prefetch import Prefetcher
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.optimizers import Optimizer
 
-BACKENDS = ("jit",)
+BACKENDS = ("jit", "hogwild", "local_sgd")
 PREFETCH_DEPTH = 8  # batches fetched ahead of the trainer
 
 _KIND_NAMES = {transfer.KIND_FULL: "full", transfer.KIND_PATCH: "patch",
@@ -336,7 +342,7 @@ def _dense_subtree(params, model: str) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------
-# The backend and the pipeline
+# The backends and the pipeline
 # ---------------------------------------------------------------------------
 
 class JitBackend:
@@ -383,6 +389,78 @@ class JitBackend:
         return params, opt_state, m
 
 
+class HogwildBackend:
+    """§4.2 Hogwild as a pipeline backend: a
+    :class:`~repro_torch.train.hogwild.HogwildTrainer` (threads over shared
+    buffers on the device, racy by design), made from the first round's
+    params; its buffers are the pipeline's params from then on."""
+
+    def __init__(self, cfg: FFMConfig, model: str, *, lr: float,
+                 n_threads: int, device: torch.device):
+        self.cfg, self.model, self.lr = cfg, model, lr
+        self.n_threads, self.device = n_threads, device
+        self._trainer = None
+
+    def run(self, params, opt_state, batches):
+        from repro_torch.train import hogwild
+
+        if self._trainer is None:
+            self._trainer = hogwild.HogwildTrainer(
+                self.cfg, self.model, lr=self.lr, params=params,
+                device=self.device)
+        stats = self._trainer.train(batches, n_threads=self.n_threads)
+        m = RoundMetrics(examples=stats.examples, losses=list(stats.losses),
+                         labels=list(stats.labels), scores=list(stats.scores))
+        if stats.col_alive:
+            m.col_alive = [np.stack(layer) for layer in stats.col_alive]
+        return self._trainer.params(), self._trainer.opt_state(), m
+
+
+class LocalSGDBackend:
+    """The device analogue of Hogwild: W workers each take k AdaGrad steps
+    from the same starting point, then merge by averaging — one merge per
+    round (``train/hogwild.py:make_local_sgd_round``).
+
+    ``workers`` must be a power of two: averaging W bit-identical untouched
+    rows is then exact, which the row-delta frames rely on (untouched rows
+    must stay byte-stable).
+    """
+
+    def __init__(self, cfg: FFMConfig, model: str, *, lr: float,
+                 workers: int):
+        from repro_torch.train import hogwild
+
+        hogwild.check_workers(workers)
+        self.workers = workers
+        self._round = hogwild.make_local_sgd_round(cfg, model, lr=lr)
+
+    def run(self, params, opt_state, batches):
+        w = self.workers
+        key = JitBackend._shape_key(batches[0]) if batches else None
+        usable = [b for b in batches if JitBackend._shape_key(b) == key]
+        k = len(usable) // w
+        if k < 1:
+            raise ValueError(
+                f"local_sgd round needs >= {w} same-shape batches, got "
+                f"{len(usable)} matching the first batch's shape "
+                f"(of {len(batches)} total)")
+        usable = usable[: w * k]
+        stacked = {
+            kk: np.stack([np.stack([np.asarray(b[kk])
+                                    for b in usable[wi * k:(wi + 1) * k]])
+                          for wi in range(w)])
+            for kk in usable[0]
+        }
+        params, acc, loss, aux = self._round(params, opt_state["acc"], stacked)
+        m = RoundMetrics(examples=int(stacked["label"].size))
+        m.losses.append(float(loss))
+        m.scores.append(aux["scores"].cpu().numpy().reshape(-1))
+        m.labels.append(stacked["label"].reshape(-1))
+        m.col_alive = [a.cpu().numpy().reshape(-1, a.shape[-1])
+                       for a in aux["col_alive"]]
+        return params, {"acc": acc}, m
+
+
 class TrainingPipeline:
     """The paper's §3 online-training job: rounds in, update frames out.
 
@@ -395,14 +473,17 @@ class TrainingPipeline:
 
     ``device=None`` means the card (weights, optimizer state, the step and
     the sender's quantization all run there); pass ``device="cpu"`` for the
-    plain versions of the kernels. The trainer updates ``params`` and
-    ``opt_state`` in place.
+    plain versions of the kernels. The ``jit`` and ``hogwild`` backends
+    update ``params`` and ``opt_state`` in place; ``local_sgd`` replaces
+    them with the merge each round. ``hogwild_threads`` and
+    ``local_sgd_workers`` size those two backends.
     """
 
     def __init__(self, cfg: FFMConfig, model: str = "deepffm",
                  backend: str = "jit", *, lr: float = 0.1,
                  transfer_mode: str = "patch+quant",
                  delta_updates: bool = True, seed: int = 0,
+                 hogwild_threads: int = 4, local_sgd_workers: int = 2,
                  device: DeviceLike = None):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
@@ -415,7 +496,15 @@ class TrainingPipeline:
         self.opt_state = self.opt.init(self.params)
         self.sender = transfer.Sender(mode=transfer_mode, device=self.device)
         self.reports: List[RoundReport] = []
-        self.backend = JitBackend(cfg, model, self.opt)
+        if backend == "jit":
+            self.backend = JitBackend(cfg, model, self.opt)
+        elif backend == "hogwild":
+            self.backend = HogwildBackend(cfg, model, lr=lr,
+                                          n_threads=hogwild_threads,
+                                          device=self.device)
+        else:
+            self.backend = LocalSGDBackend(cfg, model, lr=lr,
+                                           workers=local_sgd_workers)
 
     @property
     def acc(self):

@@ -1,6 +1,6 @@
 """Step factories over the model registry (port of
 ``repro/train/steps.py``'s serve step). The train and prefill steps come
-with LLM training (ROADMAP.md Queue 1 item 6)."""
+with LLM training (ROADMAP.md Queue 1, LLM side)."""
 from __future__ import annotations
 
 import torch

@@ -39,7 +39,10 @@ from repro_torch.kernels.sparse_mlp import ops as sk_ops
 from repro_torch.kernels.sparse_mlp import ref as sk_ref
 from repro_torch.models import registry
 from repro_torch.serving.engine import InferenceEngine
-from repro_torch.serving.server import LLMServer
+from repro_torch import quickstart
+from repro_torch.serving.context_cache import CachedServer
+from repro_torch.serving.server import FFMServer, LLMServer
+from repro_torch.train.hogwild import HogwildTrainer
 from repro_torch.train.loop import OnlineTrainer
 from repro_torch.train.pipeline import TrainingPipeline
 
@@ -102,7 +105,10 @@ def test_port_file_list_is_complete():
                 "repro_torch/kernels/flash_attention/ref.py",
                 "repro_torch/train/steps.py",
                 "repro_torch/serving/server.py",
-                "repro_torch/launch/serve.py"):
+                "repro_torch/launch/serve.py",
+                "repro_torch/serving/context_cache.py",
+                "repro_torch/train/hogwild.py",
+                "repro_torch/quickstart.py"):
         assert mod in names
     sources = {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu")}
     assert sources == {"row_gather.cu", "ffm_interaction.cu",
@@ -162,6 +168,18 @@ def test_card_is_the_default():
     rcv.apply_update(snd.make_update(params))
     with pytest.raises(RuntimeError, match="CUDA"):
         rcv.materialize(manifest=snd.manifest)
+    # the serving surfaces and the training backends
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FFMServer(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CachedServer(cfg, deepffm.init_params(cfg, 0, "deepffm", "cpu"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HogwildTrainer(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quickstart.main()
+    for backend in ("hogwild", "local_sgd"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TrainingPipeline(cfg, backend=backend)
     # the LLM side: weights and the server go to the card unless told
     llm = llama32_1b.smoke()
     with pytest.raises(RuntimeError, match="CUDA"):

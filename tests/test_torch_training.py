@@ -12,7 +12,8 @@
   round's report against the JAX pipeline's from the same weights, the
   train -> serve round trip into a port ``InferenceEngine(device="cpu")``
   in every transfer mode, the port's frames decoded by the JAX receiver,
-  checkpoints, and the backends not ported yet.
+  checkpoints, and a backend the JAX package does not have
+  (``tests/test_torch_hogwild.py`` covers ``hogwild`` and ``local_sgd``).
 """
 import jax
 import jax.numpy as jnp
@@ -359,7 +360,7 @@ def test_checkpoint_roundtrip(tmp_path):
     assert store.load(str(tmp_path / "weights_only"), device="cpu")[1] is None
 
 
-@pytest.mark.parametrize("backend", ["hogwild", "local_sgd", "pmap"])
+@pytest.mark.parametrize("backend", ["pmap"])
 def test_unported_backends_raise_as_unknown(backend):
     with pytest.raises(ValueError, match="backend must be one of"):
         TrainingPipeline(CFG, backend=backend, device="cpu")
