@@ -99,6 +99,32 @@ Phases, each of which raises on failure (nothing is caught):
      ``CachedServer`` request by request), every probability and logit
      within rtol 2e-4, atol 2e-5 of the plain ``score_uncached``; K2
      (``ffm_candidate_matrices``) must launch on each; p50 / p99 per call.
+   - span pipeline: an int8-fused ``"ffm"`` engine and int8 and f32
+     staged DeepFFM engines on the main path's weights at ``parallel`` = 1,
+     2 and 4 (spans prepared on ``ScoringPool`` threads) answer the
+     microbatches, bit-identical for every worker count.
+   - fleet: an entry's partial terms (int8 and f32) bit-equal at buckets 8
+     and 64; ``ShardRouter`` at N = 1, 2 and 4 shards (M = 2 replicas at 2
+     and 4), int8 and f32, on the main path's weights, answers the
+     microbatches: scores bit-identical across N and within 1e-5
+     (``ROUTER_ATOL``, the reference's router tolerance) of the single
+     staged engine of phase 3; K1 exactly one launch per owning shard of
+     each context-tail gather and of each microbatch's candidate entries
+     (predicted from the gathers the assembled view was asked for), none
+     on f32 fleets; p50 / p99 per microbatch over 5 more passes. Then three
+     ``TrainingPipeline``s from one seed (``shard_ranges`` for N = 4 and
+     N = 2, and a full-space one) run 2 rounds of 2 x 512 (a full frame,
+     then row deltas), fanned out by ``submit_updates`` / ``flush_updates``
+     to an N = 4, an N = 2 and a drill N = 4 fleet (M = 2) and applied to an
+     int8 engine: K7 and K8 3 and K10 12 per round, K9 once per replica per
+     decoded frame (21, then 19); the drill fleet's copy of shard 1's delta
+     is bit-flipped (``FaultPlan.corrupt_frame``), NACKed
+     (``frame_errors``) and healed by ``resync_shard`` (K9 2); every
+     replica's int8 tables equal the engine's slice byte for byte, siblings
+     byte-identical, and the fleets' scores bit-identical across N. A
+     ``FaultPlan`` kills a replica mid-traffic (scores bit-identical to
+     the healthy fleet, no failover, not degraded), then both replicas of
+     slice 2 die (the response flagged degraded, not raised).
    - quickstart: ``repro_torch.quickstart.main()`` on the card (3 rounds of
      30 x 512, ``Sender`` patches into an engine, scoring); the weights
      version must reach 3 and the served model's AUC exceed 0.5.
@@ -127,7 +153,7 @@ Phases, each of which raises on failure (nothing is caught):
      1e-4 (``ORACLE_REL``).
    Every kernel's launch counter must have risen during these runs.
 4. Where the time goes: one more microbatch per engine (and per staged
-   ``"ffm"`` twin), one training microbatch, 8 Hogwild microbatches at 1
+   ``"ffm"`` twin) and on the N = 4 fleet, one training microbatch, 8 Hogwild microbatches at 1
    and at 4 threads, one LLM prefill and one decode step under
    torch.profiler (kernels launched, device-busy time against
    wall time, top kernels; for training K10's share, for the prefill
@@ -166,6 +192,13 @@ TIMING_ITERS = 200
 # floats of x and 16 of g per row)
 K10_BLOCK = 128
 SCORE_RTOL, SCORE_ATOL = 2e-4, 2e-5  # staged scores vs the uncached oracle
+# the fleet phase: the reference's router tolerance against a single engine
+# (test_sharded_serving.py), its (shards, replicas) fleets, training
+# microbatches per fan-out round and timed passes over the microbatches
+ROUTER_ATOL = 1e-5
+FLEET_SHAPES = ((1, 1), (2, 2), (4, 2))
+FLEET_MICRO = 2
+FLEET_TIMED_PASSES = 5
 TRAIN_BATCH = 512  # examples per training microbatch (examples/train_ctr_100m.py)
 LOCAL_STEPS = 4     # local-SGD steps per worker and round
 HOGWILD_MICRO = 16  # microbatches per Hogwild round
@@ -1302,6 +1335,11 @@ def main(argv=None) -> int:
                                run_phase, phase_launches, r_rows, n_cand)
     server_path(cfg, args, dev, on_card, smi, batches, run_phase,
                 phase_launches, params, r_rows, n_cand)
+    span_path(cfg, dev, on_card, smi, batches, run_phase, phase_launches,
+              params, r_rows, n_cand)
+    fleet_score, fleet_close = fleet_path(
+        cfg, args, dev, on_card, smi, batches, run_phase, phase_launches,
+        params, engines, r_rows, n_cand)
     quickstart_path(on_card, smi, run_phase, phase_launches)
     local_sgd_path(cfg, args, dev, on_card, smi, batches, run_phase,
                    phase_launches, r_rows, n_cand)
@@ -1324,6 +1362,9 @@ def main(argv=None) -> int:
                 lambda twin=twin: twin.score_batch(batches[-1]), smi)
             print(f"launches per microbatch: {name} {n_fused}, its staged "
                   f"\"ffm\" twin {n_staged}")
+        where_the_time_goes("fleet int8 N=4 M=2, one microbatch",
+                            fleet_score, smi, top=8,
+                            share_of="gather_dequant_rows")
         where_the_time_goes("training microbatch (row-sparse step, B="
                             f"{TRAIN_BATCH})", train_step, smi, top=8,
                             share_of="sparse_weight_grad")
@@ -1338,6 +1379,7 @@ def main(argv=None) -> int:
         where_the_time_goes(
             f"LLM decode step ({llm_cfg.arch_id}, B={llm['batch']}, after the "
             "prefill)", llm_decode, smi, top=8)
+    fleet_close()
     for rec in kernels:
         rec["launches"] = main_launches[rec["name"]]
 
@@ -1924,6 +1966,327 @@ def server_path(cfg, args, dev, on_card, smi, batches, run_phase,
               f"predictions/s; CachedServer {cached_ms:.3f} ms per request "
               f"(host clock) | {smi}")
     srv.engine.update_pipe().close(timeout=60)
+
+
+def span_path(cfg, dev, on_card, smi, batches, run_phase, phase_launches,
+              params, r_rows, n_cand):
+    """Phase 3, span pipeline: engines with ``parallel`` = 1, 2 and 4 on the
+    microbatches, bit for bit; see the module docstring."""
+    import numpy as np
+
+    from repro_torch.serving.engine import InferenceEngine
+
+    ffm_params = {"lr": params["lr"], "ffm": params["ffm"]}
+    arms = (("int8-fused ffm", "ffm", ffm_params, True, True),
+            ("int8 staged deepffm", "deepffm", params, True, None),
+            ("f32 staged deepffm", "deepffm", params, False, None))
+    for name, model, p, quant, fused in arms:
+        base = None
+        for workers in (1, 2, 4):
+            eng = InferenceEngine(cfg, model, params=p, device=dev,
+                                  quantized=quant, fused=fused,
+                                  parallel=workers)
+            eng.warmup(max_requests=r_rows, max_candidates=n_cand)
+            label = f"spans {name} parallel={workers} x{len(batches)}"
+            got = run_phase(label, lambda: [o for mb in batches
+                                            for o in eng.score_batch(mb)])
+            eng.close()
+            if base is None:
+                base = got
+            check(len(got) == len(base) and all(
+                np.array_equal(g, b) for g, b in zip(got, base)),
+                f"{label}: scores differ in bits from parallel=1")
+            print(f"launches {label}: {phase_launches[label]}")
+    print(f"span pipeline: parallel 2 and 4 bit-identical to 1 on "
+          f"{', '.join(a[0] for a in arms)} ({len(batches)} microbatches)")
+
+
+def fleet_path(cfg, args, dev, on_card, smi, batches, run_phase,
+               phase_launches, params, engines, r_rows, n_cand):
+    """Phase 3, fleet: ``ShardRouter`` at N = 1 / 2 / 4 shards (M = 2
+    replicas at 2 and 4), ``TrainingPipeline(shard_ranges=)`` frames fanned
+    out through ``submit_updates`` / ``flush_updates``, and the fault drills;
+    see the module docstring. Returns a callable scoring one microbatch on
+    the N = 4, M = 2 fleet (phase 4) and one that closes the fleets."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import transfer as T
+    from repro_torch.data.synthetic import CTRStream
+    from repro_torch.launch import topology
+    from repro_torch.serving import shard_router as sr
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.faults import FRAME_BITFLIP, FaultPlan
+    from repro_torch.train.pipeline import TrainingPipeline
+
+    k1, k10 = "gather_dequant_rows_q8", "sparse_weight_grad"
+    # the row sets the assembled int8 views gather: K1's predicted count is
+    # one launch per owning shard per gather (context tails), plus one per
+    # owning shard of each microbatch's candidate entries for the partials
+    # (the candidate block's padded slots hold row 0, owned by shard 0)
+    gathered = []
+    real_gather = sr.ShardedRows.gather_view
+
+    def recording(view, idx):
+        if any(isinstance(p, dict) for p in view.parts):
+            gathered.append(view.owner_of(sr._host_index(idx).reshape(-1)))
+        return real_gather(view, idx)
+
+    def predicted_k1(n):
+        tails = sum(np.unique(o).size for o in gathered)
+        ranges = topology.shard_ranges(cfg.hash_space, n)
+        parts = sum(
+            np.union1d(topology.owner_of(ranges, np.concatenate(
+                [r[2].ravel() for r in mb])), [0]).size for mb in batches)
+        return tails, parts
+
+    def router(n, m, **kw):
+        return sr.ShardRouter(cfg, "deepffm", n_shards=n, replicas=m,
+                              device=dev, hedge_ms=10_000, **kw)
+
+    # an entry's partial terms and rows: the same bits at buckets 8 and 64
+    from repro_torch.core import quantization as Q
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    m, fc, k = 5, cfg.context_fields, cfg.k
+    local = torch.randint(0, cfg.hash_space, (m,), device=dev,
+                          dtype=torch.int32, generator=gen)
+    a_ctx = torch.randn((m, fc, k), device=dev, generator=gen)
+    vc = torch.randn((m, fc), device=dev, generator=gen)
+    vm = torch.randn((m,), device=dev, generator=gen)
+    table = Q.quantize_params_rows(params)["ffm"]["emb"]
+    by_bucket = []
+    for mb in (8, 64):
+        def pad(x):
+            return torch.cat([x, x.new_zeros((mb - m,) + tuple(x.shape[1:]))])
+
+        q_buf = torch.empty((mb, cfg.n_fields, k), device=dev)
+        terms_q, rows_q = sr._shard_partial_q8(cfg, pad(a_ctx), pad(vc),
+                                               pad(vm), table, local, q_buf)
+        f_buf = torch.zeros((mb, cfg.n_fields, k), device=dev)
+        f_buf[:m] = params["ffm"]["emb"][local.long()]
+        terms_f, rows_f = sr._shard_partial_rows(cfg, pad(a_ctx), pad(vc),
+                                                 pad(vm), f_buf)
+        by_bucket.append([t[:m].clone() for t in (terms_q, rows_q, terms_f,
+                                                   rows_f)])
+    check(all(torch.equal(a, b) for a, b in zip(*by_bucket)),
+          "fleet: an entry's partial terms differ between buckets 8 and 64")
+    print("fleet partials: int8 and f32 terms and rows of 5 entries equal at "
+          "buckets 8 and 64, bit for bit")
+
+    sr.ShardedRows.gather_view = recording
+    try:
+        # -- scores across N -------------------------------------------------
+        for quant, name in ((True, "int8"), (False, "f32")):
+            want = [engines[name].score_batch(mb) for mb in batches]
+            base = None
+            for n, m in FLEET_SHAPES:
+                t0 = time.perf_counter()
+                fleet = router(n, m, params=params, quantized=quant)
+                fleet.warmup(max_requests=r_rows, max_candidates=n_cand)
+                build_s = time.perf_counter() - t0
+                label = f"fleet {name} N={n} M={m} score_batch x{len(batches)}"
+                gathered.clear()
+                got = run_phase(label, lambda: [fleet.score_batch(mb)
+                                                for mb in batches])
+                counts = phase_launches[label]
+                tails, parts = predicted_k1(n)
+                if on_card:
+                    want_k1 = tails + parts if quant else 0
+                    check(counts[k1] == want_k1,
+                          f"{label}: {k1} launched {counts[k1]} times, want "
+                          f"{want_k1} ({tails} for context tails + {parts} "
+                          "for the partials)")
+                worst = 0.0
+                for g_mb, w_mb, reqs in zip(got, want, batches):
+                    for g, w, req in zip(g_mb, w_mb, reqs):
+                        check(g.shape == (req[2].shape[0],)
+                              and np.isfinite(g).all(),
+                              f"{label}: bad scores shape {g.shape}")
+                        worst = max(worst, float(np.abs(g - w).max()))
+                check(worst <= ROUTER_ATOL,
+                      f"{label}: vs the single {name} engine max abs err "
+                      f"{worst:.3e} > {ROUTER_ATOL}")
+                if base is None:
+                    base = got
+                check(all(np.array_equal(g, b) for g_mb, b_mb in
+                          zip(got, base) for g, b in zip(g_mb, b_mb)),
+                      f"{label}: scores differ in bits from N=1")
+                for _ in range(FLEET_TIMED_PASSES):
+                    for mb in batches:
+                        fleet.score_batch(mb)
+                st = fleet.stats
+                print(f"launches {label}: {counts}")
+                print(f"fleet {name} N={n} M={m}: built and warmed in "
+                      f"{build_s:.1f} s, {fleet.resident_weight_bytes} "
+                      f"resident bytes; max abs err vs the single engine "
+                      f"{worst:.3e} (atol {ROUTER_ATOL}), bit-identical to "
+                      "N=1" + (f"; {k1} predicted {tails} (context tails) + "
+                               f"{parts} (partials)" if quant else ""))
+                if on_card:
+                    print(f"fleet {name} N={n} M={m}: p50 {st.p50_ms:.3f} ms "
+                          f"per microbatch, p99 {st.p99_ms:.3f} ms over "
+                          f"{(1 + FLEET_TIMED_PASSES) * len(batches)} "
+                          f"microbatches, {st.predictions_per_s:.0f} "
+                          f"predictions/s | {smi}")
+                fleet.close()
+
+        # -- fan-out frames ----------------------------------------------------
+        stream = CTRStream(cfg, seed=args.seed + 7)
+        rounds = [[stream.sample(TRAIN_BATCH) for _ in range(FLEET_MICRO)]
+                  for _ in range(2)]
+        ranges = {n: topology.shard_ranges(cfg.hash_space, n) for n in (2, 4)}
+        pipes = {n: TrainingPipeline(cfg, "deepffm", seed=args.seed,
+                                     device=dev, shard_ranges=ranges[n])
+                 for n in (2, 4)}
+        pipes["full"] = TrainingPipeline(cfg, "deepffm", seed=args.seed,
+                                         device=dev)
+        like = pipes["full"].params
+        fleets = {"N=4": router(4, 2), "N=4 drills": router(4, 2),
+                  "N=2": router(2, 2)}
+        for key, fleet in fleets.items():
+            fleet.configure_fanout(pipes[fleet.n_shards].sender.manifests,
+                                   like)
+        single = InferenceEngine(cfg, "deepffm", device=dev, quantized=True)
+        # the drill fleet's copy of shard 1's second frame is bit-flipped on
+        # the wire, as ShardedSender(faults=plan) would send it
+        plan = FaultPlan(seed=args.seed, frame_faults={(1, 1): FRAME_BITFLIP})
+        for r, round_batches in enumerate(rounds, 1):
+            label = f"fleet fan-out round {r}"
+            frames = run_phase(label, lambda: {
+                k: p.run_round(iter(round_batches)) for k, p in pipes.items()})
+            want_kind = T.KIND_FULL if r == 1 else T.KIND_DELTA
+            kinds = {T.unframe(f).kind for f in frames[2] + frames[4]
+                     + [frames["full"]]}
+            check(kinds == {want_kind}, f"{label}: frame kinds {kinds}, want "
+                  f"{want_kind}")
+            counts = phase_launches[label]
+            if on_card:
+                for kname, want in (("minmax", 3), ("quantize_codes", 3),
+                                    (k10, 3 * 2 * FLEET_MICRO)):
+                    check(counts[kname] == want,
+                          f"{label}: {kname} launched {counts[kname]} times, "
+                          f"want {want}")
+            bad = [plan.corrupt_frame(s, f) for s, f in enumerate(frames[4])]
+
+            def ingest():
+                n_ok = (fleets["N=4"].submit_updates(frames[4]),
+                        fleets["N=4 drills"].submit_updates(bad),
+                        fleets["N=2"].submit_updates(frames[2]))
+                if r == 1:
+                    single.apply_update(frames["full"],
+                                        pipes["full"].sender.manifest, like)
+                else:
+                    single.apply_update(frames["full"])
+                for fleet in fleets.values():
+                    fleet.flush_updates(timeout=120)
+                return n_ok
+
+            ingest_label = f"fleet fan-out ingest round {r}"
+            n_ok = run_phase(ingest_label, ingest)
+            check(n_ok == (4, 4, 2), f"{ingest_label}: slices accepting the "
+                  f"frames {n_ok}, want (4, 4, 2)")
+            # one K9 per replica per decoded frame: 8 + 8 + 4 + 1, less the
+            # two replicas of the drill fleet's slice 1 that NACK round 2
+            want_k9 = 21 if r == 1 else 19
+            counts = phase_launches[ingest_label]
+            if on_card:
+                check(counts["dequantize_codes"] == want_k9,
+                      f"{ingest_label}: dequantize_codes launched "
+                      f"{counts['dequantize_codes']} times, want {want_k9}")
+            print(f"{label}: frame bytes full-space "
+                  f"{len(frames['full'])}, N=2 {[len(f) for f in frames[2]]}, "
+                  f"N=4 {[len(f) for f in frames[4]]}; launches {label} "
+                  f"{phase_launches[label]}, {ingest_label} {counts}")
+        drills = fleets["N=4 drills"]
+        errs = drills.frame_errors()
+        check(errs[1] is not None and all(e is None for i, e in
+                                          enumerate(errs) if i != 1),
+              f"fleet bit-flip drill: NACK latches {errs}")
+        check([g[1] for g in drills.fleet_generations()] == [2, 1, 2, 2],
+              f"fleet bit-flip drill: versions "
+              f"{drills.fleet_generations()}")
+        n_resync = run_phase("fleet resync", lambda: (
+            drills.resync_shard(1, pipes[4].sender),
+            drills.flush_updates(timeout=120))[0])
+        check(n_resync == 2 and drills.frame_errors() == [None] * 4,
+              f"fleet resync: accepted on {n_resync} replicas, latches "
+              f"{drills.frame_errors()}")
+        if on_card:
+            n9 = phase_launches["fleet resync"]["dequantize_codes"]
+            check(n9 == 2, f"fleet resync: dequantize_codes launched {n9} "
+                  "times, want 2")
+        print(f"fleet bit-flip drill: shard 1 NACKed {errs[1][:40]!r}..., "
+              f"resync accepted on {n_resync} replicas; launches "
+              f"{phase_launches['fleet resync']}")
+        # every replica's int8 tables: the single engine's slice, bytes
+        sp = single.params
+        b = sp["lr"]["w"]["block"]
+        for key, fleet in fleets.items():
+            for s, row in enumerate(fleet._fleet):
+                lo, hi = fleet.topology.ranges[s]
+                for rep, eng in enumerate(row):
+                    e, w = eng.params["ffm"]["emb"], eng.params["lr"]["w"]
+                    same = all(torch.equal(e[c], sp["ffm"]["emb"][c][lo:hi])
+                               for c in ("codes", "scale", "zero"))
+                    same &= torch.equal(w["codes"], sp["lr"]["w"]["codes"][lo:hi])
+                    same &= all(torch.equal(w[c],
+                                            sp["lr"]["w"][c][lo // b:-(-hi // b)])
+                                for c in ("scale", "zero"))
+                    check(same, f"fleet {key}: shard {s} replica {rep}'s int8 "
+                          "tables are not the single engine's slice")
+                check(all(same_tree(eng.params, row[0].params) for eng in row),
+                      f"fleet {key}: shard {s}'s replicas differ")
+        print("fleet fan-out: every replica's int8 tables equal the single "
+              "engine's slice byte for byte (N=4, N=4 after the resync, N=2); "
+              "sibling replicas byte-identical")
+
+        # bits across N on the ingested weights, then the kill drill
+        ref = [fleets["N=4"].score_batch(mb) for mb in batches]
+        for key in ("N=2", "N=4 drills"):
+            got = [fleets[key].score_batch(mb) for mb in batches]
+            check(all(np.array_equal(g, w) for g_mb, w_mb in zip(got, ref)
+                      for g, w in zip(g_mb, w_mb)),
+                  f"fleet {key}: ingested scores differ in bits from N=4")
+        drills.faults = FaultPlan(seed=args.seed, kill_at={(0, 0): 2})
+        got = run_phase("fleet kill drill", lambda: [
+            drills.score_batch(mb) for mb in batches])
+        check(all(np.array_equal(g, w) for g_mb, w_mb in zip(got, ref)
+                  for g, w in zip(g_mb, w_mb)),
+              "fleet kill drill: scores moved after the replica kill")
+        st = drills.stats
+        check(drills.replica_generations()[0][0] is None
+              and not drills.degraded and st.failovers == 0
+              and not st.last_degraded,
+              f"fleet kill drill: replicas {drills.replica_generations()[0]}, "
+              f"degraded {drills.degraded}, failovers {st.failovers}")
+        drills.faults = None
+        drills.kill_shard(2, 0)
+        drills.kill_shard(2, 1)
+        dead = run_phase("fleet all-dead drill",
+                         lambda: drills.score_batch(batches[0]))
+        check(drills.degraded and drills.stats.last_degraded
+              and all(np.isfinite(d).all() for d in dead)
+              and not all(np.array_equal(d, w) for d, w in zip(dead, ref[0])),
+              "fleet all-dead drill: the response was not flagged degraded "
+              "(or not zero-filled)")
+        print(f"fleet drills: replica (0, 0) killed at round 2, {len(batches)} "
+              "microbatches bit-identical to the healthy fleet; slice 2 with "
+              f"both replicas dead: degraded responses "
+              f"{drills.stats.degraded_responses}, last_degraded "
+              f"{drills.stats.last_degraded}; {k1} launches: kill drill "
+              f"{phase_launches['fleet kill drill'][k1]}, all-dead drill "
+              f"{phase_launches['fleet all-dead drill'][k1]} (each kill "
+              "republishes the view, so the cached contexts recompute)")
+    finally:
+        sr.ShardedRows.gather_view = real_gather
+
+    def close():
+        for fleet in fleets.values():
+            fleet.close()
+        single.update_pipe().close(timeout=60)
+
+    return (lambda: fleets["N=4"].score_batch(batches[-1])), close
 
 
 def quickstart_path(on_card, smi, run_phase, phase_launches):

@@ -28,7 +28,8 @@ Device work: :class:`Sender` concatenates the weight space on its device
 applies frames to its host byte buffer and dequantizes on its device
 (kernel K9 ``dequantize_codes``): a full decode uploads every code, an
 incremental decode after row deltas only the touched ones, scattered into a
-clone of the previous device flat. ``ShardedSender`` comes with the fleet.
+clone of the previous device flat. :class:`ShardedSender` quantizes the
+weight space once and frames a slice of it per shard of a fleet.
 """
 from __future__ import annotations
 
@@ -259,21 +260,25 @@ class Sender:
     manifest: Any = None
     _leaf_info: Optional[List[Tuple[str, int, int, int, int, tuple]]] = None
 
-    def _serialize(self, params) -> Tuple[bytes, bytes]:
-        """-> (fixed-length diffable buffer, variable-length sidecar).
-        Also installs the wire layout: the manifest plus the per-leaf info
-        used by row-delta framing (element offset into the concatenated
-        weight space and byte offset into the raw buffer)."""
-        flat = layout.flatten_with_paths(params)
-        self.manifest = layout.manifest_of(params)
+    def _set_layout(self, manifest) -> None:
+        """Install a wire layout: the manifest plus the per-leaf info used by
+        row-delta framing (element offset into the concatenated weight space
+        and byte offset into the raw buffer). A function of shapes and
+        dtypes only."""
+        self.manifest = manifest
         info, elem_off = [], 0
-        for ent in self.manifest:
+        for ent in manifest:
             n = int(np.prod(ent["shape"]) or 1)
             itemsize = layout.torch_dtype(ent["dtype"]).itemsize
             info.append((ent["path"], elem_off, ent["offset"], itemsize, n,
                          tuple(ent["shape"])))
             elem_off += n
         self._leaf_info = info
+
+    def _serialize(self, params) -> Tuple[bytes, bytes]:
+        """-> (fixed-length diffable buffer, variable-length sidecar)."""
+        flat = layout.flatten_with_paths(params)
+        self._set_layout(layout.manifest_of(params))
         if "quant" in self.mode:
             # the full weight space, concatenated and quantized on the card
             # each round; grid hysteresis keeps codes byte-stable across
@@ -346,6 +351,17 @@ class Sender:
                 f"non-monotonic update version {version} (last shipped "
                 f"{self.version}); round stamps must strictly increase")
         cur, sidecar = self._serialize(params)
+        return self._frame_from(cur, sidecar, touched, version)
+
+    def _frame_from(self, cur: bytes, sidecar: bytes,
+                    touched: Optional[Dict[str, Any]] = None,
+                    version: Optional[int] = None) -> bytes:
+        """Frame an already-serialized ``(fixed buffer, sidecar)`` pair:
+        delta/patch/full selection, grid-stability check, version stamping.
+        Split from :meth:`make_update` so :class:`ShardedSender` can
+        serialize the weight space once and frame per-shard slices of it
+        through per-shard senders (each with its shard's ``_last`` buffer
+        and leaf layout)."""
         comparable = self._last is not None and len(self._last) == len(cur)
         # a quant-grid regrid changes codes of untouched rows too: the delta
         # precondition is a byte-identical header (grid hysteresis makes this
@@ -380,6 +396,204 @@ class Sender:
         framed_side = struct.pack("<Q", len(self._last_sidecar)) + self._last_sidecar
         return _frame(KIND_FULL, self.mode, framed_side + self._last,
                       version=self.version)
+
+
+# ---------------------------------------------------------------------------
+# Sharded fan-out sender
+# ---------------------------------------------------------------------------
+
+@dataclass
+class ShardedSender:
+    """Trainer-side fan-out for a hash-space-sharded serving fleet.
+
+    One :meth:`make_updates` call serializes and wire-quantizes the weight
+    space **once** (on ``device``: kernels K7 and K8, the shared 16-bit grid
+    and its hysteresis kept at the global level, as one :class:`Sender`
+    keeps them), then slices the fixed buffer into per-shard local buffers
+    and frames each through a per-shard inner ``Sender`` (local ``_last``
+    history, local leaf layout). Hence:
+
+    * **byte exactness** — shard ``s``'s frame decodes to exactly the rows
+      ``[lo_s, hi_s)`` of what the full-space frame decodes to: every local
+      code byte *is* the global code byte (one global quantization, sliced
+      after);
+    * **delta filtering by row-range intersection** — the trainer's
+      ``touched`` rows are intersected with each shard's range before
+      framing; a shard that saw no update still gets a (near-empty) delta,
+      so every shard's version chain stays in lockstep;
+    * **grid coherence** — every local header derives from the global one,
+      so all shards emit deltas in a round or none does.
+
+    ``ranges`` are the fleet topology's row ranges
+    (:func:`repro_torch.launch.topology.shard_ranges`), ``row_paths`` the
+    row-sharded manifest paths; other leaves replicate into every shard's
+    frame. Frames are byte-equal to the JAX package's ``ShardedSender``'s
+    for the same params sequence. ``faults`` takes a
+    :class:`repro_torch.serving.faults.FaultPlan`: frames pass through its
+    ``corrupt_frame(shard, frame)`` on the way out.
+    """
+
+    ranges: Any = None
+    row_paths: Tuple[str, ...] = ()
+    mode: str = "patch+quant"
+    version: int = 0
+    device: DeviceLike = None
+    faults: Any = None
+    _global: Optional[Sender] = None
+    _shard_senders: Optional[List[Sender]] = None
+
+    def __post_init__(self):
+        if not self.ranges:
+            raise ValueError("ShardedSender needs the fleet's shard ranges")
+        self.ranges = [(int(lo), int(hi)) for lo, hi in self.ranges]
+        self.row_paths = tuple(self.row_paths)
+        # the global sender carries the one wire-quantization grid; it never
+        # frames, so it keeps no _last buffer
+        self._global = Sender(mode=self.mode, device=self.device)
+        self._shard_senders = [Sender(mode=self.mode, device=self.device)
+                               for _ in self.ranges]
+
+    @property
+    def manifests(self) -> List[List[Dict[str, Any]]]:
+        """Per-shard local manifests (what each shard's receiver decodes
+        against); available after :meth:`prime` or the first
+        :meth:`make_updates`."""
+        return [s.manifest for s in self._shard_senders]
+
+    def _check_row_paths(self) -> None:
+        known = {e["path"] for e in self._global.manifest}
+        unknown = [p for p in self.row_paths if p not in known]
+        if unknown:
+            raise ValueError(f"row-sharded paths not in layout: {unknown}")
+
+    def prime(self, like_params) -> None:
+        """Publish the wire layout before any round is serialized (from the
+        shapes and dtypes of ``like_params``), so :attr:`manifests` can
+        configure the fleet's decode pipes before the first round."""
+        self._global._set_layout(layout.manifest_of(like_params))
+        self._check_row_paths()
+        for sender, (lo, hi) in zip(self._shard_senders, self.ranges):
+            sender.manifest, sender._leaf_info = self._local_layout(lo, hi)
+
+    def _spans(self, lo: int, hi: int):
+        """Per global leaf: ``(leaf info, first global element, element
+        count)`` of the shard's part (rows ``[lo, hi)`` of a row-sharded
+        leaf, the whole of any other)."""
+        for info in self._global._leaf_info:
+            path, elem_off, _, _, n, shape = info
+            if path in self.row_paths:
+                row_elems = n // max(shape[0], 1)
+                yield info, elem_off + lo * row_elems, (hi - lo) * row_elems
+            else:
+                yield info, elem_off, n
+
+    def _local_layout(self, lo: int, hi: int):
+        """The global manifest and leaf layout cut down to one shard, offsets
+        recomputed in the same sorted-path order."""
+        entries = {e["path"]: e for e in self._global.manifest}
+        manifest, info = [], []
+        byte_off = elem_off = 0
+        for (path, _, _, itemsize, n, shape), _, l_n in self._spans(lo, hi):
+            l_shape = ((hi - lo,) + tuple(shape[1:]) if path in self.row_paths
+                       else tuple(shape))
+            manifest.append({"path": path, "dtype": entries[path]["dtype"],
+                             "shape": list(l_shape), "offset": byte_off,
+                             "nbytes": l_n * itemsize})
+            info.append((path, elem_off, byte_off, itemsize, l_n, l_shape))
+            byte_off += l_n * itemsize
+            elem_off += l_n
+        return manifest, info
+
+    def _slice_fixed(self, cur: bytes, lo: int, hi: int,
+                     local_n: int) -> bytes:
+        """Shard-local fixed buffer: the global buffer's bytes of the
+        shard's spans, behind a local header (quant modes)."""
+        quant = "quant" in self.mode
+        chunks = []
+        if quant:
+            w_min, bucket, _, _ = struct.unpack_from(Q.HEADER_FMT, cur, 0)
+            chunks.append(struct.pack(Q.HEADER_FMT, w_min, bucket, local_n, 0))
+        for (_, elem_off, byte_off, itemsize, _, _), e0, m in \
+                self._spans(lo, hi):
+            if quant:
+                chunks.append(cur[Q.HEADER_SIZE + 2 * e0:
+                                  Q.HEADER_SIZE + 2 * (e0 + m)])
+            else:
+                b0 = byte_off + (e0 - elem_off) * itemsize
+                chunks.append(cur[b0: b0 + m * itemsize])
+        return b"".join(chunks)
+
+    def _slice_sidecar(self, sidecar: bytes, lo: int, hi: int) -> bytes:
+        """Shard-local outlier sidecar: the outliers inside the shard's
+        spans, remapped to local element indices."""
+        if not sidecar:
+            return b""
+        (n_out,) = struct.unpack_from("<Q", sidecar, 0)
+        idx = np.frombuffer(sidecar, "<u8", count=n_out, offset=8)
+        vals = np.frombuffer(sidecar, "<f4", count=n_out,
+                             offset=8 + 8 * n_out)
+        keep_idx, keep_vals = [], []
+        l_elem_off = 0
+        for _, g0, m in self._spans(lo, hi):
+            sel = (idx >= g0) & (idx < g0 + m)
+            if sel.any():
+                keep_idx.append(idx[sel] - g0 + l_elem_off)
+                keep_vals.append(vals[sel])
+            l_elem_off += m
+        if not keep_idx:
+            return b""
+        ki = np.concatenate(keep_idx).astype("<u8")
+        kv = np.concatenate(keep_vals).astype("<f4")
+        return struct.pack("<Q", ki.size) + ki.tobytes() + kv.tobytes()
+
+    def _local_touched(self, touched: Optional[Dict[str, Any]], lo: int,
+                       hi: int) -> Optional[Dict[str, Any]]:
+        """The trainer's touched rows intersected with ``[lo, hi)`` and
+        rebased to local rows. An empty intersection stays in the dict as an
+        empty set: "this leaf ships zero rows", not "this leaf is dense"."""
+        if touched is None:
+            return None
+        out = {}
+        for path, rows in touched.items():
+            if path in self.row_paths:
+                rows = _host_rows(rows)
+                rows = rows[(rows >= lo) & (rows < hi)] - lo
+            out[path] = rows
+        return out
+
+    def make_updates(self, params, version: Optional[int] = None,
+                     touched: Optional[Dict[str, Any]] = None
+                     ) -> List[Optional[bytes]]:
+        """One versioned update frame *per shard*, in shard order: per
+        shard what :meth:`Sender.make_update` makes of that shard's slice
+        of the weight space. ``touched`` rows are full-space. A fault plan
+        may turn a frame into ``None`` (dropped) or mangle its bytes."""
+        if version is not None and version <= self.version:
+            raise ValueError(
+                f"non-monotonic update version {version} (last shipped "
+                f"{self.version}); round stamps must strictly increase")
+        cur, sidecar = self._global._serialize(params)
+        self._check_row_paths()
+        frames = []
+        for sender, (lo, hi) in zip(self._shard_senders, self.ranges):
+            sender.manifest, sender._leaf_info = self._local_layout(lo, hi)
+            local_n = sum(info[4] for info in sender._leaf_info)
+            frames.append(sender._frame_from(
+                self._slice_fixed(cur, lo, hi, local_n),
+                self._slice_sidecar(sidecar, lo, hi),
+                self._local_touched(touched, lo, hi), version))
+        self.version = self.version + 1 if version is None else version
+        if self.faults is not None:
+            # each inner sender's chain already advanced, as for a frame
+            # lost on the wire after it was sent
+            frames = [self.faults.corrupt_frame(s, f)
+                      for s, f in enumerate(frames)]
+        return frames
+
+    def resync(self, shard: int) -> bytes:
+        """Answer a shard's NACK: a full frame rebuilt from that shard's
+        retained last-shipped slice (:meth:`Sender.resync_frame`)."""
+        return self._shard_senders[shard].resync_frame()
 
 
 def _upload_codes(q: np.ndarray, device: torch.device) -> torch.Tensor:

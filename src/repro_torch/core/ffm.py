@@ -41,10 +41,14 @@ def lr_specs(cfg: FFMConfig) -> Dict[str, ParamSpec]:
 
 
 def gather_rows(emb, idx: torch.Tensor) -> torch.Tensor:
-    """Embedding row gather: ``emb`` is the f32 table ``(V, F, k)`` or an
+    """Embedding row gather: ``emb`` is the f32 table ``(V, F, k)``, an
     int8 row-quantized table dict (``quantization.quantize_rows`` format),
     whose gathers go through ``kernels/row_gather`` (the gather-and-dequant
-    kernel on the card)."""
+    kernel on the card), or a sharded fleet's assembled view (an object
+    with ``gather_view``, ``serving.shard_router.ShardedRows``), which gathers
+    per owning shard into disjoint output rows."""
+    if hasattr(emb, "gather_view"):
+        return emb.gather_view(idx)
     if isinstance(emb, dict):
         from repro_torch.kernels.row_gather import ops as rg_ops
 
@@ -53,8 +57,11 @@ def gather_rows(emb, idx: torch.Tensor) -> torch.Tensor:
 
 
 def gather_lr(lr_w, idx: torch.Tensor) -> torch.Tensor:
-    """LR weight lookup: f32 vector ``(V,)`` or a blocked-int8 dict
-    (``quantization.quantize_blocks`` format), dequantized per element."""
+    """LR weight lookup: f32 vector ``(V,)``, a blocked-int8 dict
+    (``quantization.quantize_blocks`` format), dequantized per element, or
+    a sharded fleet's assembled view (``serving.shard_router.ShardedLR``)."""
+    if hasattr(lr_w, "gather_view"):
+        return lr_w.gather_view(idx)
     if isinstance(lr_w, dict):
         c = lr_w["codes"][idx].to(torch.float32)
         b = torch.div(idx, lr_w["block"], rounding_mode="floor")

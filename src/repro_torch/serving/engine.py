@@ -45,16 +45,41 @@ microbatch stack into one forward. Host-side request bookkeeping (tokens,
 dedup, chunking, scatter-back) is numpy, exactly as in the JAX engine; the
 tables, cached states and all scoring arithmetic live on the device.
 
-Waiting for later slices (ROADMAP.md Queue 1, "The parallel span pipeline
-and the host pre-gather" and "Fleet"): the host pre-gather, the parallel
-span pipeline, engine rotation, and ``deadline_ms``.
+**Parallel scoring.** ``InferenceEngine(parallel=N)`` splits a
+microbatch's deduped candidate chunks into contiguous per-worker spans, each
+padded to its own power-of-two row bucket, and pipelines them through a
+:class:`ScoringPool`: pool threads prepare span *k+1* (padding, stacking the
+context states) while the caller thread launches span *k*. Spans are
+launched and reassembled in fixed chunk order, every candidate forward's
+per-row output is invariant to the row bucket, and all spans score against
+the batch's one ``(params, generation)`` snapshot, so the scores are
+bit-identical for every worker count. Every span is enqueued on the
+caller's stream (the default stream), so the pipeline needs no
+cross-stream synchronization. A
+:class:`~repro_torch.serving.shard_router.ShardRouter` threads one shared
+pool through all its shards (``scoring_pool=``); shards and the router pin
+``parallel=1``, the router's parallelism being the shard fan-out.
+
+**Deadlines and degraded responses.** ``score_batch(deadline_ms=)``
+attaches a wall-clock budget that the ``ShardRouter`` plumbs through its
+scatter-gather: a slice with no answer at the deadline contributes zero
+rows, and the response is flagged (``ServeStats.last_degraded``,
+``degraded_responses``, ``deadline_misses``), never raised. A single engine
+never degrades: its one forward always runs to completion.
+
+Not ported (ROADMAP.md Queue 1, "The host pre-gather" and "Measurement
+tooling"): the host pre-gather (the engine always gathers candidate rows on
+the device), ``lower_candidates_forward`` and ``host_gather_bytes``.
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
 from collections import Counter, deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -94,6 +119,12 @@ class ServeStats:
     update_bytes: int = 0
     ctx_partials_full: int = 0
     ctx_tail_fields: int = 0
+    # fault-tolerance counters, set by the ShardRouter
+    degraded_responses: int = 0  # responses with >=1 zero-rows slice
+    deadline_misses: int = 0     # responses that gave a slice up at deadline
+    hedged_calls: int = 0        # shard calls re-issued to a sibling replica
+    failovers: int = 0           # shard calls recovered on a sibling after failure
+    last_degraded: bool = False  # the most recent response's degraded flag
     latency_window: int = 4096
     _latencies_s: Optional[deque] = field(default=None, repr=False)
 
@@ -109,14 +140,23 @@ class ServeStats:
         self._latencies_s.extend([seconds] * requests)
 
     def merge(self, other: "ServeStats") -> None:
-        """Fold another accumulator into this one (one merge per
-        caller-visible batch, under the engine lock)."""
+        """Fold another accumulator into this one: one merge per
+        caller-visible batch, under the engine lock, however many spans the
+        parallel pipeline scored (latency percentiles count requests, not
+        spans)."""
         self.requests += other.requests
         self.candidates += other.candidates
         self.rows_scored += other.rows_scored
         self.seconds += other.seconds
+        self.updates_applied += other.updates_applied
+        self.update_bytes += other.update_bytes
         self.ctx_partials_full += other.ctx_partials_full
         self.ctx_tail_fields += other.ctx_tail_fields
+        self.degraded_responses += other.degraded_responses
+        self.deadline_misses += other.deadline_misses
+        self.hedged_calls += other.hedged_calls
+        self.failovers += other.failovers
+        self.last_degraded = self.last_degraded or other.last_degraded
         self._latencies_s.extend(other._latencies_s)
 
     @property
@@ -148,6 +188,111 @@ class ServeStats:
 
 
 # ---------------------------------------------------------------------------
+# Parallel scoring pool
+# ---------------------------------------------------------------------------
+
+def auto_parallel_workers(cpu_count: Optional[int] = None) -> int:
+    """The policy of ``parallel=None``: 1 (off) on a single-core host,
+    otherwise one worker per core capped at 4."""
+    n = (os.cpu_count() if cpu_count is None else cpu_count) or 1
+    return 1 if n < 2 else min(int(n), 4)
+
+
+class ScoringPool:
+    """Persistent worker pool + buffer recycler (one per engine, created on
+    the first split batch; a ``ShardRouter`` builds its whole fleet around
+    one shared pool).
+
+    * :meth:`run` pipelines a burst's spans: *prepare* callables run on
+      pool threads while the caller thread runs each *dispatch* in fixed
+      span order, with a look-ahead of ``workers + 1`` spans.
+    * :meth:`acquire` / :meth:`release` recycle device buffers, at most two
+      per worker per (shape, dtype, device). A buffer released with the
+      CUDA event recorded after the last device work that touches it is
+      handed out again only once that event has completed, so a kernel
+      still in flight (a hedge loser's) never sees its buffer reused.
+    * :meth:`submit` is the raw executor, the router's fan-out.
+    """
+
+    def __init__(self, workers: int):
+        self.workers = max(1, int(workers))
+        self._ex = ThreadPoolExecutor(max_workers=self.workers,
+                                      thread_name_prefix="scoring-pool")
+        self._buffers: Dict[tuple, list] = {}  # guarded-by: _buf_lock
+        self._buf_lock = threading.Lock()
+        # secondary failures discarded by run()'s drain (the first error
+        # re-raises), latched so an aborted burst cannot hide them
+        self.drain_errors = 0
+        self.last_drain_error: Optional[BaseException] = None
+
+    def acquire(self, shape: tuple, dtype: torch.dtype,
+                device=None) -> torch.Tensor:
+        """A recycled buffer of this shape, dtype and device (fresh if none
+        is free). Waits on the event its last user released it with."""
+        dev = torch.device("cpu" if device is None else device)
+        key = (tuple(shape), dtype, dev)
+        with self._buf_lock:
+            free = self._buffers.get(key)
+            entry = free.pop() if free else None
+        if entry is None:
+            return torch.empty(shape, dtype=dtype, device=dev)
+        buf, event = entry
+        if event is not None:
+            event.synchronize()
+        return buf
+
+    def release(self, buf: torch.Tensor, event=None) -> None:
+        """Return a buffer to the free list. ``event``: the CUDA event
+        recorded after the last device work on ``buf`` (``None`` when no
+        device work is pending on it). Extras beyond the double-buffer depth
+        go back to the allocator."""
+        key = (tuple(buf.shape), buf.dtype, buf.device)
+        with self._buf_lock:
+            free = self._buffers.setdefault(key, [])
+            if len(free) < 2 * self.workers:
+                free.append((buf, event))
+
+    def submit(self, fn, *args):
+        """Raw executor submit: the ShardRouter's scatter-gather fan-out."""
+        return self._ex.submit(fn, *args)
+
+    def run(self, prepares: Sequence, dispatch) -> list:
+        """Pipeline ``prepares`` (pool threads, bounded look-ahead) against
+        ``dispatch`` (caller thread, fixed order); returns the dispatch
+        results in prepare order.
+
+        If a prepare or dispatch raises, the prepares still in flight are
+        drained (waited for, their errors counted) and the first error
+        re-raises, so an aborted burst leaves no future running into the
+        next batch. (The JAX pool also hands each drained result to a
+        cleanup that returns its host-gather buffer; spans here hold
+        none.)"""
+        window = self.workers + 1
+        pending: deque = deque()
+        out = []
+        try:
+            for prep in prepares:
+                pending.append(self._ex.submit(prep))
+                if len(pending) >= window:
+                    out.append(dispatch(pending.popleft().result()))
+            while pending:
+                out.append(dispatch(pending.popleft().result()))
+        except BaseException:
+            while pending:
+                try:
+                    pending.popleft().result()
+                except Exception as e:
+                    # the first error already propagates; count the rest
+                    self.drain_errors += 1
+                    self.last_drain_error = e
+            raise
+        return out
+
+    def shutdown(self) -> None:
+        self._ex.shutdown(wait=True)
+
+
+# ---------------------------------------------------------------------------
 # Scoring plan
 # ---------------------------------------------------------------------------
 
@@ -155,6 +300,9 @@ BACKENDS = ("reference", "cuda")
 
 # contexts recomputed per step of ``prewarm_contexts``
 PREWARM_CHUNK = 8
+# rows per call of the model head in the candidate forwards: the largest
+# block warmup's default buckets emit (8 rows x 64 candidates)
+HEAD_ROWS = 512
 
 
 class ScoringPlan:
@@ -247,10 +395,21 @@ def _finish_candidates(cfg: FFMConfig, model: str, params, cached,
     vec[:, :, xc] = pairs_xc
     vec[:, :, aa] = pairs_aa
 
-    lr_out = lr_ctx[:, None] + lr_cand + params["lr"]["b"]
-    logits = deepffm.head_from_parts(
-        cfg, params, lr_out.reshape(-1), vec.reshape(r * n, cfg.n_pairs), model)
-    return logits.reshape(r, n)
+    lr_out = (lr_ctx[:, None] + lr_cand + params["lr"]["b"]).reshape(-1)
+    vec = vec.reshape(r * n, cfg.n_pairs)
+    # the head runs on tiles of exactly HEAD_ROWS rows, the last one
+    # zero-padded: cuBLAS picks its GEMM kernel by the row count, so a row's
+    # logit would otherwise depend on how many rows share its call, and the
+    # span pipeline's splits (and the fleet's) would move scores
+    pad = (-(r * n)) % HEAD_ROWS
+    if pad:
+        lr_out = torch.cat([lr_out, lr_out.new_zeros(pad)])
+        vec = torch.cat([vec, vec.new_zeros((pad, cfg.n_pairs))])
+    logits = torch.cat([
+        deepffm.head_from_parts(cfg, params, lr_out[i:i + HEAD_ROWS],
+                                vec[i:i + HEAD_ROWS], model)
+        for i in range(0, lr_out.shape[0], HEAD_ROWS)])
+    return logits[:r * n].reshape(r, n)
 
 
 def batched_candidates_forward(cfg: FFMConfig, model: str, backend: str,
@@ -356,6 +515,11 @@ class InferenceEngine:
       only, whatever ``backend``). ``None`` (default) means staged: the JAX
       engine fuses automatically only where it pre-gathers candidate rows on
       the host, and this engine always gathers them on the device.
+    * ``parallel`` — worker count of the span pipeline (module docstring);
+      ``None`` resolves through :func:`auto_parallel_workers`. The default
+      is 1: the JAX engine's auto default overlaps its host pre-gather,
+      which this engine does not have. ``scoring_pool`` injects a shared
+      :class:`ScoringPool` (the ShardRouter's).
     """
 
     def __init__(self, cfg: FFMConfig, model: str = "deepffm", *,
@@ -366,7 +530,9 @@ class InferenceEngine:
                  warmup_buckets: Optional[Tuple[int, int]] = None,
                  quantized: bool = False,
                  prefix_depths: Optional[Sequence[int]] = None,
-                 fused: Optional[bool] = None):
+                 fused: Optional[bool] = None,
+                 parallel: Optional[int] = 1,
+                 scoring_pool: Optional[ScoringPool] = None):
         self.device = resolve_device(device)
         self.plan = ScoringPlan(cfg, model, backend=backend,
                                 min_bucket=min_bucket, fused=bool(fused))
@@ -383,8 +549,15 @@ class InferenceEngine:
         self.misses = 0  # guarded-by: _lock
         self.stats = ServeStats()  # guarded-by: _lock
         self.weights_version = 0  # trainer's stamp from the update frame
+        self.parallel = (auto_parallel_workers() if parallel is None
+                         else max(1, int(parallel)))
+        self._scoring_pool = scoring_pool  # guarded-by: _lock
+        self._owns_pool = scoring_pool is None
         self._pipe: Optional[UpdatePipe] = None  # guarded-by: _pipe_lock
         self._pipe_lock = threading.Lock()
+        # score_batch(deadline_ms=)'s absolute time.monotonic() budget,
+        # per thread: concurrent scorers carry their own budgets
+        self._deadline_tl = threading.local()
         if warmup_buckets is not None and params is not None:
             self.warmup(max_requests=warmup_buckets[0],
                         max_candidates=warmup_buckets[1])
@@ -438,6 +611,25 @@ class InferenceEngine:
             return 0
 
         return nbytes(self.params)
+
+    def suggest_checkpoint_depths(self, max_depths: int = 4,
+                                  min_share: float = 0.05) -> List[int]:
+        """Checkpoint depths adapted to observed traffic: the intermediate
+        depths of :attr:`prefix_hit_depths` carrying at least ``min_share``
+        of the intermediate hits (at most ``max_depths`` of them), plus the
+        full depth. The current set when no intermediate depth was reused.
+        Feed it to a new engine's ``prefix_depths`` (:meth:`rotate`)."""
+        fc = self.cfg.context_fields
+        with self._lock:  # scorer threads insert histogram keys under it
+            hist = dict(self._cache.hit_depths)
+            current = self._cache.checkpoint_depths()
+        inter = {d: c for d, c in hist.items() if 0 < d < fc and c > 0}
+        total = sum(inter.values())
+        if not total:
+            return current
+        ranked = sorted(inter.items(), key=lambda dc: (-dc[1], dc[0]))
+        keep = [d for d, c in ranked if c / total >= min_share][:max_depths]
+        return sorted(set(keep) | {fc})
 
     # -- weight management (§3 / §6) ---------------------------------------
     def _maybe_quantize(self, params, prev=None, touched_rows=None):
@@ -731,21 +923,43 @@ class InferenceEngine:
             if a.size and (a.min() < 0 or a.max() >= v):
                 raise ValueError(f"feature index out of range [0, {v})")
 
-    def score(self, ctx_idx, ctx_val, cand_idx, cand_val) -> np.ndarray:
+    def score(self, ctx_idx, ctx_val, cand_idx, cand_val, *,
+              deadline_ms: Optional[float] = None) -> np.ndarray:
         """Score one request's candidates against its context. Returns logits (N,)."""
-        return self.score_batch([(ctx_idx, ctx_val, cand_idx, cand_val)])[0]
+        return self.score_batch([(ctx_idx, ctx_val, cand_idx, cand_val)],
+                                deadline_ms=deadline_ms)[0]
 
-    def score_batch(self, requests: Sequence[Tuple]) -> List[np.ndarray]:
+    def _deadline(self) -> Optional[float]:
+        """This thread's in-flight ``time.monotonic()`` budget (``None``:
+        unbounded), read by the ShardRouter's scatter-gather waits."""
+        return getattr(self._deadline_tl, "until", None)
+
+    def score_batch(self, requests: Sequence[Tuple], *,
+                    deadline_ms: Optional[float] = None) -> List[np.ndarray]:
         """Microbatch several (ctx_idx, ctx_val, cand_idx, cand_val) requests.
 
         Contexts are resolved through the prefix cache; identical
         ``(context, candidate)`` rows across the microbatch are scored once
         and scattered back (``dedup=True``). The scored rows are padded to
-        one power-of-two candidate bucket and a power-of-two row axis, so the
-        whole batch is one forward over a closed set of shapes. Scores are
-        computed against exactly one atomically published (params,
-        generation) snapshot.
+        one power-of-two candidate bucket and power-of-two row spans, so
+        every forward runs over a closed set of shapes. Scores are computed
+        against exactly one atomically published (params, generation)
+        snapshot.
+
+        ``deadline_ms`` attaches a wall-clock budget to this batch: a plain
+        engine's forward always runs to completion, a fan-out engine
+        (ShardRouter) bounds its scatter-gather waits by it and zero-fills
+        the slices that cannot answer in time, flagging the response.
         """
+        if deadline_ms is None:
+            return self._score_batch(requests)
+        self._deadline_tl.until = time.monotonic() + deadline_ms / 1e3
+        try:
+            return self._score_batch(requests)
+        finally:
+            self._deadline_tl.until = None
+
+    def _score_batch(self, requests: Sequence[Tuple]) -> List[np.ndarray]:
         self._require_params()
         if not requests:
             return []
@@ -857,18 +1071,17 @@ class InferenceEngine:
         row_of_u = chunk_base[u_group] + pos // nb
         slot_of_u = pos % nb
 
-        # (rb, nb, Fcand) candidate blocks padded to the power-of-two row
-        # bucket; padded rows and slots are inert (their outputs are never read)
-        rb = self.plan.bucket(n_chunks, minimum=1)
-        ki_c = np.zeros((rb, nb, fcand), np.int32)
-        kv_c = np.zeros((rb, nb, fcand), np.float32)
+        # unpadded (n_chunks, nb, Fcand) candidate blocks; the span scorer
+        # pads each contiguous chunk span to its own power-of-two row bucket
+        # (padded rows and slots are inert: their outputs are never read)
+        ki_c = np.zeros((n_chunks, nb, fcand), np.int32)
+        kv_c = np.zeros((n_chunks, nb, fcand), np.float32)
         ki_c[row_of_u, slot_of_u] = ki_all[first]
         kv_c[row_of_u, slot_of_u] = kv_all[first]
         chunk_group = np.repeat(np.arange(n_groups), chunks_per_g)
-        stacked = self._stack_states([group_state[g] for g in chunk_group], rb)
-        fwd = self._candidates_forward(params, stacked, ki_c, kv_c)
-        out, ctx_dots = fwd if self.fused else (fwd, None)
-        out = out.cpu().numpy()[:n_chunks]
+        chunk_state = [group_state[g] for g in chunk_group]
+        out, ctx_dots = self._score_spans(params, chunk_state, ki_c, kv_c,
+                                          self._plan_spans(n_chunks))
         if self.fused:
             self._insert_fused_misses(u_ctxs, states, insert_info,
                                       chunk_group, u_of, ctx_dots, generation)
@@ -882,6 +1095,85 @@ class InferenceEngine:
         with self._lock:
             self.stats.merge(batch_stats)
         return results
+
+    # -- parallel scoring pipeline ------------------------------------------
+    def _get_pool(self) -> ScoringPool:
+        """The engine's scoring pool: created on the first split batch, or
+        the shared one injected through ``scoring_pool=``."""
+        if self._scoring_pool is None:
+            with self._lock:
+                if self._scoring_pool is None:
+                    self._scoring_pool = ScoringPool(self.parallel)
+        return self._scoring_pool
+
+    def close(self) -> None:
+        """Shut down the engine-owned scoring pool (a shared injected pool
+        is its owner's to close). Idempotent; a later split batch creates a
+        new pool."""
+        pool, self._scoring_pool = self._scoring_pool, None
+        if pool is not None and self._owns_pool:
+            pool.shutdown()
+        self._owns_pool = True
+
+    def _plan_spans(self, n_chunks: int) -> List[Tuple[int, int]]:
+        """Split ``[0, n_chunks)`` into contiguous near-equal per-worker
+        spans; each pads to ``plan.bucket(span_len)``, a bucket of the
+        closed set :meth:`warmup` runs."""
+        w = self.parallel
+        if w <= 1 or n_chunks <= 1:
+            return [(0, n_chunks)]
+        w = min(w, n_chunks)
+        base, rem = divmod(n_chunks, w)
+        spans, lo = [], 0
+        for i in range(w):
+            hi = lo + base + (1 if i < rem else 0)
+            spans.append((lo, hi))
+            lo = hi
+        return spans
+
+    def _score_spans(self, params, chunk_state, ki_c, kv_c, spans):
+        """Score contiguous chunk spans and reassemble ``(logits (n_chunks,
+        nb) on the host, ctx_dots (n_chunks, Fc, Fc) on the device | None)``
+        in fixed chunk order. One span runs inline; several run through the
+        :class:`ScoringPool` (prepare of span *k+1* on a pool thread while
+        this thread launches span *k*). Every span pads to its own bucket
+        and is sliced back, and the forwards' per-row outputs are invariant
+        to the row bucket, so the result is bit-identical for every worker
+        count."""
+        def pad_rows(x, rb_s, m):
+            if rb_s == m:
+                return x
+            return np.concatenate(
+                [x, np.zeros((rb_s - m,) + x.shape[1:], x.dtype)])
+
+        def prepare(lo, hi):
+            m = hi - lo
+            rb_s = self.plan.bucket(m, minimum=1)
+            return (self._stack_states(chunk_state[lo:hi], rb_s),
+                    pad_rows(ki_c[lo:hi], rb_s, m),
+                    pad_rows(kv_c[lo:hi], rb_s, m), m)
+
+        def dispatch(prepared):
+            stacked, ki_b, kv_b, m = prepared
+            fwd = self._candidates_forward(params, stacked, ki_b, kv_b)
+            if self.fused:
+                return fwd[0][:m], fwd[1][:m]
+            return fwd[:m], None
+
+        if len(spans) == 1:
+            parts = [dispatch(prepare(*spans[0]))]
+        else:
+            parts = self._get_pool().run(
+                [partial(prepare, lo, hi) for lo, hi in spans], dispatch)
+        out = torch.cat([p[0] for p in parts]) if len(parts) > 1 \
+            else parts[0][0]
+        dots = None
+        if self.fused:
+            dots = torch.cat([p[1] for p in parts]) if len(parts) > 1 \
+                else parts[0][1]
+        out = out.cpu().numpy()
+        assert out.shape[0] == ki_c.shape[0]
+        return out, dots
 
     def _stack_states(self, chunk_state: List[Dict], rb: int) -> Dict:
         """Stack per-chunk context states along a new row axis, zero-padded
@@ -950,6 +1242,7 @@ class InferenceEngine:
         ``max_candidates`` candidates each, so the kernel build and every
         first launch happen before traffic. Returns the number of calls."""
         self._require_params()
+        self._warmed_buckets = (max_requests, max_candidates)
         params, _ = self._weights
         calls = 0
         for rb in self.plan.buckets_upto(max_requests, minimum=1):
@@ -959,6 +1252,39 @@ class InferenceEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return calls
+
+    _warmed_buckets: Optional[Tuple[int, int]] = None  # rotate() re-warms these
+
+    def rotate(self, *, max_depths: int = 4, min_share: float = 0.05,
+               warmup_buckets: Optional[Tuple[int, int]] = None
+               ) -> "InferenceEngine":
+        """Build a warmed successor engine adapted to observed traffic: the
+        prefix cache's checkpoint depths from
+        :meth:`suggest_checkpoint_depths`, the published params shared by
+        reference (quantized tables are adopted, not requantized), the
+        generation counter and trainer version carried forward, and the
+        warmup bucket set this engine ran (``warmup_buckets`` overrides).
+        All of it off the request path; the caller publishes the successor
+        (``ShardRouter.rotate_shard`` is that swap)."""
+        self._require_params()
+        depths = self.suggest_checkpoint_depths(max_depths=max_depths,
+                                                min_share=min_share)
+        succ = InferenceEngine(
+            self.cfg, self.model, backend=self.backend, device=self.device,
+            cache_entries=self.cache_entries,
+            min_bucket=self.plan.min_bucket, dedup=self.dedup,
+            quantized=self.quantized, prefix_depths=depths,
+            fused=self.fused, parallel=self.parallel)
+        succ.weights_version = self.weights_version
+        # adopt the published tree by reference and keep the generation
+        # monotonic across the swap; written under the successor's lock so
+        # the adoption happens-before any read after it is published
+        with succ._lock:
+            succ._weights = (self.params, self.generation)
+        buckets = warmup_buckets or self._warmed_buckets
+        if buckets is not None:
+            succ.warmup(max_requests=buckets[0], max_candidates=buckets[1])
+        return succ
 
     def score_uncached(self, ctx_idx, ctx_val, cand_idx, cand_val,
                        use_backend: bool = False) -> torch.Tensor:

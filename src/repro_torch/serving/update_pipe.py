@@ -147,8 +147,8 @@ class UpdatePipe:
         self._thread_lock = threading.Lock()
         self._closed = False  # guarded-by: _pending_cv
         self._dead = False  # kill(): frames dropped; guarded-by: _pending_cv
-        # fault-injection hook: always None until the fleet's FaultPlan is
-        # ported
+        # fault-injection hook (serving.faults.FaultPlan): every ingest calls
+        # its on_ingest first; None (the default) costs nothing
         self.faults = None
         # quantize-on-ingest: the last qparams THIS pipe published (the
         # engine's current params in the normal flow — no extra copy); the

@@ -64,8 +64,8 @@ class RoundReport:
     examples_per_s: float = 0.0
     skip_stats: Dict[str, float] = field(default_factory=dict)
     touched_rows: int = 0    # unique embedding/LR rows updated this round
-    update_kind: str = "full"  # full | patch | delta
-    update_seconds: float = 0.0  # of ``seconds``: Sender.make_update
+    update_kind: str = "full"  # full | patch | delta (| dropped | corrupt)
+    update_seconds: float = 0.0  # of ``seconds``: make_update(s)
 
 
 @dataclass
@@ -477,6 +477,11 @@ class TrainingPipeline:
     update ``params`` and ``opt_state`` in place; ``local_sgd`` replaces
     them with the merge each round. ``hogwild_threads`` and
     ``local_sgd_workers`` size those two backends.
+
+    ``shard_ranges`` (a fleet topology's contiguous row ranges) turns the
+    update channel into a fan-out: ``run_round`` returns one frame per shard
+    (:class:`~repro_torch.checkpoint.transfer.ShardedSender`, shard order)
+    instead of one full-space frame.
     """
 
     def __init__(self, cfg: FFMConfig, model: str = "deepffm",
@@ -484,7 +489,7 @@ class TrainingPipeline:
                  transfer_mode: str = "patch+quant",
                  delta_updates: bool = True, seed: int = 0,
                  hogwild_threads: int = 4, local_sgd_workers: int = 2,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, shard_ranges=None):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
         self.cfg, self.model, self.lr = cfg, model, lr
@@ -494,7 +499,18 @@ class TrainingPipeline:
         self.params = deepffm.init_params(cfg, seed, model, self.device)
         self.opt = make_optimizer("adagrad", lr=lr)
         self.opt_state = self.opt.init(self.params)
-        self.sender = transfer.Sender(mode=transfer_mode, device=self.device)
+        if shard_ranges is not None:
+            row_paths = sorted({"lr/w"} | ({emb_leaf_path(model)}
+                                           if emb_leaf_path(model) else set()))
+            self.sender = transfer.ShardedSender(
+                ranges=shard_ranges, row_paths=row_paths, mode=transfer_mode,
+                device=self.device)
+            # publish the wire layout now, so sender.manifests configures the
+            # fleet's decode pipes before the first round
+            self.sender.prime(self.params)
+        else:
+            self.sender = transfer.Sender(mode=transfer_mode,
+                                          device=self.device)
         self.reports: List[RoundReport] = []
         if backend == "jit":
             self.backend = JitBackend(cfg, model, self.opt)
@@ -511,8 +527,9 @@ class TrainingPipeline:
         """The AdaGrad accumulator."""
         return self.opt_state["acc"]
 
-    def run_round(self, batches: Iterable[Dict[str, Any]]) -> bytes:
-        """One online round; returns the versioned update frame."""
+    def run_round(self, batches: Iterable[Dict[str, Any]]):
+        """One online round; returns the versioned update frame, or the
+        per-shard ``List[bytes]`` (shard order) of a fan-out pipeline."""
         t0 = time.perf_counter()
         batch_list = list(Prefetcher(batches, depth=PREFETCH_DEPTH))
         self.params, self.opt_state, m = self.backend.run(
@@ -523,8 +540,26 @@ class TrainingPipeline:
         # the serving engine tracks it as weights_version
         version = len(self.reports) + 1
         t1 = time.perf_counter()
-        update = self.sender.make_update(self.params, version=version,
-                                         touched=touched or None)
+        if isinstance(self.sender, transfer.ShardedSender):
+            # one frame per shard, one version stamp on all; a fault plan
+            # may drop or mangle a frame: the report counts the surviving
+            # frames' bytes and the kind of the first that decodes
+            update = self.sender.make_updates(self.params, version=version,
+                                              touched=touched or None)
+            shipped = [u for u in update if u is not None]
+            update_bytes = sum(len(u) for u in shipped)
+            kind = "dropped"
+            for u in shipped:
+                try:
+                    kind = _KIND_NAMES[transfer.unframe(u).kind]
+                    break
+                except transfer.FrameError:
+                    kind = "corrupt"
+        else:
+            update = self.sender.make_update(self.params, version=version,
+                                             touched=touched or None)
+            update_bytes = len(update)
+            kind = _KIND_NAMES[transfer.unframe(update).kind]
         t2 = time.perf_counter()
         skip = (sparse_updates.skip_stats_from_col_alive(m.col_alive)
                 if m.col_alive else {})
@@ -534,10 +569,10 @@ class TrainingPipeline:
             progressive_auc=roc_auc(np.concatenate(m.labels),
                                     np.concatenate(m.scores))
             if m.labels else 0.5,
-            update_bytes=len(update),
+            update_bytes=update_bytes,
             examples_per_s=m.examples / max(t2 - t0, 1e-9),
             skip_stats=skip, touched_rows=n_rows,
-            update_kind=_KIND_NAMES[transfer.unframe(update).kind],
+            update_kind=kind,
             update_seconds=t2 - t1,
         ))
         return update

@@ -39,6 +39,11 @@ from repro_torch.serving.engine import InferenceEngine
 from repro_torch.train import hogwild
 from repro_torch.train.pipeline import JitBackend, TrainingPipeline
 
+from _torch_lockcheck import torch_lock_witness  # noqa: F401
+
+# every serving object these tests build runs under the port's lock witness
+pytestmark = pytest.mark.usefixtures("torch_lock_witness")
+
 CFG = FFMConfig(n_fields=8, context_fields=4, hash_space=2**12, k=4,
                 mlp_hidden=(16, 8))
 JCFG = JFFMConfig(**CFG.__dict__)

@@ -42,6 +42,7 @@ from repro_torch.serving.engine import InferenceEngine
 from repro_torch import quickstart
 from repro_torch.serving.context_cache import CachedServer
 from repro_torch.serving.server import FFMServer, LLMServer
+from repro_torch.serving.shard_router import ShardRouter
 from repro_torch.train.hogwild import HogwildTrainer
 from repro_torch.train.loop import OnlineTrainer
 from repro_torch.train.pipeline import TrainingPipeline
@@ -108,7 +109,12 @@ def test_port_file_list_is_complete():
                 "repro_torch/launch/serve.py",
                 "repro_torch/serving/context_cache.py",
                 "repro_torch/train/hogwild.py",
-                "repro_torch/quickstart.py"):
+                "repro_torch/quickstart.py",
+                "repro_torch/analysis/lock_order.py",
+                "repro_torch/analysis/lock_witness.py",
+                "repro_torch/launch/topology.py",
+                "repro_torch/serving/faults.py",
+                "repro_torch/serving/shard_router.py"):
         assert mod in names
     sources = {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu")}
     assert sources == {"row_gather.cu", "ffm_interaction.cu",
@@ -180,6 +186,13 @@ def test_card_is_the_default():
     for backend in ("hogwild", "local_sgd"):
         with pytest.raises(RuntimeError, match="CUDA"):
             TrainingPipeline(cfg, backend=backend)
+    # the fleet: the router's shards, the fan-out trainer and its sender
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardRouter(cfg, n_shards=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TrainingPipeline(cfg, shard_ranges=[(0, 512), (512, 1024)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.ShardedSender(ranges=[(0, 3)]).make_updates(params)
     # the LLM side: weights and the server go to the card unless told
     llm = llama32_1b.smoke()
     with pytest.raises(RuntimeError, match="CUDA"):
