@@ -44,10 +44,37 @@ Phases, each of which raises on failure (nothing is caught):
    windows); ``scaled_dot_product_attention`` is timed beside it as the
    library yardstick, never used on the path, and K11's time is printed as
    a multiple of it. Phase 1 prints the bf16 body's ptxas registers and
-   spills per head dim.
-3. The main paths at full width (``FFMConfig()``, V = 2^18, random weights
-   from a seed), all driven by the same microbatches (4 of 8 requests with
-   16-64 candidates each):
+   spills per head dim. The other families' prefill layers at D = 128 run
+   the same way in bf16 (B=4, S=1024; 32 / 8 heads, phi3.5-moe and
+   granite-8b, and 16 / 2, qwen2.5-3b), the 8:1 one also in f32; their
+   records ride on the main shape's (``"d128"``).
+3. The LLM families first, while the card's memory is free, at full width
+   with bf16 weights from the seed, one server at a time, each freed before
+   the next:
+   - granite-8b, yi-6b, qwen2.5-3b and chameleon-34b at full depth (the
+     run fails if a model's weights, cache and ``FAMILY_MARGIN_BYTES`` do
+     not fit the free memory; every depth is printed as "n of N layers"):
+     ``LLMServer.generate`` on
+     4 prompts of 1024 tokens, 16 new, after one warm-up call; K11 exactly
+     once per layer; tokens in range and equal to the warm-up's; prefill
+     ms, decode ms per step and peak allocation printed.
+   - phi3.5-moe at 16 of 32 layers (the full 83.8 GB does not fit):
+     ``generate`` on 4 prompts of 128 tokens by the stepwise warm-up, K11
+     never; then ``transformer.prefill`` on the same prompts, K11 once per
+     layer.
+   - The f32 oracle of each of the five at 2 layers (B=2, P=64): the
+     prefill's last logits and cache (through K11) against stepwise
+     ``decode_step``s (never through K11), rel < ``ORACLE_REL``. For phi
+     the routers are watched on both paths: the smallest gap between the
+     k-th and (k+1)-th probability and the tokens whose chosen experts
+     differ are printed; such a token fails where the gap exceeds
+     ``ROUTER_TIE``.
+   - The int8 cache on a 2-layer qwen2.5-3b: ``generate`` by the stepwise
+     warm-up (K11 never); k / v int8; the last logits of stepwise decode
+     over 4 x 128 prompt tokens within ``INT8_REL`` of the native cache's.
+   Then the FFM main paths at full width (``FFMConfig()``, V = 2^18, random
+   weights from a seed), all driven by the same microbatches (4 of 8
+   requests with 16-64 candidates each):
    - staged: an int8 and an f32 DeepFFM ``InferenceEngine`` with
      ``backend="cuda"`` answer the microbatches, then
      ``score_uncached(use_backend=True)`` runs on every request. Every score
@@ -153,11 +180,12 @@ Phases, each of which raises on failure (nothing is caught):
      1e-4 (``ORACLE_REL``).
    Every kernel's launch counter must have risen during these runs.
 4. Where the time goes: one more microbatch per engine (and per staged
-   ``"ffm"`` twin) and on the N = 4 fleet, one training microbatch, 8 Hogwild microbatches at 1
-   and at 4 threads, one LLM prefill and one decode step under
-   torch.profiler (kernels launched, device-busy time against
-   wall time, top kernels; for training K10's share, for the prefill
-   K11's).
+   ``"ffm"`` twin) and on the N = 4 fleet, one training microbatch, 8
+   Hogwild microbatches at 1 and at 4 threads, one LLM prefill and one
+   decode step (and, in the families phase while their weights are on the
+   card, one granite-8b prefill and one phi3.5-moe decode step) under
+   torch.profiler (kernels launched, device-busy time against wall time,
+   top kernels; for training K10's share, for the prefills K11's).
 
 The second-to-last lines are the kernels' JSON record and the nvidia-smi
 line; the last line is ``{"ok": true, "device": {...}}``. Without a card (or
@@ -223,6 +251,10 @@ FLASH_SWEEP = ((2, 64, 4, 4, 16, True, 0), (2, 100, 8, 2, 32, True, 0),
                (2, 200, 4, 2, 128, True, 0), (2, 70, 4, 1, 64, False, 33),
                (1, 1000, 32, 8, 64, True, 0), (2, 300, 8, 2, 128, True, 0),
                (2, 40, 4, 4, 64, True, 0), (2, 257, 4, 1, 32, True, 100))
+# K11 at the other families' prefill shapes (B and S of the LLM phase,
+# D = 128): (query heads, KV heads) of phi3.5-moe / granite-8b (4:1) and of
+# qwen2.5-3b (8:1)
+FLASH_D128_HEADS = ((32, 8), (16, 2))
 # K4 against its plain version: test_kernels.py::test_ffm_interaction_sweep's
 # shapes and tolerances (rtol, atol), then F = 64, K = 16, whose (F, F, K)
 # f32 block would not fit in one CTA's shared memory (262,400 > 232,448 B)
@@ -234,6 +266,29 @@ K4_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (5e-2, 5e-1)}
 # rounding anywhere on the f32 path gives ~1e-3, so the bound sits between
 # (test_archs.py's decode-vs-forward bound, 5e-3, covers every family)
 ORACLE_REL = 1e-4
+# the LLM families phase: served batch, prompt length and new tokens of
+# granite-8b, yi-6b, qwen2.5-3b and chameleon-34b (full width, bf16 weights
+# from the seed); phi3.5-moe's prompt length and depth (16 of its 32 layers:
+# the full 83.8 GB of bf16 weights exceed the card's 80 GB); the f32
+# oracles' batch, prompt length and depth; the int8 cache's batch and prompt
+# length on a 2-layer qwen2.5-3b. The rehearsal runs each smoke() config
+FAMILIES_FULL = {"batch": 4, "prompt": 1024, "gen": 16, "phi_prompt": 128,
+                 "phi_layers": 16, "oracle": (2, 64), "oracle_layers": 2,
+                 "int8": (4, 128)}
+FAMILIES_TINY = {"batch": 2, "prompt": 16, "gen": 4, "phi_prompt": 8,
+                 "phi_layers": 2, "oracle": (2, 12), "oracle_layers": 2,
+                 "int8": (2, 12)}
+PHI = "phi3.5-moe-42b-a6.6b"
+FAMILY_ARCHS = ("granite-8b", "yi-6b", "qwen2.5-3b", "chameleon-34b", PHI)
+# a router flip between the oracle's two paths fails where the k-th and
+# (k+1)-th probability differ by more than this (a near tie is printed)
+ROUTER_TIE = 1e-5
+# the int8 cache's last logits against the native cache's
+# (test_archs.py::test_int8_kv_cache_decode), as a share of max |logit|
+INT8_REL = 0.05
+# room kept free beside a family's weights and cache (the prefill's
+# activations, cuBLAS' workspaces)
+FAMILY_MARGIN_BYTES = 3 * 2**30
 # bf16's unit roundoff (8 significant bits)
 BF16_U = 2.0 ** -8
 
@@ -578,9 +633,11 @@ def main(argv=None) -> int:
 
     def kernel_case(name, source, replaces, fn, plain, tol, bytes_moved,
                     flops, shape, library=None, eager=False,
-                    peak_flops=PEAK_F32_FLOPS):
-        """``eager``: time eager calls (for kernels long next to a launch,
-        whose plain versions would fill a captured graph's memory pool)."""
+                    peak_flops=PEAK_F32_FLOPS, into=None):
+        """Appends the kernel's record to ``into`` (``kernels`` by default)
+        and returns it. ``eager``: time eager calls (for kernels long next
+        to a launch, whose plain versions would fill a captured graph's
+        memory pool)."""
         timed = call_ms if eager else device_ms
         got, want = fn(), plain()
         if on_card:
@@ -596,19 +653,20 @@ def main(argv=None) -> int:
                   f"(max abs err {err:.3e}, tolerance {tol})")
         b_ms, b_by = bound(bytes_moved, flops, peak_flops)
         rec = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "launches": 0, "max_abs_err": err,
+               "replaces": replaces, "max_abs_err": err,
                "ms": timed(fn), "plain_ms": timed(plain),
                "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": timed(library) if library else None,
                "call_ms": call_ms(fn), "plain_call_ms": call_ms(plain),
                "bytes": bytes_moved, "shape": shape, "tolerance": tol}
-        kernels.append(rec)
+        (kernels if into is None else into).append(rec)
         rate = ("not measured" if rec["ms"] is None
                 else f"{bytes_moved / rec['ms'] / 1e6:.1f} GB/s")
         print(f"kernel {name} {shape}: max abs err {err:.3e} (tol {tol}) | "
               f"device {rec['ms']} ms, per call {rec['call_ms']} ms | plain "
               f"{rec['plain_ms']} ms | {bytes_moved} bytes ({rate}) | bound "
               f"{b_ms:.3e} ms ({b_by})")
+        return rec
 
     # the launch floor: a CUDA graph node that does no work worth the name
     # (zero_() of one f32), timed as device_ms times a kernel. A yardstick
@@ -1095,60 +1153,84 @@ def main(argv=None) -> int:
         return (randn(b, s_, h, d).to(dtype), randn(b, s_, kv_, d).to(dtype),
                 randn(b, s_, kv_, d).to(dtype))
 
-    fq, fk, fv = qkv(fa_b, fa_s, fa_h, fa_kv, fa_d, torch.bfloat16)
-    fa_io = 2 * (2 * fq.numel() + fk.numel() + fv.numel())
-    fa_flops = 4 * fa_d * fa_b * fa_h * attention_pairs(fa_s, fa_s, True, 0)
-    # the library yardstick: PyTorch's fused attention on (B, H, S, D)
-    # copies made outside the timed region
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lq, lk, lv = (t.transpose(1, 2).contiguous() for t in (fq, fk, fv))
-    if "enable_gqa" in (sdpa.__doc__ or ""):
-        def library():
-            return sdpa(lq, lk, lv, is_causal=True, enable_gqa=True)
-    else:
-        lk, lv = (t.repeat_interleave(fa_h // fa_kv, dim=1) for t in (lk, lv))
 
-        def library():
-            return sdpa(lq, lk, lv, is_causal=True)
-    kernel_case(
-        "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-        "src/repro/kernels/flash_attention/flash_attention.py:85",
-        lambda: fa_ops.flash_attention(fq, fk, fv),
-        lambda: fa_ref.flash_attention_ref(fq, fk, fv),
-        (FLASH_TOL["bfloat16"],) * 2, fa_io, fa_flops,
-        [fa_b, fa_s, fa_h, fa_kv, fa_d], library=library, eager=True,
-        peak_flops=PEAK_BF16_TENSOR_FLOPS)
-    rec = kernels[-1]
-    if on_card:
-        print(f"kernel flash_attention bf16 {[fa_b, fa_s, fa_h, fa_kv, fa_d]}:"
-              f" {rec['ms']:.4f} ms against scaled_dot_product_attention's "
-              f"{rec['library_ms']:.4f} ms in this run: "
-              f"{rec['ms'] / rec['library_ms']:.2f}x its time | "
-              f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of the bound | {smi}")
-    fa_want = fa_ref.flash_attention_ref(fq, fk, fv)
-    elem, row = check_flash_bf16(fa_ops.flash_attention(fq, fk, fv), fa_want,
-                                 fq, fk, fv, "flash_attention bf16 main path")
-    lib = flash_bf16_errors(library().transpose(1, 2), fa_want, fq, fk, fv)
-    print(f"kernel flash_attention bf16 {[fa_b, fa_s, fa_h, fa_kv, fa_d]}: "
-          f"worst element {elem:.3f} of 2u(A + |o|), worst row {row:.3f} of "
-          f"4u |o| (u = 2^-8); scaled_dot_product_attention vs the plain "
-          f"version: max abs err {max_err(library().transpose(1, 2), fa_want):.3e}"
-          f", {lib[0]:.3f} / {lib[1]:.3f} of the same bounds (the yardstick, "
-          "not checked)")
-    del fa_want
-    del fq, fk, fv, lq, lk, lv
-    fq, fk, fv = qkv(fa_b, fa_s, fa_h, fa_kv, fa_d, torch.float32)
-    got = fa_ops.flash_attention(fq, fk, fv)
-    err = max_err(got, fa_ref.flash_attention_ref(fq, fk, fv))
-    check(err <= FLASH_TOL["float32"],
-          f"flash_attention f32 {[fa_b, fa_s, fa_h, fa_kv, fa_d]}: max abs "
-          f"err {err:.3e} > {FLASH_TOL['float32']}")
-    f32_bound, f32_by = bound(2 * fa_io, fa_flops)
-    print(f"kernel flash_attention f32 {[fa_b, fa_s, fa_h, fa_kv, fa_d]}: max "
-          f"abs err {err:.3e} (tol {FLASH_TOL['float32']}) | device "
-          f"{call_ms(lambda: fa_ops.flash_attention(fq, fk, fv))} ms | bound "
-          f"{f32_bound:.3e} ms ({f32_by}, f32 peak)")
-    del fq, fk, fv, got
+    def flash_bf16_case(b_, s_, h, kv_, d, into=None):
+        """K11's bf16 body at one prefill layer's shape, timed beside
+        scaled_dot_product_attention, held to 3e-2 and to the roundoff
+        bounds; its record goes to ``into`` as :func:`kernel_case` puts
+        it."""
+        fq, fk, fv = qkv(b_, s_, h, kv_, d, torch.bfloat16)
+        fa_io = 2 * (2 * fq.numel() + fk.numel() + fv.numel())
+        fa_flops = 4 * d * b_ * h * attention_pairs(s_, s_, True, 0)
+        # the library yardstick: PyTorch's fused attention on (B, H, S, D)
+        # copies made outside the timed region
+        lq, lk, lv = (t.transpose(1, 2).contiguous() for t in (fq, fk, fv))
+        if "enable_gqa" in (sdpa.__doc__ or ""):
+            def library():
+                return sdpa(lq, lk, lv, is_causal=True, enable_gqa=True)
+        else:
+            lk, lv = (t.repeat_interleave(h // kv_, dim=1) for t in (lk, lv))
+
+            def library():
+                return sdpa(lq, lk, lv, is_causal=True)
+        shape = [b_, s_, h, kv_, d]
+        rec = kernel_case(
+            "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:85",
+            lambda: fa_ops.flash_attention(fq, fk, fv),
+            lambda: fa_ref.flash_attention_ref(fq, fk, fv),
+            (FLASH_TOL["bfloat16"],) * 2, fa_io, fa_flops, shape,
+            library=library, eager=True, peak_flops=PEAK_BF16_TENSOR_FLOPS,
+            into=into)
+        if on_card:
+            print(f"kernel flash_attention bf16 {shape}: {rec['ms']:.4f} ms "
+                  "against scaled_dot_product_attention's "
+                  f"{rec['library_ms']:.4f} ms in this run: "
+                  f"{rec['ms'] / rec['library_ms']:.2f}x its time | "
+                  f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of the bound "
+                  f"| {smi}")
+        fa_want = fa_ref.flash_attention_ref(fq, fk, fv)
+        elem, row = check_flash_bf16(fa_ops.flash_attention(fq, fk, fv),
+                                     fa_want, fq, fk, fv,
+                                     f"flash_attention bf16 {shape}")
+        lib = flash_bf16_errors(library().transpose(1, 2), fa_want, fq, fk,
+                                fv)
+        print(f"kernel flash_attention bf16 {shape}: worst element "
+              f"{elem:.3f} of 2u(A + |o|), worst row {row:.3f} of 4u |o| (u ="
+              " 2^-8); scaled_dot_product_attention vs the plain version: "
+              f"max abs err {max_err(library().transpose(1, 2), fa_want):.3e}"
+              f", {lib[0]:.3f} / {lib[1]:.3f} of the same bounds (the "
+              "yardstick, not checked)")
+        return rec
+
+    def flash_f32_case(b_, s_, h, kv_, d):
+        """K11's f32 body at one prefill layer's shape, within 2e-5."""
+        fq, fk, fv = qkv(b_, s_, h, kv_, d, torch.float32)
+        shape = [b_, s_, h, kv_, d]
+        got = fa_ops.flash_attention(fq, fk, fv)
+        err = max_err(got, fa_ref.flash_attention_ref(fq, fk, fv))
+        check(err <= FLASH_TOL["float32"],
+              f"flash_attention f32 {shape}: max abs err {err:.3e} > "
+              f"{FLASH_TOL['float32']}")
+        f32_io = 4 * (2 * fq.numel() + fk.numel() + fv.numel())
+        f32_bound, f32_by = bound(
+            f32_io, 4 * d * b_ * h * attention_pairs(s_, s_, True, 0))
+        print(f"kernel flash_attention f32 {shape}: max abs err {err:.3e} "
+              f"(tol {FLASH_TOL['float32']}) | device "
+              f"{call_ms(lambda: fa_ops.flash_attention(fq, fk, fv))} ms | "
+              f"bound {f32_bound:.3e} ms ({f32_by}, f32 peak)")
+
+    flash_rec = flash_bf16_case(fa_b, fa_s, fa_h, fa_kv, fa_d)
+    flash_f32_case(fa_b, fa_s, fa_h, fa_kv, fa_d)
+    # the other families' prefill layers at D = 128: GQA 4:1 (phi3.5-moe,
+    # granite-8b) and 8:1 (qwen2.5-3b), each in bf16 as served, the 8:1
+    # one also in f32; their records ride on the main shape's (launches are
+    # counted on the main record only)
+    flash_rec["d128"] = []
+    for h, kv_ in FLASH_D128_HEADS:
+        flash_bf16_case(fa_b, fa_s, h, kv_, 128, into=flash_rec["d128"])
+    flash_f32_case(fa_b, fa_s, *FLASH_D128_HEADS[-1], 128)
     worst = [0.0, 0.0]
     for dtype in (torch.float32, torch.bfloat16):
         tol = FLASH_TOL[str(dtype).removeprefix("torch.")]
@@ -1171,7 +1253,26 @@ def main(argv=None) -> int:
           f"version in f32 (2e-5) and bf16 (3e-2; worst element {worst[0]:.3f}"
           f" and row {worst[1]:.3f} of the roundoff bounds)")
 
-    # -- phase 3: the main path at full width --------------------------------
+    # -- phase 3: the main paths -------------------------------------------
+    main_launches = dict.fromkeys(_build.launches, 0)
+    phase_launches = {}
+
+    def run_phase(label, fn):
+        _build.reset_launches()
+        out = fn()
+        if on_card:
+            torch.cuda.synchronize()
+        phase_launches[label] = dict(_build.launches)
+        for name, c in _build.launches.items():
+            main_launches[name] += c
+        return out
+
+    # the LLM families first, while the card's memory is free for
+    # chameleon-34b's 68.6 GB of weights
+    llm_families_path(FAMILIES_TINY if args.tiny else FAMILIES_FULL, args,
+                      dev, on_card, smi, run_phase, phase_launches)
+
+    # the FFM main path at full width
     t0 = time.perf_counter()
     params = deepffm.init_params(cfg, args.seed, "deepffm", dev)
     last = f"w{len(cfg.mlp_hidden)}"
@@ -1191,19 +1292,6 @@ def main(argv=None) -> int:
                       for n, e in engines.items()))
 
     batches = make_traffic(cfg, np.random.default_rng(args.seed))
-    main_launches = dict.fromkeys(_build.launches, 0)
-    phase_launches = {}
-
-    def run_phase(label, fn):
-        _build.reset_launches()
-        out = fn()
-        if on_card:
-            torch.cuda.synchronize()
-        phase_launches[label] = dict(_build.launches)
-        for name, c in _build.launches.items():
-            main_launches[name] += c
-        return out
-
     scores, uncached = {}, {}
     for name, eng in engines.items():
         scores[name] = run_phase(
@@ -1214,7 +1302,8 @@ def main(argv=None) -> int:
             lambda eng=eng: [eng.score_uncached(*req, use_backend=True)
                              for mb in batches for req in mb])
     for label, counts in phase_launches.items():
-        print(f"launches {label}: {counts}")
+        if not label.startswith("llm"):
+            print(f"launches {label}: {counts}")
 
     # oracle: the same engine's plain full forward on the same (quantized)
     # tables; these launches are not part of the main-path counts
@@ -2604,6 +2693,301 @@ def llm_path(cfg, llm, args, dev, on_card, smi, run_phase, phase_launches):
           + f" (bound {ORACLE_REL})")
     del p32, st_pre, st
     return prefill, decode
+
+
+def spec_bytes(specs) -> int:
+    """Bytes of the weights a spec tree describes (no memory allocated)."""
+    import torch
+
+    if hasattr(specs, "shape"):
+        return math.prod(specs.shape) * torch.empty(
+            (), dtype=specs.dtype).element_size()
+    return sum(spec_bytes(v) for v in specs.values())
+
+
+def llm_families_path(fam, args, dev, on_card, smi, run_phase,
+                      phase_launches):
+    """Phase 3, LLM families: ``LLMServer.generate`` on granite-8b, yi-6b,
+    qwen2.5-3b and chameleon-34b (batched prefill, K11 once per layer) and on
+    phi3.5-moe (the stepwise warm-up, K11 never), then ``transformer.
+    prefill`` on phi's prompts (K11 once per layer); an f32 oracle per
+    family; the int8 cache on qwen2.5-3b. One server at a time, each freed
+    before the next. Phase 4's granite prefill and phi decode step run here,
+    while their weights are on the card."""
+    import torch
+
+    from repro_torch.common import pspec
+    from repro_torch.kernels import _build
+    from repro_torch.models import moe, registry, transformer
+    from repro_torch.serving.server import LLMServer
+    from repro_torch.train.steps import make_serve_step
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 5)
+    b, n_new = fam["batch"], fam["gen"]  # b: granite, yi, qwen, chameleon, phi
+
+    def free():
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+
+    free()  # phase 2's cached blocks back to the card before fits() reads it
+
+    def tokens(cfg, shape):
+        return torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    def fits(cfg, batch, length):
+        """Fails unless the weights, the KV cache and
+        :data:`FAMILY_MARGIN_BYTES` fit the card's free memory."""
+        if not on_card:
+            return
+        free_bytes = torch.cuda.mem_get_info(dev)[0]
+        need = (spec_bytes(registry.param_specs(cfg)) + 2 * cfg.n_layers
+                * batch * length * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+                + FAMILY_MARGIN_BYTES)
+        check(need <= free_bytes, f"{cfg.arch_id} at {cfg.n_layers} layers "
+              f"needs {need} bytes, the card has {free_bytes} free")
+
+    def build(arch, n_layers, p_len):
+        full = registry.get_config(arch, smoke=args.tiny)
+        n = n_layers or full.n_layers
+        cfg = full.replace(n_layers=n)
+        fits(cfg, b, p_len + n_new + 1)
+        t0 = time.perf_counter()
+        params = registry.init_params(cfg, args.seed, dev)
+        ffn = (f"MoE {cfg.n_experts} experts of {cfg.d_ff_expert}, top-"
+               f"{cfg.top_k}" if cfg.is_moe else f"d_ff {cfg.d_ff}")
+        print(f"llm family {arch}: {n} of {full.n_layers} layers, d_model "
+              f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+              f"{cfg.resolved_head_dim}, vocab {cfg.padded_vocab}, {ffn}"
+              f", qkv_bias {cfg.qkv_bias}, qk_norm {cfg.qk_norm}, tied "
+              f"{cfg.tie_embeddings}; {spec_bytes(registry.param_specs(cfg))}"
+              f" bytes of {cfg.param_dtype} weights made in "
+              f"{time.perf_counter() - t0:.1f} s")
+        return cfg, LLMServer(cfg, params, device=dev)
+
+    def served(cfg, server, prompts, want_k11, what):
+        """One warm-up generate, then one counted; the checks and timings."""
+        t0 = time.perf_counter()
+        first = server.generate(prompts, n_new)
+        warm_s = time.perf_counter() - t0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        b, p_len = prompts.shape
+        kv = "" if cfg.kv_cache_dtype == "native" else " int8 cache"
+        label = (f"llm {cfg.arch_id}{kv} generate B={b} P={p_len} "
+                 f"new={n_new}")
+        out = run_phase(label, lambda: server.generate(prompts, n_new))
+        n_k11 = phase_launches[label]["flash_attention"]
+        print(f"launches {label}: {phase_launches[label]}")
+        if on_card:
+            check(n_k11 == want_k11,
+                  f"{label}: flash_attention launched {n_k11} times, want "
+                  f"{want_k11} ({what})")
+        check(out.shape == (b, n_new) and out.dtype == torch.int32
+              and bool(((out >= 0) & (out < cfg.padded_vocab)).all()),
+              f"{label}: tokens {tuple(out.shape)} {out.dtype} out of range")
+        check(torch.equal(out, first), f"{label}: a second generate differs")
+        pre_ms, dec_s = server.last_prefill_s * 1e3, server.last_decode_s
+        peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
+                if on_card else "not measured (no card)")
+        print(f"llm {cfg.arch_id}{kv} generate (K11: {what}): warm-up call "
+              f"{warm_s:.2f} s | {'prefill' if want_k11 else 'stepwise warm-up'}"
+              f" {pre_ms:.2f} ms ({b * p_len / pre_ms * 1e3:.0f} prompt "
+              f"tokens/s) | decode {dec_s / n_new * 1e3:.3f} ms per step "
+              f"({b * n_new / dec_s:.0f} tokens/s) | peak allocated {peak} "
+              f"| {smi}")
+        return out
+
+    def prefill_fn(cfg, params, prompts):
+        def prefill():
+            with torch.inference_mode():
+                state = registry.init_decode_state(
+                    cfg, prompts.shape[0], prompts.shape[1] + 1, device=dev)
+                return transformer.prefill(cfg, params, prompts, state)
+        return prefill
+
+    # granite, yi, qwen, chameleon: batched prefill, K11 once per layer
+    for arch in FAMILY_ARCHS[:-1]:
+        cfg, server = build(arch, None, fam["prompt"])
+        prompts = tokens(cfg, (b, fam["prompt"]))
+        served(cfg, server, prompts, cfg.n_layers,
+               "one per layer of the prefill, none in decode")
+        if on_card and arch == "granite-8b":
+            where_the_time_goes(
+                f"LLM prefill ({arch}, B={b}, P={fam['prompt']})",
+                prefill_fn(cfg, server.params, prompts), smi, top=8,
+                share_of="flash_attention_kernel")
+        del server
+        free()
+
+    # phi3.5-moe: the stepwise warm-up (K11 never), then transformer.prefill
+    # on the same prompts (K11 once per layer)
+    cfg, server = build(PHI, fam["phi_layers"], fam["phi_prompt"])
+    prompts = tokens(cfg, (b, fam["phi_prompt"]))
+    out = served(cfg, server, prompts, 0, "the stepwise warm-up: none")
+    label = f"llm {PHI} transformer.prefill B={b} P={fam['phi_prompt']}"
+    lg, state = run_phase(label, prefill_fn(cfg, server.params, prompts))
+    n_k11 = phase_launches[label]["flash_attention"]
+    print(f"launches {label}: {phase_launches[label]}")
+    if on_card:
+        check(n_k11 == cfg.n_layers,
+              f"{label}: flash_attention launched {n_k11} times, want one "
+              f"per layer ({cfg.n_layers})")
+    check(lg.shape == (b, cfg.padded_vocab) and bool(torch.isfinite(lg).all()),
+          f"{label}: logits {tuple(lg.shape)} or not finite")
+    same = int((torch.argmax(lg, -1).to(torch.int32) == out[:, 0]).sum())
+    print(f"llm {PHI}: the batched prefill's first token equals the stepwise "
+          f"warm-up's in {same} of {b} rows (bf16; not checked)")
+    if on_card:
+        serve_step = make_serve_step(cfg)
+        tok = torch.argmax(lg, -1).to(torch.int32)
+
+        def decode():
+            with torch.inference_mode():
+                return serve_step(server.params, state, tok)
+
+        where_the_time_goes(
+            f"LLM decode step ({PHI}, {cfg.n_layers} layers, B={b}, after "
+            "the prefill)", decode, smi, top=8)
+    del server, lg, state
+    free()
+
+    # the f32 oracles: the prefill through K11 against stepwise decode,
+    # which never reaches K11, at full width and oracle_layers layers
+    ob, op = fam["oracle"]
+    for arch in FAMILY_ARCHS:
+        full = registry.get_config(arch, smoke=args.tiny)
+        cfg32 = full.replace(n_layers=fam["oracle_layers"], dtype="float32",
+                             param_dtype="float32")
+        p32 = registry.init_params(cfg32, args.seed, dev)
+        toks = tokens(cfg32, (ob, op))
+        # the routers' choices on both paths, seen through a wrapper
+        routed = []
+        router = moe._router
+
+        def recording(*a):
+            routed.append(router(*a))
+            return routed[-1]
+
+        moe._router = recording
+        try:
+            with torch.inference_mode():
+                _build.reset_launches()
+                lg_pre, st_pre = prefill_fn(cfg32, p32, toks)()
+                n_pre = _build.launches["flash_attention"]
+                st = registry.init_decode_state(cfg32, ob, op + 1, device=dev)
+                for i in range(op):
+                    lg_dec, st = registry.decode_step(cfg32, p32, st,
+                                                      toks[:, i])
+                n_dec = _build.launches["flash_attention"] - n_pre
+        finally:
+            moe._router = router
+        if on_card:
+            torch.cuda.synchronize()
+            check(n_pre == cfg32.n_layers and n_dec == 0,
+                  f"llm {arch} oracle: flash_attention launched {n_pre} "
+                  f"times in the prefill (want {cfg32.n_layers}), {n_dec} in "
+                  "stepwise decode")
+
+        def rel(a, ref):
+            return float((a - ref).abs().max()) / (float(ref.abs().max())
+                                                   + 1e-9)
+
+        rels = {"logits": rel(lg_pre, lg_dec)}
+        for name in ("k", "v"):
+            rels[f"cache {name}"] = rel(st_pre["cache"][name][:, :, :op],
+                                        st["cache"][name][:, :, :op])
+        check(bool(torch.isfinite(lg_pre).all()) and lg_pre.shape ==
+              (ob, cfg32.padded_vocab), f"llm {arch} oracle: prefill logits")
+        note = ""
+        if cfg32.is_moe:
+            note = "; " + router_flips(cfg32, routed, ob, op)
+        for name, r in rels.items():
+            check(r < ORACLE_REL, f"llm {arch} oracle: prefill {name} vs "
+                  f"{op} stepwise decode steps rel {r:.3e} >= {ORACLE_REL}"
+                  + note)
+        print(f"llm {arch} oracle (f32, {cfg32.n_layers} of {full.n_layers} "
+              f"layers, B={ob}, P={op}): prefill through flash_attention vs "
+              f"{op} decode steps without it: "
+              + ", ".join(f"{k} rel {v:.3e}" for k, v in rels.items())
+              + f" (bound {ORACLE_REL})" + note)
+        del p32, st_pre, st, lg_pre, lg_dec
+        free()
+
+    # the int8 cache on qwen2.5-3b: generate by the stepwise warm-up (K11
+    # never); its last logits against the native cache's, stepwise both
+    full = registry.get_config("qwen2.5-3b", smoke=args.tiny)
+    cfg = full.replace(n_layers=fam["oracle_layers"])
+    cfg8 = cfg.replace(kv_cache_dtype="int8")
+    params = registry.init_params(cfg, args.seed, dev)
+    ib, ip = fam["int8"]
+    prompts = tokens(cfg, (ib, ip))
+    print(f"llm family qwen2.5-3b int8 cache: {cfg.n_layers} of "
+          f"{full.n_layers} layers, B={ib}, P={ip}")
+    served(cfg8, LLMServer(cfg8, params, device=dev), prompts, 0,
+           "the stepwise warm-up of the int8 cache: none")
+    last = {}
+    with torch.inference_mode():
+        for c in (cfg, cfg8):
+            state = registry.init_decode_state(c, ib, ip, device=dev)
+            for i in range(ip):
+                lg, state = registry.decode_step(c, params, state,
+                                                 prompts[:, i])
+            last[c.kv_cache_dtype] = lg.float()
+            kinds = {state["cache"][n].dtype for n in ("k", "v")}
+            check(kinds == {torch.int8 if c is cfg8 else
+                            pspec.torch_dtype(c.dtype)},
+                  f"llm qwen2.5-3b {c.kv_cache_dtype} cache holds {kinds}")
+    r = float((last["int8"] - last["native"]).abs().max()) / (
+        float(last["native"].abs().max()) + 1e-9)
+    check(r < INT8_REL, f"llm qwen2.5-3b int8 cache: last logits rel {r:.3e} "
+          f"of the native cache's >= {INT8_REL}")
+    print(f"llm qwen2.5-3b int8 cache: k / v int8, last logits after {ip} "
+          f"stepwise steps rel {r:.3e} of the native cache's (bound "
+          f"{INT8_REL}); argmax equal in "
+          f"{int((last['int8'].argmax(-1) == last['native'].argmax(-1)).sum())}"
+          f" of {ib} rows")
+    del params, last, state
+    free()
+
+
+def router_flips(cfg, routed, ob, op) -> str:
+    """The oracle's two paths' router choices: ``routed`` holds the
+    prefill's (ids, probs) per layer, then the decode's per step and layer.
+    Fails on a token whose chosen experts differ where the k-th and (k+1)-th
+    probability stand more than ROUTER_TIE apart; returns a summary."""
+    import torch
+
+    n = cfg.n_layers
+    pre, dec = routed[:n], routed[n:]
+    check(len(dec) == op * n, f"router calls: {len(routed)}")
+    flips = near = 0
+    min_gap = float("inf")
+    for layer in range(n):
+        _, ids_p, probs_p = pre[layer]
+        ids_d = torch.stack([dec[i * n + layer][1] for i in range(op)], 1)
+        probs_d = torch.stack([dec[i * n + layer][2] for i in range(op)], 1)
+        ids_p = ids_p.reshape(ob, op, -1)
+        probs_p = probs_p.reshape(ob, op, -1)
+        gaps = []
+        for probs in (probs_p, probs_d):
+            top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+            gaps.append(top[..., cfg.top_k - 1] - top[..., cfg.top_k])
+        gap = torch.minimum(*gaps)
+        min_gap = min(min_gap, float(gap.min()))
+        diff = (torch.sort(ids_p, -1).values
+                != torch.sort(ids_d, -1).values).any(-1)
+        flips += int(diff.sum())
+        near += int((diff & (gap <= ROUTER_TIE)).sum())
+        wide = diff & (gap > ROUTER_TIE)
+        check(not bool(wide.any()),
+              f"router: {int(wide.sum())} tokens of layer {layer} chose "
+              f"other experts with the top-{cfg.top_k} gap above {ROUTER_TIE}")
+    return (f"router: smallest gap between the k-th and (k+1)-th "
+            f"probability (k = {cfg.top_k}) {min_gap:.3e} over {ob * op} "
+            f"tokens x {n} layers; {flips} tokens chose other experts in the "
+            f"two paths ({near} of them near ties, gap <= {ROUTER_TIE})")
 
 
 if __name__ == "__main__":

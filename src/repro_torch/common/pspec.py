@@ -30,6 +30,11 @@ class ParamSpec:
             raise ValueError(f"shape {self.shape} vs axes {self.axes}")
 
 
+def _fan_in(spec: ParamSpec) -> int:
+    shape = spec.shape
+    return spec.fan_in or (shape[-2] if len(shape) >= 2 else shape[-1])
+
+
 def _init_tensor(spec: ParamSpec, gen: torch.Generator,
                  device: torch.device) -> torch.Tensor:
     shape, dtype = spec.shape, spec.dtype
@@ -43,8 +48,7 @@ def _init_tensor(spec: ParamSpec, gen: torch.Generator,
                            dtype=torch.float32)
 
     if spec.init == "scaled":
-        fan_in = spec.fan_in or (shape[-2] if len(shape) >= 2 else shape[-1])
-        return (normal() / np.sqrt(max(fan_in, 1))).to(dtype)
+        return (normal() / np.sqrt(max(_fan_in(spec), 1))).to(dtype)
     if spec.init == "uniform_conv":
         lim = 1.0 / np.sqrt(max(shape[-1], 1))
         u = torch.rand(shape, generator=gen, device=device,
@@ -90,14 +94,24 @@ def materialize(specs, seed: int = 0, device: DeviceLike = None):
     """Initialize real parameter tensors from the spec tree on ``device``.
 
     Leaves draw in sorted-key order from one generator seeded with
-    ``seed``, so a tree is reproducible per (seed, device type)."""
+    ``seed``, so a tree is reproducible per (seed, device type). A leaf
+    stacked over layers (:func:`stack`) draws one layer at a time into its
+    final dtype, so its f32 draw never needs the whole stack's room (a
+    chameleon-34b FFN stack is 8.7 G weights)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
 
     def walk(node):
-        if is_spec(node):
+        if not is_spec(node):
+            return {k: walk(node[k]) for k in sorted(node)}
+        if node.axes[:1] != ("layers",):
             return _init_tensor(node, gen, dev)
-        return {k: walk(node[k]) for k in sorted(node)}
+        one = ParamSpec(node.shape[1:], node.axes[1:], node.init, node.dtype,
+                        _fan_in(node))
+        out = torch.empty(node.shape, dtype=node.dtype, device=dev)
+        for i in range(node.shape[0]):
+            out[i] = _init_tensor(one, gen, dev)
+        return out
 
     return walk(specs)
 

@@ -1,5 +1,6 @@
 """Attention (port of ``repro/models/attention.py``): GQA, full or
-sliding-window, with its decode cache.
+sliding-window, with optional QKV biases and QK norms, and its decode cache
+in the activation dtype or in int8.
 
 * :func:`flash_attention` is the prefill's attention core. It sends CUDA
   tensors to kernel K11 (``kernels/flash_attention/ops.py``) and CPU tensors
@@ -11,9 +12,11 @@ sliding-window, with its decode cache.
   buffer of ``window`` slots when a window is set). Keys are stored
   post-RoPE, so readout needs only a validity mask. The decode readout is
   plain torch (einsum, softmax, einsum), as in the JAX package.
+* The int8 cache holds codes ``round(x / scale)`` clipped to +-127, with one
+  absmax scale per (token, kv head). Scores factorize exactly, so the k
+  scales multiply the dots and the v scales the probabilities.
 
-MLA, the int8 KV cache, QKV biases and QK norms come with the configs that
-use them (ROADMAP.md Queue 1, LLM side).
+MLA comes with deepseek-v2 (ROADMAP.md Queue 1, LLM side).
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.common.pspec import ParamSpec, torch_dtype
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, rms_norm
 
 Cache = Dict[str, torch.Tensor]
 
@@ -44,18 +47,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # GQA
 # ---------------------------------------------------------------------------
 
-def _check_gqa(cfg) -> None:
-    if cfg.qkv_bias or cfg.qk_norm:
-        raise NotImplementedError("QKV biases and QK norms are not ported yet "
-                                  "(ROADMAP.md Queue 1, LLM side)")
-
-
 def gqa_specs(cfg) -> Dict[str, ParamSpec]:
-    _check_gqa(cfg)
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     dt = torch_dtype(cfg.param_dtype)
-    return {
+    sp = {
         "wq": ParamSpec((d, cfg.n_heads, hd), ("embed", "heads", "head_dim"),
                         "scaled", dt, fan_in=d),
         "wk": ParamSpec((d, cfg.n_kv_heads, hd),
@@ -67,6 +63,17 @@ def gqa_specs(cfg) -> Dict[str, ParamSpec]:
         "wo": ParamSpec((cfg.n_heads, hd, d), ("heads", "head_dim", "embed"),
                         "scaled", dt, fan_in=cfg.n_heads * hd),
     }
+    if cfg.qkv_bias:
+        sp["bq"] = ParamSpec((cfg.n_heads, hd), ("heads", "head_dim"),
+                             "zeros", dt)
+        sp["bk"] = ParamSpec((cfg.n_kv_heads, hd), ("kv_heads", "head_dim"),
+                             "zeros", dt)
+        sp["bv"] = ParamSpec((cfg.n_kv_heads, hd), ("kv_heads", "head_dim"),
+                             "zeros", dt)
+    if cfg.qk_norm:
+        sp["q_norm"] = ParamSpec((hd,), ("head_dim",), "ones", dt)
+        sp["k_norm"] = ParamSpec((hd,), ("head_dim",), "ones", dt)
+    return sp
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -76,8 +83,14 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _project_qkv(cfg, p, x: torch.Tensor, positions: torch.Tensor):
-    _check_gqa(cfg)
+    """Projections, then the biases, then the QK norms, then RoPE (the JAX
+    package's order)."""
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -106,6 +119,16 @@ def init_kv_cache(cfg, batch: int, max_len: int, window: int = 0,
             "v": torch.zeros(shape, dtype=dt, device=dev)}
 
 
+def _slot_and_valid(size: int, pos: int, window: int, device):
+    """The cache slot that position ``pos`` writes, and which of the
+    ``size`` slots hold a position at or before it."""
+    j = torch.arange(size, device=device)
+    if window > 0:
+        # slot j holds absolute position pos - ((pos - j) mod size)
+        return pos % size, (pos - ((pos - j) % size)) >= 0
+    return pos, j <= pos
+
+
 def gqa_decode(cfg, p, x: torch.Tensor, cache: Cache, pos: int, *,
                window: int = 0):
     """One-token decode. x: (B, 1, d); pos: the current position.
@@ -117,18 +140,10 @@ def gqa_decode(cfg, p, x: torch.Tensor, cache: Cache, pos: int, *,
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(cfg, p, x, positions)  # (B, 1, H or Kv, D)
 
-    size = cache["k"].shape[1]
-    slot = pos % size if window > 0 else pos
+    slot, valid = _slot_and_valid(cache["k"].shape[1], pos, window, x.device)
     cache["k"][:, slot] = k[:, 0]
     cache["v"][:, slot] = v[:, 0]
     ck, cv = cache["k"], cache["v"]
-
-    j = torch.arange(size, device=x.device)
-    if window > 0:
-        # slot j holds absolute position pos - ((pos - j) mod size)
-        valid = (pos - ((pos - j) % size)) >= 0
-    else:
-        valid = j <= pos
 
     kv = cfg.n_kv_heads
     qh = q.reshape(b, kv, cfg.n_heads // kv, -1)
@@ -140,5 +155,65 @@ def gqa_decode(cfg, p, x: torch.Tensor, cache: Cache, pos: int, *,
     s = s.masked_fill(~valid, NEG_INF)
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", w.to(cv.dtype).float(), cv.float())
+    o = o.reshape(b, 1, cfg.n_heads, -1).to(x.dtype)
+    return _out_proj(o, p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# Int8-quantized KV cache
+# ---------------------------------------------------------------------------
+
+def init_kv_cache_int8(cfg, batch: int, max_len: int, window: int = 0,
+                       device: DeviceLike = None) -> Cache:
+    """One layer's int8 cache: codes and one f32 scale per (token, kv
+    head)."""
+    size = min(window, max_len) if window > 0 else max_len
+    shape = (batch, size, cfg.n_kv_heads, cfg.resolved_head_dim)
+    dev = resolve_device(device)
+
+    def zeros(shp, dt):
+        return torch.zeros(shp, dtype=dt, device=dev)
+
+    return {"k": zeros(shape, torch.int8), "v": zeros(shape, torch.int8),
+            "k_scale": zeros(shape[:3], torch.float32),
+            "v_scale": zeros(shape[:3], torch.float32)}
+
+
+def _quantize_kv(x: torch.Tensor):
+    """x: (B, 1, K, D) -> int8 codes and the per-(token, head) absmax scale.
+    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(dim=-1), 1e-6) / 127.0  # (B, 1, K)
+    q = torch.round(xf / scale[..., None])
+    return torch.clamp(q, -127, 127).to(torch.int8), scale
+
+
+def gqa_decode_int8(cfg, p, x: torch.Tensor, cache: Cache, pos: int, *,
+                    window: int = 0):
+    """One-token decode against the int8 cache, with :func:`gqa_decode`'s
+    contract."""
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    kq, ks = _quantize_kv(k)
+    vq, vs = _quantize_kv(v)
+
+    slot, valid = _slot_and_valid(cache["k"].shape[1], pos, window, x.device)
+    cache["k"][:, slot] = kq[:, 0]
+    cache["v"][:, slot] = vq[:, 0]
+    cache["k_scale"][:, slot] = ks[:, 0]
+    cache["v_scale"][:, slot] = vs[:, 0]
+
+    kv = cfg.n_kv_heads
+    qh = q.reshape(b, kv, cfg.n_heads // kv, -1)
+    # the dots in f32 (codes are exact in bf16 and f32 alike)
+    s = torch.einsum("bkgd,bskd->bkgs", qh.float(), cache["k"].float())
+    s = s * cache["k_scale"].transpose(1, 2)[:, :, None, :]  # k scales back in
+    s = s * (q.shape[-1] ** -0.5)
+    s = s.masked_fill(~valid, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    wv = w * cache["v_scale"].transpose(1, 2)[:, :, None, :]  # v scales in
+    o = torch.einsum("bkgs,bskd->bkgd", wv.to(x.dtype).float(),
+                     cache["v"].float())
     o = o.reshape(b, 1, cfg.n_heads, -1).to(x.dtype)
     return _out_proj(o, p["wo"]), cache

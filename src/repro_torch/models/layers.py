@@ -4,8 +4,8 @@ functions over param dicts).
 The casts sit where the JAX package puts them, since they decide the bf16
 result: norms run in f32 and cast back, RoPE runs in f32, SwiGLU takes the
 gate's ``silu`` in f32 and casts it to the activation dtype before the
-product. Only what llama3.2-1b runs is here: RMSNorm, SwiGLU and tied
-embeddings. LayerNorm, the ReLU / GELU FFNs, an untied unembedding and
+product. Only what the ported GQA configs run is here: RMSNorm, SwiGLU and
+tied or untied embeddings. LayerNorm, the ReLU / GELU FFNs and
 ``cross_entropy`` come with the configs and the training step that use
 them (ROADMAP.md Queue 1, LLM side).
 """
@@ -95,11 +95,13 @@ def apply_ffn(cfg, p, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def embed_specs(cfg) -> Dict[str, ParamSpec]:
+    dt = torch_dtype(cfg.param_dtype)
+    sp = {"tok": ParamSpec((cfg.padded_vocab, cfg.d_model),
+                           ("vocab", "embed"), "embed", dt)}
     if not cfg.tie_embeddings:
-        raise _unported("an untied unembedding")
-    return {"tok": ParamSpec((cfg.padded_vocab, cfg.d_model),
-                             ("vocab", "embed"), "embed",
-                             torch_dtype(cfg.param_dtype))}
+        sp["unembed"] = ParamSpec((cfg.d_model, cfg.padded_vocab),
+                                  ("embed", "vocab"), "scaled", dt)
+    return sp
 
 
 def embed_tokens(cfg, p, tokens: torch.Tensor) -> torch.Tensor:
@@ -109,7 +111,8 @@ def embed_tokens(cfg, p, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def logits(cfg, p, x: torch.Tensor) -> torch.Tensor:
-    """Tied unembedding: x (..., d) -> (..., padded_vocab)."""
-    if not cfg.tie_embeddings:
-        raise _unported("an untied unembedding")
-    return torch.matmul(x, p["tok"].T)
+    """x (..., d) -> (..., padded_vocab), through the token table when the
+    embeddings are tied, else through ``unembed`` (d, V)."""
+    if cfg.tie_embeddings:
+        return torch.matmul(x, p["tok"].T)
+    return torch.matmul(x, p["unembed"])

@@ -1,8 +1,10 @@
 """Architecture registry (port of ``repro/models/registry.py``): arch id ->
 config, family -> module.
 
-Only ``llama3.2-1b`` (the ``dense`` family) is ported; the other nine arch
-ids and families wait for their slices (ROADMAP.md Queue 1, LLM side).
+The ``dense``, ``vlm`` and ``moe`` families with GQA attention are ported
+(:data:`ARCH_IDS`); deepseek-v2 (MLA), mamba2 (``ssm``), zamba2 (``hybrid``)
+and seamless-m4t (``encdec``) wait for their slices (ROADMAP.md Queue 1, LLM
+side).
 """
 from __future__ import annotations
 
@@ -14,11 +16,19 @@ from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import DeviceLike
 from repro_torch.models import transformer
 
-FAMILY_MODULES = {"dense": transformer}
+FAMILY_MODULES = {"dense": transformer, "vlm": transformer,
+                  "moe": transformer}
 
-ARCH_IDS = ("llama3.2-1b",)
+_MODULE_FOR_ARCH = {
+    "chameleon-34b": "chameleon_34b",
+    "yi-6b": "yi_6b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe",
+    "llama3.2-1b": "llama32_1b",
+    "qwen2.5-3b": "qwen25_3b",
+    "granite-8b": "granite_8b",
+}
 
-_MODULE_FOR_ARCH = {"llama3.2-1b": "llama32_1b"}
+ARCH_IDS = tuple(_MODULE_FOR_ARCH)
 
 
 def _unported(what: str):

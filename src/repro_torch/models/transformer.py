@@ -1,5 +1,6 @@
-"""Dense decoder-only transformer (port of ``repro/models/transformer.py``,
-the ``dense`` family with GQA and a native-dtype KV cache).
+"""Decoder-only transformer (port of ``repro/models/transformer.py``): the
+``dense``, ``vlm`` and ``moe`` families with GQA attention, dense or MoE
+FFNs, and a KV cache in the activation dtype or in int8.
 
 Parameters stay stacked over layers, ``(L, ...)`` as in the JAX package, so
 a weight tree crosses between the packages unchanged; the loop over layers
@@ -8,8 +9,7 @@ preallocated (``(L, B, size, Kv, D)``) and written in place: a decode step
 or a prefill returns a state that shares its cache tensors with the state
 it was given. ``pos`` is a Python int.
 
-MoE FFNs, MLA and the int8 KV cache come with the configs that use them
-(ROADMAP.md Queue 1, LLM side).
+MLA comes with deepseek-v2 (ROADMAP.md Queue 1, LLM side).
 """
 from __future__ import annotations
 
@@ -20,20 +20,25 @@ import torch
 from repro_torch.common import pspec
 from repro_torch.common.device import DeviceLike
 from repro_torch.common.pspec import torch_dtype
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
 
 
 def _check(cfg) -> None:
-    if cfg.attn_kind != "gqa" or cfg.is_moe or cfg.kv_cache_dtype != "native":
+    if cfg.attn_kind != "gqa":
         raise NotImplementedError(
-            f"{cfg.arch_id}: only GQA attention, dense FFNs and a native KV "
-            "cache are ported (MLA, MoE and the int8 cache: ROADMAP.md "
-            "Queue 1, LLM side)")
+            f"{cfg.arch_id}: attn_kind {cfg.attn_kind!r} is not ported yet "
+            "(MLA: ROADMAP.md Queue 1, LLM side)")
 
 
 def _layer_specs(cfg) -> Dict[str, Any]:
-    return {"ln1": layers.norm_specs(cfg), "ln2": layers.norm_specs(cfg),
-            "attn": attention.gqa_specs(cfg), "ffn": layers.ffn_specs(cfg)}
+    sp: Dict[str, Any] = {"ln1": layers.norm_specs(cfg),
+                          "ln2": layers.norm_specs(cfg),
+                          "attn": attention.gqa_specs(cfg)}
+    if cfg.is_moe:
+        sp["moe"] = moe.moe_specs(cfg)
+    else:
+        sp["ffn"] = layers.ffn_specs(cfg)
+    return sp
 
 
 def param_specs(cfg) -> Dict[str, Any]:
@@ -56,16 +61,25 @@ def layer_params(stacked, i: int):
 # Forward (prefill)
 # ---------------------------------------------------------------------------
 
+def _ffn(cfg, p, h: torch.Tensor, aux: bool):
+    """The layer's FFN: ``(y, aux)``, aux None without a router or when
+    ``aux`` is False (no kernel for a value that no caller reads)."""
+    if cfg.is_moe:
+        return moe.moe_forward(cfg, p["moe"], h, aux=aux)
+    return layers.apply_ffn(cfg, p["ffn"], h), None
+
+
 def _layer_fwd(cfg, p, x: torch.Tensor, positions: torch.Tensor,
-               window: int):
-    """One layer over the whole sequence; returns (x, k, v) with k and v the
-    layer's post-RoPE keys and values, which the prefill keeps."""
+               window: int, aux: bool):
+    """One layer over the whole sequence; returns (x, aux, k, v): aux as
+    :func:`_ffn` gives it, k and v the layer's post-RoPE keys and values,
+    which the prefill keeps."""
     h = layers.apply_norm(cfg, p["ln1"], x)
     q, k, v = attention._project_qkv(cfg, p["attn"], h, positions)
     o = attention.flash_attention(q, k, v, window=window)
     x = x + attention._out_proj(o, p["attn"]["wo"])
-    h = layers.apply_norm(cfg, p["ln2"], x)
-    return x + layers.apply_ffn(cfg, p["ffn"], h), k, v
+    h, a = _ffn(cfg, p, layers.apply_norm(cfg, p["ln2"], x), aux)
+    return x + h, a, k, v
 
 
 def _positions(tokens: torch.Tensor) -> torch.Tensor:
@@ -74,18 +88,20 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
 
 def forward(cfg, params, tokens: torch.Tensor, *,
             window: Optional[int] = None):
-    """tokens: (B, S) ints -> logits (B, S, padded_vocab) and the aux loss
-    (0: no MoE router here)."""
+    """tokens: (B, S) ints -> logits (B, S, padded_vocab) and the routers'
+    aux loss summed over layers (0 without MoE)."""
     _check(cfg)
     w = cfg.sliding_window if window is None else window
     positions = _positions(tokens)
     x = layers.embed_tokens(cfg, params["embed"], tokens).to(
         torch_dtype(cfg.dtype))
-    for i in range(cfg.n_layers):
-        x, _, _ = _layer_fwd(cfg, layer_params(params["layers"], i), x,
-                             positions, w)
-    x = layers.apply_norm(cfg, params["ln_f"], x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers):
+        x, a, _, _ = _layer_fwd(cfg, layer_params(params["layers"], i), x,
+                                positions, w, aux=True)
+        if a is not None:
+            aux = aux + a
+    x = layers.apply_norm(cfg, params["ln_f"], x)
     return layers.logits(cfg, params["embed"], x), aux
 
 
@@ -95,10 +111,12 @@ def forward(cfg, params, tokens: torch.Tensor, *,
 
 def init_decode_state(cfg, batch: int, max_len: int, *, window: int = 0,
                       device: DeviceLike = None):
-    """Stacked-over-layers KV cache (zeros) + position counter."""
+    """Stacked-over-layers KV cache (zeros) + position counter; int8 codes
+    and scales when ``cfg.kv_cache_dtype == "int8"``."""
     _check(cfg)
-    one = attention.init_kv_cache(cfg, batch, max_len, window=window,
-                                  device=device)
+    init = (attention.init_kv_cache_int8 if cfg.kv_cache_dtype == "int8"
+            else attention.init_kv_cache)
+    one = init(cfg, batch, max_len, window=window, device=device)
     cache = {k: torch.zeros((cfg.n_layers,) + tuple(a.shape), dtype=a.dtype,
                             device=a.device) for k, a in one.items()}
     return {"cache": cache, "pos": 0}
@@ -113,17 +131,18 @@ def decode_step(cfg, params, state, tokens: torch.Tensor, *, window: int = 0):
     new_state); the cache is updated in place."""
     _check(cfg)
     pos = state["pos"]
+    decode = (attention.gqa_decode_int8 if cfg.kv_cache_dtype == "int8"
+              else attention.gqa_decode)
     x = layers.embed_tokens(cfg, params["embed"], tokens[:, None]).to(
         torch_dtype(cfg.dtype))
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
         h = layers.apply_norm(cfg, lp["ln1"], x)
-        h, _ = attention.gqa_decode(cfg, lp["attn"], h,
-                                    _layer_cache(state["cache"], i), pos,
-                                    window=window)
+        h, _ = decode(cfg, lp["attn"], h, _layer_cache(state["cache"], i),
+                      pos, window=window)
         x = x + h
-        h = layers.apply_norm(cfg, lp["ln2"], x)
-        x = x + layers.apply_ffn(cfg, lp["ffn"], h)
+        h, _ = _ffn(cfg, lp, layers.apply_norm(cfg, lp["ln2"], x), aux=False)
+        x = x + h
     x = layers.apply_norm(cfg, params["ln_f"], x)
     lg = layers.logits(cfg, params["embed"], x)[:, 0]
     return lg, {"cache": state["cache"], "pos": pos + 1}
@@ -135,16 +154,18 @@ def prefill(cfg, params, tokens: torch.Tensor, state, *, window: int = 0):
     tokens: (B, S_prompt). Returns (last-position logits (B, V), state with
     the cache's first S_prompt slots written and pos = S_prompt). Each layer
     runs its attention through :func:`attention.flash_attention` once (K11 on
-    the card)."""
+    the card). The int8 cache raises, as in the JAX package."""
     _check(cfg)
+    if cfg.kv_cache_dtype == "int8":
+        raise NotImplementedError("prefill supports native GQA caches only")
     s = tokens.shape[1]
     positions = _positions(tokens)
     x = layers.embed_tokens(cfg, params["embed"], tokens).to(
         torch_dtype(cfg.dtype))
     for i in range(cfg.n_layers):
         lcache = _layer_cache(state["cache"], i)
-        x, k, v = _layer_fwd(cfg, layer_params(params["layers"], i), x,
-                             positions, window)
+        x, _, k, v = _layer_fwd(cfg, layer_params(params["layers"], i), x,
+                                positions, window, aux=False)
         lcache["k"][:, :s] = k.to(lcache["k"].dtype)
         lcache["v"][:, :s] = v.to(lcache["v"].dtype)
     x = layers.apply_norm(cfg, params["ln_f"], x[:, -1:])

@@ -7,9 +7,9 @@
   (§5) with cross-request candidate dedup, the candidate pairs on the
   kernels by default; it returns click probabilities.
 * ``LLMServer`` — batched prefill (one forward fills the KV cache) + greedy
-  decode. The JAX server's stepwise warm-up, which serves the families
-  without a batched prefill, raises here until those families are ported
-  (ROADMAP.md Queue 1, LLM side).
+  decode. Where the JAX server has no batched prefill (``moe``, the int8
+  cache) it warms the cache up one prompt token at a time through the serve
+  step, and so does this one.
 """
 from __future__ import annotations
 
@@ -100,8 +100,9 @@ class FFMServer:
 class LLMServer:
     """Batched prefill + greedy decode on one device (the card unless
     ``device="cpu"``). ``last_prefill_s`` / ``last_decode_s`` hold the last
-    :meth:`generate`'s split, host clock around work that ends in a
-    synchronize on the card."""
+    :meth:`generate`'s split (the prefill or the stepwise warm-up, then the
+    decode), host clock around work that ends in a synchronize on the
+    card."""
 
     def __init__(self, cfg: ModelConfig, params, *, window: int = 0,
                  device: DeviceLike = None):
@@ -121,20 +122,21 @@ class LLMServer:
         """prompts: (B, P) token ids -> generated ids (B, gen_len) int32
         (greedy), on the server's device."""
         cfg = self.cfg
-        if not (cfg.family == "dense" and cfg.attn_kind == "gqa"
-                and cfg.kv_cache_dtype == "native"):
-            raise NotImplementedError(
-                f"{cfg.arch_id}: the stepwise warm-up for families without a "
-                "batched prefill is not ported (ROADMAP.md Queue 1, LLM side)")
         prompts = torch.as_tensor(prompts, device=self.device)
         b, p = prompts.shape
         state = registry.init_decode_state(cfg, b, p + gen_len + 1,
                                            window=self.window,
                                            device=self.device)
         t0 = time.perf_counter()
-        logits, state = transformer.prefill(cfg, self.params, prompts, state,
-                                            window=self.window)
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        if (cfg.family in ("dense", "vlm") and cfg.attn_kind == "gqa"
+                and cfg.kv_cache_dtype == "native"):
+            logits, state = transformer.prefill(cfg, self.params, prompts,
+                                                state, window=self.window)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        else:  # no batched prefill: the JAX server's stepwise warm-up
+            tok = prompts[:, 0]
+            for i in range(p):
+                tok, state = self._serve(self.params, state, prompts[:, i])
         self._sync()
         t1 = time.perf_counter()
         outs = []

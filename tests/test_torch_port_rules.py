@@ -12,6 +12,7 @@
 """
 import ast
 import dataclasses
+import importlib
 from pathlib import Path
 
 import numpy as np
@@ -98,6 +99,12 @@ def test_port_file_list_is_complete():
                 "repro_torch/train/pipeline.py",
                 "repro_torch/train/loop.py",
                 "repro_torch/configs/llama32_1b.py",
+                "repro_torch/configs/phi35_moe.py",
+                "repro_torch/configs/granite_8b.py",
+                "repro_torch/configs/yi_6b.py",
+                "repro_torch/configs/qwen25_3b.py",
+                "repro_torch/configs/chameleon_34b.py",
+                "repro_torch/models/moe.py",
                 "repro_torch/models/layers.py",
                 "repro_torch/models/attention.py",
                 "repro_torch/models/transformer.py",
@@ -134,10 +141,22 @@ def test_ffm_config_matches_reference(kw):
     assert FFMConfig(**kw).n_pairs == JFFMConfig(**kw).n_pairs
 
 
-@pytest.mark.parametrize("make", [llama32_1b.config, llama32_1b.smoke,
-                                  lambda: ModelConfig(n_heads=8, head_dim=16)],
-                         ids=["config", "smoke", "custom"])
-def test_model_config_matches_reference(make):
+CONFIG_PAIRS = [(llama32_1b.config, j_llama.config),
+                (llama32_1b.smoke, j_llama.smoke),
+                (lambda: ModelConfig(n_heads=8, head_dim=16),
+                 lambda: JModelConfig(n_heads=8, head_dim=16))]
+CONFIG_IDS = ["config", "smoke", "custom"]
+for _name in ("phi35_moe", "granite_8b", "yi_6b", "qwen25_3b",
+              "chameleon_34b"):
+    _ours = importlib.import_module(f"repro_torch.configs.{_name}")
+    _theirs = importlib.import_module(f"repro.configs.{_name}")
+    for _kind in ("config", "smoke"):
+        CONFIG_PAIRS.append((getattr(_ours, _kind), getattr(_theirs, _kind)))
+        CONFIG_IDS.append(f"{_name}-{_kind}")
+
+
+@pytest.mark.parametrize("make,make_ref", CONFIG_PAIRS, ids=CONFIG_IDS)
+def test_model_config_matches_reference(make, make_ref):
     ours = dataclasses.fields(ModelConfig)
     theirs = dataclasses.fields(JModelConfig)
     assert [(f.name, f.type, f.default) for f in ours] == \
@@ -147,10 +166,7 @@ def test_model_config_matches_reference(make):
     assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
     for prop in ("resolved_head_dim", "q_per_kv", "padded_vocab", "is_moe"):
         assert getattr(cfg, prop) == getattr(ref, prop), prop
-    assert llama32_1b.config() == ModelConfig(
-        **dataclasses.asdict(j_llama.config()))
-    assert llama32_1b.smoke() == ModelConfig(
-        **dataclasses.asdict(j_llama.smoke()))
+    assert cfg == ModelConfig(**dataclasses.asdict(make_ref()))
 
 
 def test_card_is_the_default():
