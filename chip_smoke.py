@@ -47,7 +47,15 @@ Phases, each of which raises on failure (nothing is caught):
    spills per head dim. The other families' prefill layers at D = 128 run
    the same way in bf16 (B=4, S=1024; 32 / 8 heads, phi3.5-moe and
    granite-8b, and 16 / 2, qwen2.5-3b), the 8:1 one also in f32; their
-   records ride on the main shape's (``"d128"``).
+   records ride on the main shape's (``"d128"``). seamless-m4t's attention
+   (16 / 16 heads of 64, B=4) runs in bf16 and f32 at ``FLASH_SEAMLESS``'
+   shapes: unmasked Sq = Sk = 1024 (the encoder), Sq = 256 and Sq = 1
+   against Sk = 1024 (the cross-attention of the forward and of a decode
+   step), and Sq != Sk under the causal mask aligned at position 0; each
+   timed beside scaled_dot_product_attention with its bound, records under
+   the main record's ``"seamless"``. Every K11 record also has the kernel
+   timed alone (``kernel_ms``: calls queued behind a device spin, so the
+   launch path drops out), and SDPA's the same way.
 3. The LLM families first, while the card's memory is free, at full width
    with bf16 weights from the seed, one server at a time, each freed before
    the next:
@@ -72,6 +80,21 @@ Phases, each of which raises on failure (nothing is caught):
    - The int8 cache on a 2-layer qwen2.5-3b: ``generate`` by the stepwise
      warm-up (K11 never); k / v int8; the last logits of stepwise decode
      over 4 x 128 prompt tokens within ``INT8_REL`` of the native cache's.
+   - seamless-m4t-large-v2 (``encdec``) at full width in bf16, 24 + 24
+     layers uncut: ``encdec.prefill_cross`` on 4 x 1024 seeded stub frames,
+     then 32 greedy steps through ``make_serve_step`` (after one warm-up of
+     both; the tokens must equal the warm-up's), then a teacher-forced
+     ``forward`` at S_tgt = 256; K11 exactly 24 / 24 a step / 72 times
+     (once per encoder layer; once per decoder layer and step, Sq = 1; the
+     encoder, the decoder's causal self-attention and its cross-attention,
+     Sq = 256 against Sk = 1024); prefill_cross ms and its TFLOP/s, ms per
+     decode step, peak allocation. Its f32 oracle at 2 + 2 layers (B=2,
+     S_src=64, S_tgt=32): decode after ``prefill_cross`` against the
+     forward at every position, and the run through K11 against the same
+     run with ``attention.flash_attention``'s kernel call swapped for its
+     plain version (which must launch nothing), each rel < ``ORACLE_REL``.
+   Every batched prefill prints its bf16 TFLOP/s as
+   ``counting.model_flops(cfg, B·S, "forward")`` over its time.
    Then the FFM main paths at full width (``FFMConfig()``, V = 2^18, random
    weights from a seed), all driven by the same microbatches (4 of 8
    requests with 16-64 candidates each):
@@ -119,6 +142,11 @@ Phases, each of which raises on failure (nothing is caught):
      the gradient's largest magnitude. Per round it prints examples/s, the
      step / ``make_update`` split, mean loss, progressive AUC, skip stats,
      touched rows and frame bytes.
+   - DCNv2 (paper §2.2) at ``FFMConfig()``'s width (F = 24, V = 2^18, 8
+     wide embeddings, 3 cross layers, MLP (64, 32)), stock torch: its
+     forward on the card within 1e-5 of the CPU's on the same weights,
+     then ``test_dcnv2_trains``' 30 SGD steps of 512 from
+     ``CTRStream(seed=8)`` at lr 0.05, the loss falling; examples/s.
    - servers: an ``FFMServer`` (f32 tables, ``backend="cuda"``) ingests one
      full frame from a ``Sender`` of the phase's weights, and a
      ``CachedServer`` serves the same frame as a receiver decodes it; both
@@ -183,9 +211,11 @@ Phases, each of which raises on failure (nothing is caught):
    ``"ffm"`` twin) and on the N = 4 fleet, one training microbatch, 8
    Hogwild microbatches at 1 and at 4 threads, one LLM prefill and one
    decode step (and, in the families phase while their weights are on the
-   card, one granite-8b prefill and one phi3.5-moe decode step) under
-   torch.profiler (kernels launched, device-busy time against wall time,
-   top kernels; for training K10's share, for the prefills K11's).
+   card, one granite-8b prefill and one phi3.5-moe decode step; in the
+   encoder-decoder phase one seamless ``prefill_cross`` and one decode
+   step) under torch.profiler (kernels launched, device-busy time against
+   wall time, top kernels; for training K10's share, for the prefills and
+   seamless' decode step K11's).
 
 The second-to-last lines are the kernels' JSON record and the nvidia-smi
 line; the last line is ``{"ok": true, "device": {...}}``. Without a card (or
@@ -216,6 +246,10 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BF16_TENSOR_FLOPS = 989e12
 
 TIMING_ITERS = 200
+# the card's spin (torch.cuda._sleep) that hides the launch path when
+# kernel_ms times short kernels back to back: ~25 ms at 1.98 GHz, far more
+# than queuing 20 calls takes
+SPIN_CYCLES = 50_000_000
 # K10's batch rows per block (kBK in csrc/sparse_mlp.cu; a block holds 16
 # floats of x and 16 of g per row)
 K10_BLOCK = 128
@@ -255,6 +289,13 @@ FLASH_SWEEP = ((2, 64, 4, 4, 16, True, 0), (2, 100, 8, 2, 32, True, 0),
 # D = 128): (query heads, KV heads) of phi3.5-moe / granite-8b (4:1) and of
 # qwen2.5-3b (8:1)
 FLASH_D128_HEADS = ((32, 8), (16, 2))
+# K11 at seamless-m4t-large-v2's attention (B and the frames' S of the LLM
+# phase, 16 query and 16 KV heads of 64): (Sq, Sk, causal) of the encoder,
+# the teacher-forced forward's cross-attention and a decode step's, then
+# Sq != Sk under the causal mask
+FLASH_SEAMLESS = ((1024, 1024, False), (256, 1024, False), (1, 1024, False),
+                  (256, 1024, True), (1024, 256, True), (1, 1024, True))
+FLASH_SEAMLESS_HEADS, FLASH_SEAMLESS_D = 16, 64
 # K4 against its plain version: test_kernels.py::test_ffm_interaction_sweep's
 # shapes and tolerances (rtol, atol), then F = 64, K = 16, whose (F, F, K)
 # f32 block would not fit in one CTA's shared memory (262,400 > 232,448 B)
@@ -289,6 +330,19 @@ INT8_REL = 0.05
 # room kept free beside a family's weights and cache (the prefill's
 # activations, cuBLAS' workspaces)
 FAMILY_MARGIN_BYTES = 3 * 2**30
+# the encoder-decoder phase (seamless-m4t-large-v2 at full width, bf16
+# weights from the seed, uncut): batch, stub frames, greedy new tokens, the
+# teacher-forced forward's target length; the f32 oracle's batch, frames
+# and target length, at oracle_layers encoder and decoder layers
+SEAMLESS = "seamless-m4t-large-v2"
+SEAMLESS_FULL = {"batch": 4, "src": 1024, "gen": 32, "tgt": 256,
+                 "oracle": (2, 64, 32), "oracle_layers": 2}
+SEAMLESS_TINY = {"batch": 2, "src": 16, "gen": 4, "tgt": 8,
+                 "oracle": (2, 12, 8), "oracle_layers": 2}
+# DCNv2 (paper §2.2) at the main path's FFMConfig: test_dcnv2_trains' SGD
+# steps, learning rate and stream seed, at the trainer's microbatch; its
+# forward on the card against the CPU's within rtol and atol of max |logit|
+DCN_STEPS, DCN_LR, DCN_SEED, DCN_TOL = 30, 0.05, 8, 1e-5
 # bf16's unit roundoff (8 significant bits)
 BF16_U = 2.0 ** -8
 
@@ -343,6 +397,12 @@ def ptxas_usage(log: str, needle: str):
     return found
 
 
+def rel(a, ref) -> float:
+    """Largest |a - ref| as a share of the largest |ref| (the oracles'
+    measure)."""
+    return float((a - ref).abs().max()) / (float(ref.abs().max()) + 1e-9)
+
+
 def attention_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
     """The (row, column) pairs attention's mask keeps: the score and PV work
     a call needs (4 D operations each)."""
@@ -352,6 +412,16 @@ def attention_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
         lo = max(0, r - window + 1) if window > 0 else 0
         n += max(0, hi - lo + 1)
     return n
+
+
+def attention_elements(q, k, causal: bool) -> int:
+    """Elements attention must move: q read and the output written, and
+    the k and v rows some query can see (under the causal mask, aligned at
+    position 0, none past key Sq - 1)."""
+    b, sq, _, _ = q.shape
+    sk, kv, d = k.shape[1:]
+    live = min(sk, sq) if causal else sk
+    return 2 * q.numel() + 2 * b * live * kv * d
 
 
 def make_slate(cfg, rng, n):
@@ -588,6 +658,39 @@ def main(argv=None) -> int:
         t1.record()
         torch.cuda.synchronize()
         return t0.elapsed_time(t1) / TIMING_ITERS
+
+    def kernel_ms(fn, n=20):
+        """Device time (ms) of one ``fn()`` without its launch path: the
+        card first spins (``torch.cuda._sleep``) while the host queues ``n``
+        calls behind the spin, so CUDA events around them time the kernels
+        back to back (an eager timing of a call shorter than its launch
+        path reads the host instead). None if the host took longer to queue
+        the calls than the card spun."""
+        if not on_card:
+            return None
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(SPIN_CYCLES)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        if host_ms >= ev[0].elapsed_time(ev[1]):
+            return None
+        return ev[1].elapsed_time(ev[2]) / n
+
+    def ms_text(ms, bound_ms=None):
+        if ms is None:
+            return "not measured (the calls outran the spin)"
+        share = "" if bound_ms is None else (
+            f", {100 * bound_ms / ms:.1f}% of the bound")
+        return f"{ms:.4f} ms{share}"
 
     def max_err(got, want):
         if isinstance(got, tuple):
@@ -1149,53 +1252,69 @@ def main(argv=None) -> int:
     fa_h, fa_kv = llm_cfg.n_heads, llm_cfg.n_kv_heads
     fa_d = llm_cfg.resolved_head_dim
 
-    def qkv(b, s_, h, kv_, d, dtype):
-        return (randn(b, s_, h, d).to(dtype), randn(b, s_, kv_, d).to(dtype),
-                randn(b, s_, kv_, d).to(dtype))
+    def qkv(b, s_, h, kv_, d, dtype, sk=None):
+        sk = s_ if sk is None else sk
+        return (randn(b, s_, h, d).to(dtype), randn(b, sk, kv_, d).to(dtype),
+                randn(b, sk, kv_, d).to(dtype))
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    def flash_bf16_case(b_, s_, h, kv_, d, into=None):
-        """K11's bf16 body at one prefill layer's shape, timed beside
-        scaled_dot_product_attention, held to 3e-2 and to the roundoff
-        bounds; its record goes to ``into`` as :func:`kernel_case` puts
-        it."""
-        fq, fk, fv = qkv(b_, s_, h, kv_, d, torch.bfloat16)
-        fa_io = 2 * (2 * fq.numel() + fk.numel() + fv.numel())
-        fa_flops = 4 * d * b_ * h * attention_pairs(s_, s_, True, 0)
-        # the library yardstick: PyTorch's fused attention on (B, H, S, D)
-        # copies made outside the timed region
-        lq, lk, lv = (t.transpose(1, 2).contiguous() for t in (fq, fk, fv))
+    def sdpa_of(q_, k_, v_, causal):
+        """The library yardstick: PyTorch's fused attention on (B, H, S, D)
+        copies made outside the timed region (its causal mask is aligned at
+        position 0 too)."""
+        h, kv_ = q_.shape[2], k_.shape[2]
+        lq, lk, lv = (t.transpose(1, 2).contiguous() for t in (q_, k_, v_))
         if "enable_gqa" in (sdpa.__doc__ or ""):
             def library():
-                return sdpa(lq, lk, lv, is_causal=True, enable_gqa=True)
+                return sdpa(lq, lk, lv, is_causal=causal, enable_gqa=True)
         else:
             lk, lv = (t.repeat_interleave(h // kv_, dim=1) for t in (lk, lv))
 
             def library():
-                return sdpa(lq, lk, lv, is_causal=True)
-        shape = [b_, s_, h, kv_, d]
+                return sdpa(lq, lk, lv, is_causal=causal)
+        return library
+
+    def flash_bf16_case(b_, s_, h, kv_, d, into=None, sk=None, causal=True):
+        """K11's bf16 body at one layer's shape (Sq = ``s_``, Sk = ``sk``,
+        ``s_`` unless given), timed beside scaled_dot_product_attention,
+        held to 3e-2 and to the roundoff bounds; its record goes to
+        ``into`` as :func:`kernel_case` puts it."""
+        sk = s_ if sk is None else sk
+        fq, fk, fv = qkv(b_, s_, h, kv_, d, torch.bfloat16, sk)
+        fa_io = 2 * attention_elements(fq, fk, causal)
+        fa_flops = 4 * d * b_ * h * attention_pairs(s_, sk, causal, 0)
+        library = sdpa_of(fq, fk, fv, causal)
+        shape = [b_, s_, h, kv_, d] if sk == s_ and causal else [
+            b_, s_, sk, h, kv_, d, "causal" if causal else "unmasked"]
+
+        def fn():
+            return fa_ops.flash_attention(fq, fk, fv, causal=causal)
+
         rec = kernel_case(
             "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention/flash_attention.py:85",
-            lambda: fa_ops.flash_attention(fq, fk, fv),
-            lambda: fa_ref.flash_attention_ref(fq, fk, fv),
+            "src/repro/kernels/flash_attention/flash_attention.py:85", fn,
+            lambda: fa_ref.flash_attention_ref(fq, fk, fv, causal=causal),
             (FLASH_TOL["bfloat16"],) * 2, fa_io, fa_flops, shape,
             library=library, eager=True, peak_flops=PEAK_BF16_TENSOR_FLOPS,
             into=into)
+        rec["kernel_ms"], rec["library_kernel_ms"] = (kernel_ms(fn),
+                                                      kernel_ms(library))
         if on_card:
             print(f"kernel flash_attention bf16 {shape}: {rec['ms']:.4f} ms "
                   "against scaled_dot_product_attention's "
                   f"{rec['library_ms']:.4f} ms in this run: "
                   f"{rec['ms'] / rec['library_ms']:.2f}x its time | "
                   f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of the bound "
-                  f"| {smi}")
-        fa_want = fa_ref.flash_attention_ref(fq, fk, fv)
-        elem, row = check_flash_bf16(fa_ops.flash_attention(fq, fk, fv),
-                                     fa_want, fq, fk, fv,
-                                     f"flash_attention bf16 {shape}")
+                  f"({rec['bound_by']}) | kernels alone (behind a spin) "
+                  f"{ms_text(rec['kernel_ms'], rec['bound_ms'])} against "
+                  f"{ms_text(rec['library_kernel_ms'])} | {smi}")
+        fa_want = fa_ref.flash_attention_ref(fq, fk, fv, causal=causal)
+        elem, row = check_flash_bf16(
+            fa_ops.flash_attention(fq, fk, fv, causal=causal), fa_want, fq,
+            fk, fv, f"flash_attention bf16 {shape}", causal)
         lib = flash_bf16_errors(library().transpose(1, 2), fa_want, fq, fk,
-                                fv)
+                                fv, causal)
         print(f"kernel flash_attention bf16 {shape}: worst element "
               f"{elem:.3f} of 2u(A + |o|), worst row {row:.3f} of 4u |o| (u ="
               " 2^-8); scaled_dot_product_attention vs the plain version: "
@@ -1204,18 +1323,48 @@ def main(argv=None) -> int:
               "yardstick, not checked)")
         return rec
 
-    def flash_f32_case(b_, s_, h, kv_, d):
-        """K11's f32 body at one prefill layer's shape, within 2e-5."""
-        fq, fk, fv = qkv(b_, s_, h, kv_, d, torch.float32)
+    def flash_f32_case(b_, s_, h, kv_, d, into=None, sk=None, causal=True):
+        """K11's f32 body at one layer's shape, within 2e-5 (max abs
+        error). With ``into`` its record (time, bound, plain and
+        scaled_dot_product_attention times) goes there; else it prints its
+        error, time and bound."""
+        sk = s_ if sk is None else sk
+        fq, fk, fv = qkv(b_, s_, h, kv_, d, torch.float32, sk)
+        f32_io = 4 * attention_elements(fq, fk, causal)
+        f32_flops = 4 * d * b_ * h * attention_pairs(s_, sk, causal, 0)
+        if into is not None:
+            shape = [b_, s_, sk, h, kv_, d, "f32",
+                     "causal" if causal else "unmasked"]
+
+            def fn():
+                return fa_ops.flash_attention(fq, fk, fv, causal=causal)
+
+            library = sdpa_of(fq, fk, fv, causal)
+            rec = kernel_case(
+                "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+                "src/repro/kernels/flash_attention/flash_attention.py:85", fn,
+                lambda: fa_ref.flash_attention_ref(fq, fk, fv, causal=causal),
+                (0.0, FLASH_TOL["float32"]), f32_io, f32_flops, shape,
+                library=library, eager=True, into=into)
+            rec["kernel_ms"], rec["library_kernel_ms"] = (kernel_ms(fn),
+                                                          kernel_ms(library))
+            if on_card:
+                print(f"kernel flash_attention f32 {shape}: {rec['ms']:.4f} "
+                      "ms against scaled_dot_product_attention's "
+                      f"{rec['library_ms']:.4f} ms (f32, TF32 off) | "
+                      f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of the "
+                      f"bound ({rec['bound_by']}, f32 peak) | kernels alone "
+                      f"(behind a spin) "
+                      f"{ms_text(rec['kernel_ms'], rec['bound_ms'])}"
+                      f" against {ms_text(rec['library_kernel_ms'])} | {smi}")
+            return rec
         shape = [b_, s_, h, kv_, d]
         got = fa_ops.flash_attention(fq, fk, fv)
         err = max_err(got, fa_ref.flash_attention_ref(fq, fk, fv))
         check(err <= FLASH_TOL["float32"],
               f"flash_attention f32 {shape}: max abs err {err:.3e} > "
               f"{FLASH_TOL['float32']}")
-        f32_io = 4 * (2 * fq.numel() + fk.numel() + fv.numel())
-        f32_bound, f32_by = bound(
-            f32_io, 4 * d * b_ * h * attention_pairs(s_, s_, True, 0))
+        f32_bound, f32_by = bound(f32_io, f32_flops)
         print(f"kernel flash_attention f32 {shape}: max abs err {err:.3e} "
               f"(tol {FLASH_TOL['float32']}) | device "
               f"{call_ms(lambda: fa_ops.flash_attention(fq, fk, fv))} ms | "
@@ -1231,6 +1380,19 @@ def main(argv=None) -> int:
     for h, kv_ in FLASH_D128_HEADS:
         flash_bf16_case(fa_b, fa_s, h, kv_, 128, into=flash_rec["d128"])
     flash_f32_case(fa_b, fa_s, *FLASH_D128_HEADS[-1], 128)
+    # seamless-m4t's attention (16 / 16 heads of 64, B = 4, 1024 frames):
+    # the encoder (unmasked, Sq = Sk), the forward's cross-attention (256
+    # target positions against 1024 frames) and a decode step's (Sq = 1),
+    # then Sq != Sk under the causal mask, aligned at position 0; each in
+    # bf16 and in f32, their records under the main record's "seamless"
+    flash_rec["seamless"] = []
+    for sq, sk, causal in FLASH_SEAMLESS:
+        # the rehearsal's S scales the shapes down
+        sq, sk = (max(1, n * fa_s // FLASH_SEAMLESS[0][0]) for n in (sq, sk))
+        for case in (flash_bf16_case, flash_f32_case):
+            case(fa_b, sq, FLASH_SEAMLESS_HEADS, FLASH_SEAMLESS_HEADS,
+                 FLASH_SEAMLESS_D, into=flash_rec["seamless"], sk=sk,
+                 causal=causal)
     worst = [0.0, 0.0]
     for dtype in (torch.float32, torch.bfloat16):
         tol = FLASH_TOL[str(dtype).removeprefix("torch.")]
@@ -1271,6 +1433,8 @@ def main(argv=None) -> int:
     # chameleon-34b's 68.6 GB of weights
     llm_families_path(FAMILIES_TINY if args.tiny else FAMILIES_FULL, args,
                       dev, on_card, smi, run_phase, phase_launches)
+    seamless_path(SEAMLESS_TINY if args.tiny else SEAMLESS_FULL, args, dev,
+                  on_card, smi, run_phase, phase_launches)
 
     # the FFM main path at full width
     t0 = time.perf_counter()
@@ -1422,6 +1586,7 @@ def main(argv=None) -> int:
                 phase_launches, randn, r_rows, n_cand)
     train_step = training_path(cfg, args, dev, on_card, smi, batches,
                                run_phase, phase_launches, r_rows, n_cand)
+    dcnv2_path(cfg, args, dev, on_card, smi, run_phase)
     server_path(cfg, args, dev, on_card, smi, batches, run_phase,
                 phase_launches, params, r_rows, n_cand)
     span_path(cfg, dev, on_card, smi, batches, run_phase, phase_launches,
@@ -2634,8 +2799,10 @@ def llm_path(cfg, llm, args, dev, on_card, smi, run_phase, phase_launches):
     pre_ms, dec_s = server.last_prefill_s * 1e3, server.last_decode_s
     peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
             if on_card else "not measured (no card)")
+    rate = prefill_rate(cfg, b * p_len, server.last_prefill_s, on_card)
     print(f"llm generate: prefill {pre_ms:.2f} ms ({b * p_len / pre_ms * 1e3:.0f}"
-          f" prompt tokens/s) | decode {dec_s / n_new * 1e3:.3f} ms per step "
+          f" prompt tokens/s, {rate}) | decode "
+          f"{dec_s / n_new * 1e3:.3f} ms per step "
           f"({b * n_new / dec_s:.0f} tokens/s) | end to end "
           f"{b * n_new / (server.last_prefill_s + dec_s):.0f} new tokens/s | "
           f"peak allocated {peak} | {smi}")
@@ -2674,9 +2841,6 @@ def llm_path(cfg, llm, args, dev, on_card, smi, run_phase, phase_launches):
         check(n_pre == cfg.n_layers and n_dec == 0,
               f"llm oracle: flash_attention launched {n_pre} times in the "
               f"prefill, {n_dec} in stepwise decode")
-
-    def rel(a, ref):
-        return float((a - ref).abs().max()) / (float(ref.abs().max()) + 1e-9)
 
     rels = {"logits": rel(lg_pre, lg_dec)}
     for name in ("k", "v"):
@@ -2791,12 +2955,14 @@ def llm_families_path(fam, args, dev, on_card, smi, run_phase,
         pre_ms, dec_s = server.last_prefill_s * 1e3, server.last_decode_s
         peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
                 if on_card else "not measured (no card)")
+        rate = (", " + prefill_rate(cfg, b * p_len, server.last_prefill_s,
+                                     on_card) if want_k11 else "")
         print(f"llm {cfg.arch_id}{kv} generate (K11: {what}): warm-up call "
               f"{warm_s:.2f} s | {'prefill' if want_k11 else 'stepwise warm-up'}"
               f" {pre_ms:.2f} ms ({b * p_len / pre_ms * 1e3:.0f} prompt "
-              f"tokens/s) | decode {dec_s / n_new * 1e3:.3f} ms per step "
-              f"({b * n_new / dec_s:.0f} tokens/s) | peak allocated {peak} "
-              f"| {smi}")
+              f"tokens/s{rate}) | decode {dec_s / n_new * 1e3:.3f} ms per "
+              f"step ({b * n_new / dec_s:.0f} tokens/s) | peak allocated "
+              f"{peak} | {smi}")
         return out
 
     def prefill_fn(cfg, params, prompts):
@@ -2827,9 +2993,15 @@ def llm_families_path(fam, args, dev, on_card, smi, run_phase,
     prompts = tokens(cfg, (b, fam["phi_prompt"]))
     out = served(cfg, server, prompts, 0, "the stepwise warm-up: none")
     label = f"llm {PHI} transformer.prefill B={b} P={fam['phi_prompt']}"
+    t0 = time.perf_counter()
     lg, state = run_phase(label, prefill_fn(cfg, server.params, prompts))
+    pre_s = time.perf_counter() - t0
     n_k11 = phase_launches[label]["flash_attention"]
     print(f"launches {label}: {phase_launches[label]}")
+    rate = prefill_rate(cfg, prompts.numel(), pre_s, on_card)
+    print(f"llm {PHI} transformer.prefill: {pre_s * 1e3:.2f} ms (the first "
+          f"call at its shapes), {rate} (N counts the top-{cfg.top_k} "
+          f"experts; the dense combine runs all {cfg.n_experts}) | {smi}")
     if on_card:
         check(n_k11 == cfg.n_layers,
               f"{label}: flash_attention launched {n_k11} times, want one "
@@ -2890,10 +3062,6 @@ def llm_families_path(fam, args, dev, on_card, smi, run_phase,
                   f"times in the prefill (want {cfg32.n_layers}), {n_dec} in "
                   "stepwise decode")
 
-        def rel(a, ref):
-            return float((a - ref).abs().max()) / (float(ref.abs().max())
-                                                   + 1e-9)
-
         rels = {"logits": rel(lg_pre, lg_dec)}
         for name in ("k", "v"):
             rels[f"cache {name}"] = rel(st_pre["cache"][name][:, :, :op],
@@ -2950,6 +3118,277 @@ def llm_families_path(fam, args, dev, on_card, smi, run_phase,
           f" of {ib} rows")
     del params, last, state
     free()
+
+
+def prefill_rate(cfg, n_tokens: int, seconds: float, on_card: bool) -> str:
+    """A prefill's achieved bf16 rate on the card:
+    ``counting.model_flops(cfg, tokens, "forward")`` (2 N D, N the active
+    parameters) over its time."""
+    from repro_torch.common import counting
+
+    flops = counting.model_flops(cfg, n_tokens, "forward")
+    rate = (f"{flops / seconds / 1e12:.1f} TFLOP/s" if on_card
+            else "TFLOP/s not measured (no card)")
+    return f"{rate} by model_flops ({flops:.4e} FLOP for {n_tokens} tokens)"
+
+
+def encdec_prefill_flops(cfg, b: int, s: int) -> int:
+    """The matmul and attention FLOPs ``encdec.prefill_cross`` does on (b,
+    s) frames: each encoder layer's q / k / v / o projections, unmasked
+    attention and ReLU FFN, then each decoder layer's cross k / v."""
+    t, d, hd = b * s, cfg.d_model, cfg.resolved_head_dim
+    qo, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    enc = (2 * t * d * (2 * qo + 2 * kv) + 4 * hd * cfg.n_heads * b * s * s
+           + 2 * t * d * cfg.d_ff * 2)
+    return cfg.n_enc_layers * enc + cfg.n_layers * 2 * t * d * 2 * kv
+
+
+def seamless_path(fam, args, dev, on_card, smi, run_phase, phase_launches):
+    """Phase 3, the encoder-decoder family: seamless-m4t-large-v2 at full
+    width in bf16 (24 + 24 layers, uncut): ``encdec.prefill_cross`` on B x
+    S_src stub frames (K11 once per encoder layer), greedy decode through
+    ``make_serve_step`` (K11 once per decoder layer and step, Sq = 1), and
+    a teacher-forced ``forward`` (K11 once per encoder layer and twice per
+    decoder layer); phase 4's prefill_cross and decode step under the
+    profiler. Then the f32 oracle at ``oracle_layers`` layers: decode after
+    ``prefill_cross`` against the forward at every position, and the run
+    through K11 against the same run with ``attention.flash_attention``'s
+    kernel call swapped for its plain version."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models import encdec, registry
+    from repro_torch.train.steps import make_serve_step
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 6)
+    b, s_src, n_new, s_tgt = (fam[k] for k in ("batch", "src", "gen", "tgt"))
+    cfg = registry.get_config(SEAMLESS, smoke=args.tiny)
+    t0 = time.perf_counter()
+    params = registry.init_params(cfg, args.seed, dev)
+    print(f"llm {SEAMLESS}: {cfg.n_enc_layers} encoder + {cfg.n_layers} "
+          f"decoder layers (uncut), d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
+          f"d_ff {cfg.d_ff} ({cfg.act}), {cfg.norm}, vocab "
+          f"{cfg.padded_vocab}, tied {cfg.tie_embeddings}; "
+          f"{cfg.param_count()} parameters (param_count), "
+          f"{spec_bytes(registry.param_specs(cfg))} bytes of "
+          f"{cfg.param_dtype} weights made in "
+          f"{time.perf_counter() - t0:.1f} s | {smi}")
+    frames = torch.randn((b, s_src, cfg.d_model), generator=gen, device=dev)
+    serve = make_serve_step(cfg)
+
+    def prefill():
+        with torch.inference_mode():
+            state = registry.init_decode_state(cfg, b, n_new + 1,
+                                               src_len=s_src, device=dev)
+            return encdec.prefill_cross(cfg, params, state, frames)
+
+    def decode(state):
+        """n_new greedy steps from token 0 -> (tokens (B, n_new), state)."""
+        tok = torch.zeros((b,), dtype=torch.int32, device=dev)
+        outs = []
+        with torch.inference_mode():
+            for _ in range(n_new):
+                tok, state = serve(params, state, tok)
+                outs.append(tok)
+        return torch.stack(outs, 1), state
+
+    first, _ = decode(prefill())  # first calls (cuBLAS' choices)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def k11(label):
+        return phase_launches[label]["flash_attention"]
+
+    def clock(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    label_p = f"llm {SEAMLESS} prefill_cross B={b} S_src={s_src}"
+    state, pre_s = clock(lambda: run_phase(label_p, prefill))
+    label_d = f"llm {SEAMLESS} decode {n_new} steps B={b}"
+    (out, _), dec_s = clock(lambda: run_phase(label_d, lambda: decode(state)))
+    toks = torch.randint(0, cfg.vocab_size, (b, s_tgt), generator=gen,
+                         device=dev, dtype=torch.int32)
+    label_f = f"llm {SEAMLESS} forward B={b} S_src={s_src} S_tgt={s_tgt}"
+
+    def forward():
+        with torch.inference_mode():
+            return registry.forward(cfg, params, {"frames": frames,
+                                                  "tokens": toks})
+
+    (lg, aux), fwd_s = clock(lambda: run_phase(label_f, forward))
+    peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
+            if on_card else "not measured (no card)")
+    for label in (label_p, label_d, label_f):
+        print(f"launches {label}: {phase_launches[label]} | {smi}")
+    if on_card:
+        want = {label_p: cfg.n_enc_layers, label_d: cfg.n_layers * n_new,
+                label_f: cfg.n_enc_layers + 2 * cfg.n_layers}
+        for label, n in want.items():
+            check(k11(label) == n, f"{label}: flash_attention launched "
+                  f"{k11(label)} times, want {n}")
+    check(out.shape == (b, n_new) and out.dtype == torch.int32
+          and bool(((out >= 0) & (out < cfg.padded_vocab)).all()),
+          f"{label_d}: tokens {tuple(out.shape)} {out.dtype} out of range")
+    check(torch.equal(out, first), f"{label_d}: differs from the warm-up's")
+    check(lg.shape == (b, s_tgt, cfg.padded_vocab)
+          and bool(torch.isfinite(lg).all()) and float(aux) == 0.0,
+          f"{label_f}: logits {tuple(lg.shape)}, finite "
+          f"{bool(torch.isfinite(lg).all())}, aux {float(aux)}")
+    del lg
+    enc_flops = encdec_prefill_flops(cfg, b, s_src)
+    enc_rate = (f"{enc_flops / pre_s / 1e12:.1f} TFLOP/s" if on_card
+                else "not measured")
+    print(f"llm {SEAMLESS}: prefill_cross {pre_s * 1e3:.2f} ms ("
+          f"{prefill_rate(cfg, b * s_src, pre_s, on_card)}, which counts "
+          f"the decoder and the embeddings too; {enc_rate} over the "
+          f"{enc_flops:.4e} FLOP prefill_cross does) | decode "
+          f"{dec_s / n_new * 1e3:.3f} ms per step ({b * n_new / dec_s:.0f} "
+          f"tokens/s) | forward S_tgt={s_tgt} {fwd_s * 1e3:.2f} ms (first "
+          f"call at its shapes) | K11 {k11(label_p)} / "
+          f"{k11(label_d)} / {k11(label_f)} | peak allocated {peak} | {smi}")
+    if on_card:
+        one = prefill()
+        tok0 = torch.zeros((b,), dtype=torch.int32, device=dev)
+        where_the_time_goes(
+            f"encdec prefill_cross ({SEAMLESS}, B={b}, S_src={s_src})",
+            prefill, smi, top=8, share_of="flash_attention_kernel")
+
+        def step():
+            with torch.inference_mode():
+                return serve(params, one, tok0)
+
+        where_the_time_goes(
+            f"encdec decode step ({SEAMLESS}, B={b}, after prefill_cross)",
+            step, smi, top=8, share_of="flash_attention_kernel")
+        del one
+    del params, state, frames
+
+    # the f32 oracle: the kernel run (K11 throughout) against itself
+    # (decode vs forward) and against the plain run
+    ob, os_, ot = fam["oracle"]
+    n = fam["oracle_layers"]
+    cfg32 = cfg.replace(n_layers=n, n_enc_layers=n, dtype="float32",
+                        param_dtype="float32")
+    p32 = registry.init_params(cfg32, args.seed, dev)
+    fr = torch.randn((ob, os_, cfg.d_model), generator=gen, device=dev)
+    tk = torch.randint(0, cfg.vocab_size, (ob, ot), generator=gen,
+                       device=dev, dtype=torch.int32)
+
+    def oracle_run():
+        """(forward logits, stepwise decode logits), each (ob, ot, V), and
+        the K11 launches of the run."""
+        _build.reset_launches()
+        with torch.inference_mode():
+            full, _ = registry.forward(cfg32, p32, {"frames": fr,
+                                                    "tokens": tk})
+            st = registry.init_decode_state(cfg32, ob, ot, src_len=os_,
+                                            device=dev)
+            st = encdec.prefill_cross(cfg32, p32, st, fr)
+            outs = []
+            for i in range(ot):
+                lg_i, st = registry.decode_step(cfg32, p32, st, tk[:, i])
+                outs.append(lg_i)
+        if on_card:
+            torch.cuda.synchronize()
+        return full, torch.stack(outs, 1), _build.launches["flash_attention"]
+
+    kern_full, kern_dec, n_kern = oracle_run()
+    kernel_call = fa_ops.flash_attention
+
+    def plain(q, k, v, *, causal=True, window=0):
+        return fa_ref.flash_attention_ref(q, k, v, causal=causal,
+                                          window=window)
+
+    fa_ops.flash_attention = plain
+    try:
+        plain_full, plain_dec, n_plain = oracle_run()
+    finally:
+        fa_ops.flash_attention = kernel_call
+    if on_card:
+        want = 3 * n + n + n * ot  # forward, prefill_cross, decode steps
+        check(n_kern == want and n_plain == 0,
+              f"{SEAMLESS} oracle: flash_attention launched {n_kern} times "
+              f"through the kernels (want {want}), {n_plain} in the plain run")
+
+    rels = {"kernels: decode vs forward": rel(kern_dec, kern_full),
+            "plain: decode vs forward": rel(plain_dec, plain_full),
+            "forward: kernels vs plain": rel(kern_full, plain_full),
+            "decode: kernels vs plain": rel(kern_dec, plain_dec)}
+    check(bool(torch.isfinite(kern_full).all()) and kern_full.shape ==
+          (ob, ot, cfg32.padded_vocab), f"{SEAMLESS} oracle: forward logits")
+    for name, r in rels.items():
+        check(r < ORACLE_REL, f"{SEAMLESS} oracle: {name} rel {r:.3e} >= "
+              f"{ORACLE_REL}")
+    print(f"llm {SEAMLESS} oracle (f32, {n} + {n} of {cfg.n_enc_layers} + "
+          f"{cfg.n_layers} layers, B={ob}, S_src={os_}, S_tgt={ot}; K11 "
+          f"{n_kern} launches through the kernels): "
+          + ", ".join(f"{k} rel {v:.3e}" for k, v in rels.items())
+          + f" (bound {ORACLE_REL}) | {smi}")
+    del p32
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def dcnv2_path(cfg, args, dev, on_card, smi, run_phase):
+    """Phase 3, DCNv2 (paper §2.2) at the main path's config: its forward
+    on the card against the CPU's on the same weights, then
+    ``test_dcnv2_trains``' SGD run (DCN_STEPS microbatches of TRAIN_BATCH
+    from ``CTRStream(seed=DCN_SEED)``, lr DCN_LR) on the card, after two
+    warm-up steps on a copy of the weights; the loss must fall."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import dcnv2
+    from repro_torch.data.synthetic import CTRStream
+
+    params = dcnv2.init_params(cfg, args.seed, dev)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+               for b in CTRStream(cfg, seed=DCN_SEED).batches(TRAIN_BATCH,
+                                                              DCN_STEPS)]
+    with torch.no_grad():
+        got = dcnv2.forward(cfg, params, batches[0]["idx"],
+                            batches[0]["val"]).cpu()
+        want = dcnv2.forward(cfg, {k: v.cpu() for k, v in params.items()},
+                             batches[0]["idx"].cpu(), batches[0]["val"].cpu())
+    err = float((got - want).abs().max())
+    check(got.shape == (TRAIN_BATCH,) and bool(torch.allclose(
+        got, want, rtol=DCN_TOL, atol=DCN_TOL * float(want.abs().max()))),
+        f"dcnv2: forward on {dev} vs the CPU max abs err {err:.3e}")
+
+    def train(p, steps):
+        for v in p.values():
+            v.requires_grad_(True)
+        losses = []
+        for b in batches[:steps]:
+            loss = dcnv2.loss_fn(cfg, p, b)
+            grads = torch.autograd.grad(loss, list(p.values()))
+            with torch.no_grad():
+                for v, g in zip(p.values(), grads):
+                    v -= DCN_LR * g
+            losses.append(loss.detach())
+        return torch.stack(losses).cpu().numpy()
+
+    train({k: v.clone() for k, v in params.items()}, 2)  # first calls
+    t0 = time.perf_counter()
+    losses = run_phase(f"dcnv2 train {DCN_STEPS} x {TRAIN_BATCH}",
+                       lambda: train(params, DCN_STEPS))
+    dt = time.perf_counter() - t0
+    check(bool(np.isfinite(losses).all())
+          and losses[-5:].mean() < losses[:5].mean(),
+          f"dcnv2: the loss did not fall: {losses}")
+    print(f"dcnv2 (F={cfg.n_fields}, V={cfg.hash_space}, d0="
+          f"{cfg.n_fields * dcnv2.K_DENSE}, 3 cross layers, MLP (64, 32)): "
+          f"forward on {dev} vs the CPU max abs err {err:.3e} (rtol and atol "
+          f"{DCN_TOL} of max |logit|) | {DCN_STEPS} SGD steps of "
+          f"{TRAIN_BATCH} at lr {DCN_LR}: loss {losses[:5].mean():.4f} -> "
+          f"{losses[-5:].mean():.4f} (means of the first and last five), "
+          f"{DCN_STEPS * TRAIN_BATCH / dt:.0f} examples/s | {smi}")
 
 
 def router_flips(cfg, routed, ob, op) -> str:

@@ -2,15 +2,17 @@
 ``ModelConfig`` and ``FFMConfig``).
 
 Each copy is kept field for field equal to the JAX package's dataclass; a
-test holds them together. ``ModelConfig.param_count`` stays behind: it
-lives in the JAX package's distribution tooling (``common/counting.py``),
-which the port does not have yet; ``pspec.count`` counts a spec tree. The
-SSM properties (``d_inner``, ``n_ssm_heads``) come with the SSM family.
+test holds them together. ``ModelConfig.param_count`` is the analytic
+count of ``common/counting.py`` (``pspec.count`` counts a spec tree); the
+SSM properties (``d_inner``, ``n_ssm_heads``) are there for its ``ssm`` and
+``hybrid`` branches.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+
+from repro_torch.common import counting
 
 
 @dataclass(frozen=True)
@@ -100,11 +102,23 @@ class ModelConfig:
         return ((self.vocab_size + m - 1) // m) * m
 
     @property
+    def d_inner(self) -> int:  # SSM inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    # analytic parameter count (model_flops' N)
+    def param_count(self, active_only: bool = False) -> int:
+        return counting.param_count(self, active_only=active_only)
 
 
 @dataclass(frozen=True)

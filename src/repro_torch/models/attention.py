@@ -2,12 +2,14 @@
 sliding-window, with optional QKV biases and QK norms, and its decode cache
 in the activation dtype or in int8.
 
-* :func:`flash_attention` is the prefill's attention core. It sends CUDA
-  tensors to kernel K11 (``kernels/flash_attention/ops.py``) and CPU tensors
-  to its plain version, as the JAX models' jnp flash has the same
-  arithmetic as the Pallas kernel (``tests/test_kernels.py`` holds the two
-  within 2e-5). It takes no ``chunk_q`` / ``chunk_k`` / ``q_offset``: every
-  caller passes ``q_offset=0``, and the tiles are the kernel's own choice.
+* :func:`flash_attention` is the attention core of the prefills, of the
+  encoder-decoder's encoder and of its cross-attention (``causal=False``,
+  Sq != Sk, Sq = 1 in decode). It sends CUDA tensors to kernel K11
+  (``kernels/flash_attention/ops.py``) and CPU tensors to its plain
+  version, as the JAX models' jnp flash has the same arithmetic as the
+  Pallas kernel (``tests/test_kernels.py`` holds the two within 2e-5). It
+  takes no ``chunk_q`` / ``chunk_k`` / ``q_offset``: every caller passes
+  ``q_offset=0``, and the tiles are the kernel's own choice.
 * Decode caches are preallocated and written in place at ``pos`` (a ring
   buffer of ``window`` slots when a window is set). Keys are stored
   post-RoPE, so readout needs only a validity mask. The decode readout is

@@ -4,10 +4,11 @@ functions over param dicts).
 The casts sit where the JAX package puts them, since they decide the bf16
 result: norms run in f32 and cast back, RoPE runs in f32, SwiGLU takes the
 gate's ``silu`` in f32 and casts it to the activation dtype before the
-product. Only what the ported GQA configs run is here: RMSNorm, SwiGLU and
-tied or untied embeddings. LayerNorm, the ReLU / GELU FFNs and
-``cross_entropy`` come with the configs and the training step that use
-them (ROADMAP.md Queue 1, LLM side).
+product, the ReLU FFN clamps in the activation dtype. Only what the ported
+configs run is here: RMSNorm and LayerNorm, the SwiGLU and ReLU FFNs, tied
+or untied embeddings. The GELU FFN (no config of the JAX package sets it)
+and ``cross_entropy`` (the training step) are not ported (ROADMAP.md Queue
+1, LLM side).
 """
 from __future__ import annotations
 
@@ -28,15 +29,23 @@ def _unported(what: str):
 # ---------------------------------------------------------------------------
 
 def norm_specs(cfg) -> Dict[str, ParamSpec]:
-    if cfg.norm != "rmsnorm":
-        raise _unported(f"norm {cfg.norm!r}")
-    return {"scale": ParamSpec((cfg.d_model,), ("embed",), "ones",
-                               torch_dtype(cfg.param_dtype))}
+    """RMSNorm's scale; LayerNorm (``cfg.norm == "layernorm"``) adds a
+    bias."""
+    d, dt = cfg.d_model, torch_dtype(cfg.param_dtype)
+    sp = {"scale": ParamSpec((d,), ("embed",), "ones", dt)}
+    if cfg.norm == "layernorm":
+        sp["bias"] = ParamSpec((d,), ("embed",), "zeros", dt)
+    return sp
 
 
 def apply_norm(cfg, p, x: torch.Tensor) -> torch.Tensor:
-    if cfg.norm != "rmsnorm":
-        raise _unported(f"norm {cfg.norm!r}")
+    """LayerNorm where the config asks for it and ``p`` has its bias, else
+    RMSNorm (the JAX package's rule); both in f32, cast back."""
+    if cfg.norm == "layernorm" and "bias" in p:
+        xf = x.float()
+        y = torch.nn.functional.layer_norm(
+            xf, xf.shape[-1:], p["scale"].float(), p["bias"].float(), 1e-6)
+        return y.to(x.dtype)
     return rms_norm(x, p["scale"])
 
 
@@ -69,24 +78,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # FFN
 # ---------------------------------------------------------------------------
 
-def ffn_specs(cfg) -> Dict[str, ParamSpec]:
-    if cfg.act != "swiglu":
+def _check_act(cfg) -> None:
+    if cfg.act not in ("swiglu", "relu"):
         raise _unported(f"act {cfg.act!r}")
+
+
+def ffn_specs(cfg) -> Dict[str, ParamSpec]:
+    """``wi`` / ``wo``, and SwiGLU's gate ``wg``."""
+    _check_act(cfg)
     d, d_ff = cfg.d_model, cfg.d_ff
     dt = torch_dtype(cfg.param_dtype)
-    return {
-        "wi": ParamSpec((d, d_ff), ("embed", "mlp"), "scaled", dt),
-        "wg": ParamSpec((d, d_ff), ("embed", "mlp"), "scaled", dt),
-        "wo": ParamSpec((d_ff, d), ("mlp", "embed"), "scaled", dt),
-    }
+    sp = {"wi": ParamSpec((d, d_ff), ("embed", "mlp"), "scaled", dt),
+          "wo": ParamSpec((d_ff, d), ("mlp", "embed"), "scaled", dt)}
+    if cfg.act == "swiglu":
+        sp["wg"] = ParamSpec((d, d_ff), ("embed", "mlp"), "scaled", dt)
+    return sp
 
 
 def apply_ffn(cfg, p, x: torch.Tensor) -> torch.Tensor:
-    if cfg.act != "swiglu":
-        raise _unported(f"act {cfg.act!r}")
+    _check_act(cfg)
     h = torch.matmul(x, p["wi"])
-    g = torch.matmul(x, p["wg"])
-    h = h * torch.nn.functional.silu(g.float()).to(h.dtype)
+    if cfg.act == "swiglu":
+        g = torch.matmul(x, p["wg"])
+        h = h * torch.nn.functional.silu(g.float()).to(h.dtype)
+    else:  # relu, in the activation dtype (jnp.maximum(h, 0))
+        h = torch.relu(h)
     return torch.matmul(h, p["wo"])
 
 

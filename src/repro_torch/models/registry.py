@@ -1,10 +1,12 @@
 """Architecture registry (port of ``repro/models/registry.py``): arch id ->
 config, family -> module.
 
-The ``dense``, ``vlm`` and ``moe`` families with GQA attention are ported
-(:data:`ARCH_IDS`); deepseek-v2 (MLA), mamba2 (``ssm``), zamba2 (``hybrid``)
-and seamless-m4t (``encdec``) wait for their slices (ROADMAP.md Queue 1, LLM
-side).
+The ``dense``, ``vlm`` and ``moe`` families with GQA attention
+(:mod:`transformer`) and the ``encdec`` family (:mod:`encdec`) are ported
+(:data:`ARCH_IDS`); deepseek-v2 (MLA), mamba2 (``ssm``) and zamba2
+(``hybrid``) wait for their slices (ROADMAP.md Queue 1, LLM side). As in the
+JAX package, ``encdec`` takes the whole batch (``frames`` and ``tokens``) in
+:func:`forward` and ``src_len`` in :func:`init_decode_state`.
 """
 from __future__ import annotations
 
@@ -14,14 +16,15 @@ from typing import Any, Dict
 from repro_torch.common import pspec
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import DeviceLike
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 FAMILY_MODULES = {"dense": transformer, "vlm": transformer,
-                  "moe": transformer}
+                  "moe": transformer, "encdec": encdec}
 
 _MODULE_FOR_ARCH = {
     "chameleon-34b": "chameleon_34b",
     "yi-6b": "yi_6b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
     "phi3.5-moe-42b-a6.6b": "phi35_moe",
     "llama3.2-1b": "llama32_1b",
     "qwen2.5-3b": "qwen25_3b",
@@ -61,14 +64,21 @@ def init_params(cfg: ModelConfig, seed: int, device: DeviceLike = None):
 
 
 def forward(cfg: ModelConfig, params, batch: Dict[str, Any], *, window=None):
-    return module_for(cfg).forward(cfg, params, batch["tokens"],
-                                   window=window)
+    mod = module_for(cfg)
+    if cfg.family == "encdec":
+        return mod.forward(cfg, params, batch, window=window)
+    return mod.forward(cfg, params, batch["tokens"], window=window)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
-                      window: int = 0, device: DeviceLike = None):
-    return module_for(cfg).init_decode_state(cfg, batch, max_len,
-                                             window=window, device=device)
+                      window: int = 0, device: DeviceLike = None, **kw):
+    """``kw`` (``src_len``) reaches the ``encdec`` family only."""
+    mod = module_for(cfg)
+    if cfg.family == "encdec":
+        return mod.init_decode_state(cfg, batch, max_len, window=window,
+                                     device=device, **kw)
+    return mod.init_decode_state(cfg, batch, max_len, window=window,
+                                 device=device)
 
 
 def decode_step(cfg: ModelConfig, params, state, tokens, *, window: int = 0):

@@ -7,9 +7,11 @@
   (§5) with cross-request candidate dedup, the candidate pairs on the
   kernels by default; it returns click probabilities.
 * ``LLMServer`` — batched prefill (one forward fills the KV cache) + greedy
-  decode. Where the JAX server has no batched prefill (``moe``, the int8
-  cache) it warms the cache up one prompt token at a time through the serve
-  step, and so does this one.
+  decode. Where the JAX server has no batched prefill (``moe``, ``encdec``,
+  the int8 cache) it warms the cache up one prompt token at a time through
+  the serve step, and so does this one; an ``encdec`` model's cross caches
+  stay zero there, as in the JAX server (``encdec.prefill_cross`` fills
+  them for a caller with frames).
 """
 from __future__ import annotations
 

@@ -6,15 +6,20 @@ sliding-window and unmasked; GQA 1:1, 2:1 and 4:1; D 16 / 32 / 64; f32 and
 bf16) and on the shapes that hit the edges of the bf16 kernel's 128 x 128
 tiles (the main path's 32 / 8 heads with S ragged to 64 and 128, cut to
 S = 200 and B = 1 for interpret mode; D = 128 ragged; S below one tile; a
-window whose first live tile is wholly masked for some rows), against
-three JAX functions on the same seeded inputs: the JAX
-``ref.py``, ``flash_attention_pallas`` in interpret mode with 32-row blocks,
-and the models' jnp flash (``repro.models.attention.flash_attention``) with
-32-row chunks. Tolerances are the reference's own (``test_kernels.py``):
-2e-5 for f32, 3e-2 for bf16. The wrapper's checks (the head dims and
-dtypes each kernel body takes, TMA's 16-byte alignment) and its launch
-count (none on CPU tensors) are tested too.
+window whose first live tile is wholly masked for some rows) and on
+``CROSS``, queries and keys of different lengths (Sq = 1, Sq < Sk and
+Sq > Sk, causal with the mask aligned at position 0 and unmasked, D 32 and
+64: the encoder-decoder's cross-attention and its decode), against three
+JAX functions on the same seeded inputs: the JAX ``ref.py``,
+``flash_attention_pallas`` in interpret mode with 32-row blocks, and the
+models' jnp flash (``repro.models.attention.flash_attention``) with 32-row
+chunks. Tolerances are the reference's own (``test_kernels.py``): 2e-5 for
+f32, 3e-2 for bf16. ``test_attention.py::test_flash_noncausal`` has a twin
+on its own inputs. The wrapper's checks (the head dims and dtypes each
+kernel body takes, TMA's 16-byte alignment) and its launch count (none on
+CPU tensors) are tested too.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,17 +41,62 @@ SWEEP = [pytest.param(*c, id="-".join(map(str, c[1:])) if c[0] == 2 else
                    (2, 40, 4, 4, 64, True, 0), (2, 257, 4, 1, 32, True, 100)]]
 
 
-def _qkv(s, h, kv, d, seed, b=2):
+# (B, Sq, Sk, H, Kv, D, causal): Sq = 1 (a decode step's cross-attention,
+# and causal, where a row sees key 0 only), Sq < Sk and Sq > Sk across
+# several 32-row blocks, and seamless' smoke shapes (4 heads of 32)
+CROSS = [pytest.param(*c, id="-".join(map(str, c)))
+         for c in [(2, 1, 40, 4, 4, 32, False), (2, 1, 40, 4, 2, 64, True),
+                   (2, 24, 70, 4, 4, 64, False), (2, 24, 70, 8, 2, 32, True),
+                   (2, 70, 24, 4, 4, 32, False), (2, 70, 24, 4, 1, 64, True),
+                   (2, 16, 12, 4, 4, 32, False), (2, 1, 12, 4, 4, 32, False)]]
+
+
+def _qkv(s, h, kv, d, seed, b=2, sk=None):
+    """q (b, s, h, d), k and v (b, sk, kv, d); sk = s unless given."""
     rng = np.random.default_rng(seed)
+    sk = s if sk is None else sk
     return (rng.normal(size=(b, s, h, d)).astype(np.float32),
-            rng.normal(size=(b, s, kv, d)).astype(np.float32),
-            rng.normal(size=(b, s, kv, d)).astype(np.float32))
+            rng.normal(size=(b, sk, kv, d)).astype(np.float32),
+            rng.normal(size=(b, sk, kv, d)).astype(np.float32))
 
 
 @pytest.mark.parametrize("B,S,H,Kv,D,causal,window", SWEEP)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_matches_jax(B, S, H, Kv, D, causal, window, dtype):
-    arrs = _qkv(S, H, Kv, D, S + H, b=B)
+    _check_against_jax(_qkv(S, H, Kv, D, S + H, b=B), dtype, causal, window)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Kv,D,causal", CROSS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_sq_ne_sk_matches_jax(B, Sq, Sk, H, Kv, D, causal,
+                                              dtype):
+    _check_against_jax(_qkv(Sq, H, Kv, D, Sq + 7 * Sk, b=B, sk=Sk), dtype,
+                       causal, 0)
+
+
+def test_flash_noncausal():
+    """``test_attention.py::test_flash_noncausal``'s inputs and tolerance:
+    the port against JAX's naive oracle (``ref.py``) and its model flash
+    with 16-row chunks."""
+    q = jax.random.normal(jax.random.PRNGKey(0), (1, 40, 4, 16))
+    k = jax.random.normal(jax.random.PRNGKey(1), (1, 40, 4, 16))
+    v = jax.random.normal(jax.random.PRNGKey(2), (1, 40, 4, 16))
+    tq, tk, tv = (torch.from_numpy(np.array(a)) for a in (q, k, v))
+    got = attention.flash_attention(tq, tk, tv, causal=False).numpy()
+    for want in (j_ref(q, k, v, causal=False),
+                 j_model_flash(q, k, v, causal=False, chunk_q=16,
+                               chunk_k=16)):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=2e-5,
+                                   atol=2e-5)
+    # unmasked: a late key reaches the first query (the causal mask would
+    # hide it)
+    causal = attention.flash_attention(tq, tk, tv, causal=True).numpy()
+    assert not np.allclose(got[:, 0], causal[:, 0], atol=1e-3)
+
+
+def _check_against_jax(arrs, dtype, causal, window):
+    """The port's ref.py, ops.py and models.attention against the JAX ref,
+    the Pallas kernel in interpret mode and the models' jnp flash."""
     jq, jk, jv = (jnp.asarray(a).astype(dtype) for a in arrs)
     tq, tk, tv = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs)
     before = dict(_build.launches)
