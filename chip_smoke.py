@@ -53,7 +53,12 @@ Phases, each of which raises on failure (nothing is caught):
    against Sk = 1024 (the cross-attention of the forward and of a decode
    step), and Sq != Sk under the causal mask aligned at position 0; each
    timed beside scaled_dot_product_attention with its bound, records under
-   the main record's ``"seamless"``. Every K11 record also has the kernel
+   the main record's ``"seamless"``. zamba2-7b's shared attention block
+   (32 / 32 heads of 112, B=4, S=1024, causal) runs the D = 112 instance in
+   bf16 and f32 (records under ``"d112"``), and beside it the route not
+   taken: q, k and v zero-padded to D = 128 on the host, K11 at 128 with
+   scale 112^-1/2, the output sliced back, held to the plain version and
+   timed with its pads. Every K11 record also has the kernel
    timed alone (``kernel_ms``: calls queued behind a device spin, so the
    launch path drops out), and SDPA's the same way.
 3. The LLM families first, while the card's memory is free, at full width
@@ -93,6 +98,23 @@ Phases, each of which raises on failure (nothing is caught):
      forward at every position, and the run through K11 against the same
      run with ``attention.flash_attention``'s kernel call swapped for its
      plain version (which must launch nothing), each rel < ``ORACLE_REL``.
+   - mamba2-130m (``ssm``, 24 layers) and zamba2-7b (``hybrid``, 81
+     positions: 13 super-blocks of 5 Mamba2 blocks and the shared attention
+     block, then 3 tail blocks; 5.78 G parameters) at full width in bf16,
+     uncut, one at a time (the run fails if the weights, the SSD scan's
+     f32 blocks and ``FAMILY_MARGIN_BYTES`` do not fit the free memory):
+     ``registry.forward`` on 4 x 1024 tokens (after one warm-up call), K11
+     exactly once per super-block (13 for zamba2, each call at (4, 1024,
+     32, 112) causal; none for mamba2); ``LLMServer.generate`` on 4 prompts
+     of 16 tokens, 16 new, by the stepwise warm-up (K11 never), the tokens
+     equal to the warm-up's; forward ms, warm-up and decode ms per step,
+     peak allocation; one forward and one decode step under the profiler
+     (kernels per step). Their f32 oracle at full width and reduced depth
+     (mamba2 2 layers, zamba2 one super-block and one tail block; B=2,
+     S=320, two SSD chunks): decode against the forward at every position
+     within ``DECODE_REL``, and the run through K11 against the run with
+     ``attention.flash_attention``'s kernel call swapped for its plain
+     version within ``ORACLE_REL``.
    Every batched prefill prints its bf16 TFLOP/s as
    ``counting.model_flops(cfg, B·S, "forward")`` over its time.
    Then the FFM main paths at full width (``FFMConfig()``, V = 2^18, random
@@ -213,7 +235,8 @@ Phases, each of which raises on failure (nothing is caught):
    decode step (and, in the families phase while their weights are on the
    card, one granite-8b prefill and one phi3.5-moe decode step; in the
    encoder-decoder phase one seamless ``prefill_cross`` and one decode
-   step) under torch.profiler (kernels launched, device-busy time against
+   step; in the SSM phase one forward and one decode step of each model)
+   under torch.profiler (kernels launched, device-busy time against
    wall time, top kernels; for training K10's share, for the prefills and
    seamless' decode step K11's).
 
@@ -296,6 +319,9 @@ FLASH_D128_HEADS = ((32, 8), (16, 2))
 FLASH_SEAMLESS = ((1024, 1024, False), (256, 1024, False), (1, 1024, False),
                   (256, 1024, True), (1024, 256, True), (1, 1024, True))
 FLASH_SEAMLESS_HEADS, FLASH_SEAMLESS_D = 16, 64
+# K11 at zamba2-7b's shared attention block (B and S of the LLM phase, 32
+# query and 32 KV heads of 3584 / 32 = 112, causal)
+FLASH_D112 = (32, 32, 112)
 # K4 against its plain version: test_kernels.py::test_ffm_interaction_sweep's
 # shapes and tolerances (rtol, atol), then F = 64, K = 16, whose (F, F, K)
 # f32 block would not fit in one CTA's shared memory (262,400 > 232,448 B)
@@ -339,6 +365,19 @@ SEAMLESS_FULL = {"batch": 4, "src": 1024, "gen": 32, "tgt": 256,
                  "oracle": (2, 64, 32), "oracle_layers": 2}
 SEAMLESS_TINY = {"batch": 2, "src": 16, "gen": 4, "tgt": 8,
                  "oracle": (2, 12, 8), "oracle_layers": 2}
+# the SSM phase (mamba2-130m and zamba2-7b at full width, bf16 weights from
+# the seed, uncut): the forward's batch and length; generate's batch,
+# prompt and new tokens; the f32 oracle's batch and length (two SSD chunks,
+# the second ragged) at reduced depth: mamba2 at 2 layers, zamba2 at one
+# super-block and one tail block
+SSM_ARCHS = ("mamba2-130m", "zamba2-7b")
+SSM_FULL = {"batch": 4, "seq": 1024, "prompt": 16, "gen": 16,
+            "oracle": (2, 320)}
+SSM_TINY = {"batch": 2, "seq": 20, "prompt": 8, "gen": 4, "oracle": (2, 20)}
+# decode against the chunked forward (test_archs.py::
+# test_decode_matches_forward's bound): the SSD scan and the recurrence sum
+# in different orders
+DECODE_REL = 5e-3
 # DCNv2 (paper §2.2) at the main path's FFMConfig: test_dcnv2_trains' SGD
 # steps, learning rate and stream seed, at the trainer's microbatch; its
 # forward on the card against the CPU's within rtol and atol of max |logit|
@@ -362,11 +401,13 @@ def bound(bytes_moved: float, flops: float, peak_flops: float = PEAK_F32_FLOPS):
 
 def flash_smem_bytes(d: int, bf16: bool) -> int:
     """K11's dynamic shared memory per block (csrc/flash_attention.cu). The
-    bf16 body (Tile<D>): a 128-row Q tile, 3 stages of 128-key K and V tiles,
+    bf16 body (Tile<D>): a 128-row Q tile, 3 stages of 128-key K and V tiles
+    (D = 112 as wide as D = 128: TMA zero-fills the last 16 columns),
     11 mbarriers and 1024 B of alignment slack. The f32 body (smem_floats):
     64-row Q and K tiles with rows of D + 4 floats, the V tile, the 64 x 68
     P tile."""
-    if bf16:
+    if bf16:  # D rounded up to whole 64-column boxes (112 -> 128)
+        d = d if d < 64 else -(-d // 64) * 64
         return 128 * d * 2 + 3 * 2 * 128 * d * 2 + 11 * 8 + 1024
     return (64 * (d + 4) * 2 + 64 * d + 64 * 68) * 4
 
@@ -1370,6 +1411,45 @@ def main(argv=None) -> int:
               f"{call_ms(lambda: fa_ops.flash_attention(fq, fk, fv))} ms | "
               f"bound {f32_bound:.3e} ms ({f32_by}, f32 peak)")
 
+    def flash_padded_route(b_, s_, h, kv_, d, kept):
+        """The route not taken for a head dim between the instances: q, k
+        and v zero-padded to the next instance's width on the host, K11 at
+        that width with scale d^-1/2, the output sliced back (pads and slice
+        timed with it). Held to the plain version (3e-2); its time beside
+        ``kept``'s (the in-kernel route's record) and SDPA's. Card only."""
+        if not on_card:
+            print(f"kernel flash_attention padded route D = {d}: not "
+                  "measured (no card)")
+            return None
+        dp = min(x for x in fa_ops.BODIES[torch.bfloat16][1] if x > d)
+        fq, fk, fv = qkv(b_, s_, h, kv_, d, torch.bfloat16)
+
+        def padded():
+            qp, kp, vp = (torch.nn.functional.pad(t, (0, dp - d))
+                          for t in (fq, fk, fv))
+            out = torch.empty_like(qp)
+            _build.launch("flash_attention", qp.data_ptr(), kp.data_ptr(),
+                          vp.data_ptr(), out.data_ptr(), b_, s_, s_, h, kv_,
+                          dp, 1, 0, 1, float(np.float32(d ** -0.5)))
+            return out[..., :d].contiguous()
+
+        got = padded()
+        want = fa_ref.flash_attention_ref(fq, fk, fv)
+        err = max_err(got, want)
+        check(allclose(got, want, *(FLASH_TOL["bfloat16"],) * 2),
+              f"flash_attention padded route D = {d}: max abs err {err:.3e}")
+        rec = {"ms": call_ms(padded), "kernel_ms": kernel_ms(padded),
+               "max_abs_err": err, "width": dp}
+        faster = "in-kernel" if kept["ms"] <= rec["ms"] else "padded"
+        print(f"kernel flash_attention bf16 D = {d} routes {[b_, s_, h, kv_]}"
+              f": in-kernel (TMA zero-fills columns {d}-{dp - 1}) "
+              f"{kept['ms']:.4f} ms per call, alone "
+              f"{ms_text(kept['kernel_ms'])}; padded on the host to {dp} "
+              f"{rec['ms']:.4f} ms per call, alone {ms_text(rec['kernel_ms'])}"
+              f"; SDPA {kept['library_ms']:.4f} ms; faster here: {faster} | "
+              f"{smi}")
+        return rec
+
     flash_rec = flash_bf16_case(fa_b, fa_s, fa_h, fa_kv, fa_d)
     flash_f32_case(fa_b, fa_s, fa_h, fa_kv, fa_d)
     # the other families' prefill layers at D = 128: GQA 4:1 (phi3.5-moe,
@@ -1393,6 +1473,15 @@ def main(argv=None) -> int:
             case(fa_b, sq, FLASH_SEAMLESS_HEADS, FLASH_SEAMLESS_HEADS,
                  FLASH_SEAMLESS_D, into=flash_rec["seamless"], sk=sk,
                  causal=causal)
+    # zamba2-7b's shared attention block (32 / 32 heads of 112, B = 4, S =
+    # 1024, causal): the D = 112 instance in bf16 as served and in f32 as the
+    # oracle runs it, records under the main record's "d112"; then the route
+    # it was chosen over, timed in the same place
+    flash_rec["d112"] = []
+    rec112 = flash_bf16_case(fa_b, fa_s, *FLASH_D112, into=flash_rec["d112"])
+    flash_f32_case(fa_b, fa_s, *FLASH_D112, into=flash_rec["d112"])
+    rec112["padded_route"] = flash_padded_route(fa_b, fa_s, *FLASH_D112,
+                                                rec112)
     worst = [0.0, 0.0]
     for dtype in (torch.float32, torch.bfloat16):
         tol = FLASH_TOL[str(dtype).removeprefix("torch.")]
@@ -1435,6 +1524,8 @@ def main(argv=None) -> int:
                       dev, on_card, smi, run_phase, phase_launches)
     seamless_path(SEAMLESS_TINY if args.tiny else SEAMLESS_FULL, args, dev,
                   on_card, smi, run_phase, phase_launches)
+    ssm_path(SSM_TINY if args.tiny else SSM_FULL, args, dev, on_card, smi,
+             run_phase, phase_launches)
 
     # the FFM main path at full width
     t0 = time.perf_counter()
@@ -3333,6 +3424,225 @@ def seamless_path(fam, args, dev, on_card, smi, run_phase, phase_launches):
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+
+
+def ssm_path(fam, args, dev, on_card, smi, run_phase, phase_launches):
+    """Phase 3, the SSM and hybrid families: mamba2-130m and zamba2-7b at
+    full width in bf16, uncut, one at a time, each freed before the next:
+    ``registry.forward`` on B x S tokens (zamba2: K11 once per super-block,
+    each launch at (B, S, 32, 112) causal; mamba2: never), then
+    ``LLMServer.generate`` (the stepwise warm-up, K11 never); one forward
+    and one decode step under the profiler. Then the f32 oracle of each at
+    reduced depth and full width: decode against the forward at every
+    position (:data:`DECODE_REL`), and the run through K11 against the same
+    run with ``attention.flash_attention``'s kernel call swapped for its
+    plain version (:data:`ORACLE_REL`)."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models import hybrid, registry
+    from repro_torch.serving.server import LLMServer
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 7)
+    b, s, p_len, n_new = (fam[k] for k in ("batch", "seq", "prompt", "gen"))
+
+    def free():
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+
+    def tokens(cfg, shape):
+        return torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    def n_k11(cfg):
+        """K11 launches of one forward: one per super-block's shared block."""
+        return hybrid._n_super(cfg) if cfg.family == "hybrid" else 0
+
+    def fits(cfg):
+        """Fails unless the weights, the SSD scan's four (B, S, H, chunk)
+        f32 blocks and :data:`FAMILY_MARGIN_BYTES` fit the free memory."""
+        if not on_card:
+            return
+        q = min(cfg.ssm_chunk, s)
+        ssd = 4 * 4 * b * (-(-s // q) * q) * q * cfg.n_ssm_heads
+        need = spec_bytes(registry.param_specs(cfg)) + ssd + FAMILY_MARGIN_BYTES
+        free_bytes = torch.cuda.mem_get_info(dev)[0]
+        check(need <= free_bytes, f"{cfg.arch_id} needs {need} bytes, the "
+              f"card has {free_bytes} free")
+
+    kernel_call = fa_ops.flash_attention
+    for arch in SSM_ARCHS:
+        free()
+        cfg = registry.get_config(arch, smoke=args.tiny)
+        fits(cfg)
+        t0 = time.perf_counter()
+        params = registry.init_params(cfg, args.seed, dev)
+        if on_card:
+            torch.cuda.synchronize()
+        attn = (f"; the shared block every {cfg.attn_period} positions "
+                f"({hybrid._n_super(cfg)} uses, LoRA rank {cfg.lora_rank}), "
+                f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
+                f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}"
+                if cfg.family == "hybrid" else "; no attention")
+        print(f"llm {arch}: {cfg.n_layers} layers (uncut), d_model "
+              f"{cfg.d_model}, {cfg.n_ssm_heads} SSD heads of "
+              f"{cfg.ssm_headdim}, state {cfg.ssm_state}, chunk "
+              f"{cfg.ssm_chunk}{attn}, vocab {cfg.padded_vocab}; "
+              f"{cfg.param_count()} parameters (param_count), "
+              f"{spec_bytes(registry.param_specs(cfg))} bytes of "
+              f"{cfg.param_dtype} weights made in "
+              f"{time.perf_counter() - t0:.1f} s | {smi}")
+        toks = tokens(cfg, (b, s))
+
+        def forward():
+            with torch.inference_mode():
+                return registry.forward(cfg, params, {"tokens": toks})
+
+        forward()  # first call (cuBLAS' choices)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        seen = []
+
+        def recording(q, k, v, **kw):
+            seen.append((tuple(q.shape), tuple(k.shape), kw.get("causal"),
+                         kw.get("window")))
+            return kernel_call(q, k, v, **kw)
+
+        label_f = f"llm {arch} forward B={b} S={s}"
+        fa_ops.flash_attention = recording
+        try:
+            t0 = time.perf_counter()
+            lg, aux = run_phase(label_f, forward)
+            fwd_s = time.perf_counter() - t0
+        finally:
+            fa_ops.flash_attention = kernel_call
+        check(lg.shape == (b, s, cfg.padded_vocab)
+              and bool(torch.isfinite(lg).all()) and float(aux) == 0.0,
+              f"{label_f}: logits {tuple(lg.shape)}, finite "
+              f"{bool(torch.isfinite(lg).all())}, aux {float(aux)}")
+        del lg
+        hd = cfg.resolved_head_dim if cfg.n_heads else 0
+        want_call = ((b, s, cfg.n_heads, hd), (b, s, cfg.n_kv_heads, hd),
+                     True, cfg.sliding_window)
+        check(len(seen) == n_k11(cfg) and all(c == want_call for c in seen),
+              f"{label_f}: flash_attention called {len(seen)} times "
+              f"(want {n_k11(cfg)}, each {want_call}): {seen[:2]}")
+        fwd_peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
+                    if on_card else "not measured (no card)")
+
+        server = LLMServer(cfg, params, device=dev)
+        prompts = tokens(cfg, (b, p_len))
+        first = server.generate(prompts, n_new)  # warm-up
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        label_g = f"llm {arch} generate B={b} P={p_len} new={n_new}"
+        out = run_phase(label_g, lambda: server.generate(prompts, n_new))
+        gen_peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
+                    if on_card else "not measured (no card)")
+        check(out.shape == (b, n_new) and out.dtype == torch.int32
+              and bool(((out >= 0) & (out < cfg.padded_vocab)).all()),
+              f"{label_g}: tokens {tuple(out.shape)} {out.dtype} out of range")
+        check(torch.equal(out, first), f"{label_g}: differs from the "
+              "warm-up's")
+        if on_card:
+            for label, n in ((label_f, n_k11(cfg)), (label_g, 0)):
+                got = phase_launches[label]["flash_attention"]
+                check(got == n, f"{label}: flash_attention launched {got} "
+                      f"times, want {n}")
+        for label in (label_f, label_g):
+            print(f"launches {label}: {phase_launches[label]} | {smi}")
+        warm, dec = server.last_prefill_s, server.last_decode_s
+        print(f"llm {arch}: forward of {b} x {s} tokens {fwd_s * 1e3:.2f} ms "
+              f"({prefill_rate(cfg, b * s, fwd_s, on_card)}), peak allocated "
+              f"{fwd_peak} | generate: stepwise warm-up {warm * 1e3:.2f} ms "
+              f"({warm / p_len * 1e3:.3f} ms a prompt token), decode "
+              f"{dec / n_new * 1e3:.3f} ms per step ({b * n_new / dec:.0f} "
+              f"tokens/s), peak allocated {gen_peak} | K11 "
+              f"{phase_launches[label_f]['flash_attention']} / "
+              f"{phase_launches[label_g]['flash_attention']} | {smi}")
+        if on_card:
+            where_the_time_goes(f"{cfg.family} forward ({arch}, B={b}, S={s})",
+                                forward, smi, top=8,
+                                share_of="flash_attention_kernel")
+            state = registry.init_decode_state(cfg, b, 2, device=dev)
+            tok0 = torch.zeros((b,), dtype=torch.int32, device=dev)
+
+            def step():
+                with torch.inference_mode():
+                    return registry.decode_step(cfg, params, state, tok0)
+
+            step()
+            where_the_time_goes(f"{cfg.family} decode step ({arch}, B={b})",
+                                step, smi, top=8)
+            del state
+        del params, server
+
+    # the f32 oracle at reduced depth and full width
+    ob, os_ = fam["oracle"]
+    for arch in SSM_ARCHS:
+        free()
+        full = registry.get_config(arch, smoke=args.tiny)
+        n = full.attn_period + 1 if full.family == "hybrid" else 2
+        cfg32 = full.replace(n_layers=n, dtype="float32",
+                             param_dtype="float32")
+        p32 = registry.init_params(cfg32, args.seed, dev)
+        tk = tokens(cfg32, (ob, os_))
+
+        def oracle_run():
+            """(forward logits, stepwise decode logits), each (ob, os_, V),
+            and the K11 launches of the run."""
+            _build.reset_launches()
+            with torch.inference_mode():
+                full_lg, _ = registry.forward(cfg32, p32, {"tokens": tk})
+                st = registry.init_decode_state(cfg32, ob, os_, device=dev)
+                outs = []
+                for i in range(os_):
+                    lg_i, st = registry.decode_step(cfg32, p32, st, tk[:, i])
+                    outs.append(lg_i)
+            if on_card:
+                torch.cuda.synchronize()
+            return (full_lg, torch.stack(outs, 1),
+                    _build.launches["flash_attention"])
+
+        kern_full, kern_dec, n_kern = oracle_run()
+
+        def plain(q, k, v, *, causal=True, window=0):
+            return fa_ref.flash_attention_ref(q, k, v, causal=causal,
+                                              window=window)
+
+        fa_ops.flash_attention = plain
+        try:
+            plain_full, plain_dec, n_plain = oracle_run()
+        finally:
+            fa_ops.flash_attention = kernel_call
+        if on_card:
+            check(n_kern == n_k11(cfg32) and n_plain == 0,
+                  f"{arch} oracle: flash_attention launched {n_kern} times "
+                  f"through the kernels (want {n_k11(cfg32)}), {n_plain} in "
+                  "the plain run")
+        check(bool(torch.isfinite(kern_full).all()) and kern_full.shape ==
+              (ob, os_, cfg32.padded_vocab), f"{arch} oracle: forward logits")
+        rels = {"kernels: decode vs forward": (rel(kern_dec, kern_full),
+                                               DECODE_REL),
+                "plain: decode vs forward": (rel(plain_dec, plain_full),
+                                             DECODE_REL),
+                "forward: kernels vs plain": (rel(kern_full, plain_full),
+                                              ORACLE_REL),
+                "decode: kernels vs plain": (rel(kern_dec, plain_dec),
+                                             ORACLE_REL)}
+        for name, (r, bound_) in rels.items():
+            check(r < bound_, f"{arch} oracle: {name} rel {r:.3e} >= "
+                  f"{bound_}")
+        print(f"llm {arch} oracle (f32, {n} of {full.n_layers} layers, "
+              f"B={ob}, S={os_}, chunk {cfg32.ssm_chunk}; K11 {n_kern} "
+              "launches through the kernels): "
+              + ", ".join(f"{k} rel {r:.3e} (bound {bd})"
+                          for k, (r, bd) in rels.items()) + f" | {smi}")
+        del p32
+    free()
 
 
 def dcnv2_path(cfg, args, dev, on_card, smi, run_phase):

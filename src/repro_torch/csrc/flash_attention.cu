@@ -16,9 +16,9 @@
 //   tensor cores (wgmma) can come near that.
 //
 // Two bodies, chosen by dtype in one place (the C entry at the end):
-//   - bf16, D in {16, 32, 64, 128}: flash_attention_kernel_wgmma, below.
-//     It needs sm_90a (TMA, mbarriers, wgmma, setmaxnreg).
-//   - f32, D in {16, 32, 64, 128}: flash_attention_kernel, the CUDA-core
+//   - bf16, D in {16, 32, 64, 112, 128}: flash_attention_kernel_wgmma,
+//     below. It needs sm_90a (TMA, mbarriers, wgmma, setmaxnreg).
+//   - f32, D in {16, 32, 64, 112, 128}: flash_attention_kernel, the CUDA-core
 //     body further down (f32 FMAs, expf, IEEE division). It is held to 2e-5,
 //     which a TF32 wgmma cannot meet, and serves the f32 oracle and sweeps.
 //
@@ -53,6 +53,13 @@
 //     D = 64, 64 B for D = 32, 32 B for D = 16; D = 128 is two 64-column
 //     boxes of 128 B swizzle, one after the other. The wgmma descriptors
 //     carry the same swizzle; every tile starts on a 1024 B boundary.
+//   - D = 112 (zamba2's shared block) takes D = 128's shared layout and
+//     products: its tensor maps keep the true 112 columns, so TMA's
+//     out-of-bounds fill zeroes columns 112-127 of every tile in shared
+//     memory (nothing is padded in device memory); QK^T takes 7 k16 steps,
+//     PV runs n128 over the zero columns (14% more PV work than an n112
+//     product, on a layout already proven at D = 128), and the epilogue
+//     stores 112 columns.
 //   - Each consumer issues S_i = Q K_i^T and O += P_{i-1} V_{i-1} as two
 //     wgmma groups, runs tile i's softmax while PV is still in flight, then
 //     waits for PV and releases stage i - 1: the exp2 work of one tile
@@ -100,11 +107,14 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <int D>
 struct Tile {
   static constexpr int kBox = D < 64 ? D : 64;  // columns per TMA box
-  static constexpr int kBoxes = D / kBox;       // 2 for D = 128
+  // columns held in shared memory: D rounded up to whole boxes (128 for
+  // D = 112, whose columns 112-127 TMA's out-of-bounds fill zeroes)
+  static constexpr int kDP = (D + kBox - 1) / kBox * kBox;
+  static constexpr int kBoxes = kDP / kBox;     // 2 for D = 112 and 128
   static constexpr int kRowBytes = kBox * 2;    // = the swizzle width
   static constexpr uint32_t kSbo = 8 * kRowBytes;  // next 8 rows or keys
-  static constexpr int kQBytes = kBM * D * 2;
-  static constexpr int kKVBytes = kBN * D * 2;
+  static constexpr int kQBytes = kBM * kDP * 2;
+  static constexpr int kKVBytes = kBN * kDP * 2;
   // wgmma descriptor layout codes: 1 = 128 B, 2 = 64 B, 3 = 32 B swizzle
   static constexpr uint64_t kLayout =
       kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
@@ -376,7 +386,8 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // S = Q K^T over one warpgroup's 64 q rows, as one wgmma group (both
-// operands K-major: a k16 step is 32 B along a row, within its box)
+// operands K-major: a k16 step is 32 B along a row, within its box; D / 16
+// steps, so D = 112's zero-filled columns are never read)
 template <int D>
 __device__ __forceinline__ void issue_qk(float (&s)[kBN / 2], uint32_t q_rows,
                                          uint32_t k_tile) {
@@ -395,15 +406,16 @@ __device__ __forceinline__ void issue_qk(float (&s)[kBN / 2], uint32_t q_rows,
 }
 
 // O += P V as one wgmma group: P from registers, V MN-major (a k16 step is
-// 16 keys down; D = 128's two boxes lie kBN rows apart)
+// 16 keys down; D = 112's and 128's two boxes lie kBN rows apart). The
+// product is kDP wide: D = 112 runs n128 over V's zero-filled columns
 template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+__device__ __forceinline__ void issue_pv(float (&o)[Tile<D>::kDP / 2],
                                          const uint32_t (&p)[kBN / 4],
                                          uint32_t v_tile) {
   using T = Tile<D>;
 #pragma unroll
   for (int kk = 0; kk < kBN / 16; ++kk)
-    Wgmma<D>::rs(o, &p[4 * kk],
+    Wgmma<T::kDP>::rs(o, &p[4 * kk],
                  gmma_desc(v_tile + kk * 16 * T::kRowBytes, kBN * T::kRowBytes,
                            T::kSbo, T::kLayout));
   wgmma_commit();
@@ -527,7 +539,7 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
   const int warp = (threadIdx.x % kWgThreads) / 32, lane = threadIdx.x % 32;
   const int col0 = 2 * (lane % 4);  // column of register 0 in an n8 block
   const uint32_t q_rows = smem_q + wg * 64 * T::kRowBytes;
-  float s[kBN / 2], o[D / 2], m[2], l[2], corr[2];
+  float s[kBN / 2], o[T::kDP / 2], m[2], l[2], corr[2];
   uint32_t p[kBN / 4];
 #pragma unroll
   for (int j = 0; j < kBN / 2; ++j) s[j] = 0.0f;
@@ -558,7 +570,7 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
     m[0] = m[1] = kNegInf;
     l[0] = l[1] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) o[j] = 0.0f;
+    for (int j = 0; j < T::kDP / 2; ++j) o[j] = 0.0f;
 
     // straight-line wgmma groups (no group waited for on one path and not on
     // another), or ptxas serializes every wgmma
@@ -598,7 +610,7 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
       release(bar_empty(prev));
       round_p();
 #pragma unroll
-      for (int j = 0; j < D / 2; ++j) o[j] *= corr[(j >> 1) & 1];
+      for (int j = 0; j < T::kDP / 2; ++j) o[j] *= corr[(j >> 1) & 1];
     }
     release(bar_q_empty);  // every QK of the item is done: the next Q may load
     if (n_tiles > 0) {     // the last tile's PV
@@ -629,7 +641,7 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
       __nv_bfloat16* dst =
           out + ((static_cast<int64_t>(w.b) * Sq + row) * H + w.h) * D + col0;
 #pragma unroll
-      for (int jb = 0; jb < D / 8; ++jb)
+      for (int jb = 0; jb < D / 8; ++jb)  // the D real columns only
         *reinterpret_cast<__nv_bfloat162*>(dst + 8 * jb) =
             __floats2bfloat162_rn(o[4 * jb + 2 * half] / den[half],
                                   o[4 * jb + 2 * half + 1] / den[half]);
@@ -658,7 +670,10 @@ EncodeTiled tensor_map_encoder() {
 }
 
 // a (B, S, heads, D) bf16 array as it lies in memory, boxes of `rows` rows
-// of one head and kBox columns
+// of one head and kBox columns (the map's innermost extent stays D: a box
+// past column D - 1 is zero-filled in shared memory, nothing is padded in
+// device memory; D = 112's row stride of 224 B is a multiple of 16 B, as
+// TMA requires)
 template <int D>
 bool encode_map(CUtensorMap* map, const void* base, int64_t B, int64_t S,
                 int64_t heads, uint32_t rows) {
@@ -923,10 +938,10 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // q: (B, Sq, H, D), k, v: (B, Sk, Kv, D), out: (B, Sq, H, D), all contiguous
-// and of one dtype (f32, or bf16 when bf16 != 0); D in {16, 32, 64, 128};
-// window 0 = no window; scale = D^-1/2 rounded to f32. bf16 takes the wgmma
-// body and needs q, k and v on 16-byte boundaries (TMA); f32 the CUDA-core
-// body.
+// and of one dtype (f32, or bf16 when bf16 != 0); D in {16, 32, 64, 112,
+// 128}; window 0 = no window; scale = D^-1/2 rounded to f32. bf16 takes the
+// wgmma body and needs q, k and v on 16-byte boundaries (TMA); f32 the
+// CUDA-core body.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int64_t B, int64_t Sq, int64_t Sk,
                                int64_t H, int64_t Kv, int64_t D, int64_t causal,
@@ -946,6 +961,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
       case 16: return launch_wgmma<16>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
       case 32: return launch_wgmma<32>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
       case 64: return launch_wgmma<64>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
+      case 112: return launch_wgmma<112>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
       case 128: return launch_wgmma<128>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -954,6 +970,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     case 16: return launch_f32<16>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
     case 32: return launch_f32<32>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
     case 64: return launch_f32<64>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
+    case 112: return launch_f32<112>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
     case 128: return launch_f32<128>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

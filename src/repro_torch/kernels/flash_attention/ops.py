@@ -20,8 +20,8 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 # the body of csrc/flash_attention.cu that serves each dtype, and the head
 # dims it is instantiated for (the C entry's switch on D)
-BODIES = {torch.bfloat16: ("wgmma", (16, 32, 64, 128)),   # TMA + wgmma
-          torch.float32: ("cuda-core", (16, 32, 64, 128))}  # f32 FMAs
+BODIES = {torch.bfloat16: ("wgmma", (16, 32, 64, 112, 128)),  # TMA + wgmma
+          torch.float32: ("cuda-core", (16, 32, 64, 112, 128))}  # f32 FMAs
 TMA_ALIGN = 16  # bytes: a TMA tensor map's base address
 
 

@@ -100,5 +100,5 @@ def moe_forward(cfg, p, x: torch.Tensor, *, aux: bool = True
     if cfg.moe_impl == "expert_parallel":
         raise NotImplementedError(
             "moe_impl='expert_parallel' (shard_map + all_to_all) is not "
-            "ported yet (ROADMAP.md Queue 1 item 5, distribution tooling)")
+            "ported yet (ROADMAP.md Queue 1 item 9, distribution tooling)")
     return moe_dense(cfg, p, x, aux=aux)

@@ -2,11 +2,12 @@
 config, family -> module.
 
 The ``dense``, ``vlm`` and ``moe`` families with GQA attention
-(:mod:`transformer`) and the ``encdec`` family (:mod:`encdec`) are ported
-(:data:`ARCH_IDS`); deepseek-v2 (MLA), mamba2 (``ssm``) and zamba2
-(``hybrid``) wait for their slices (ROADMAP.md Queue 1, LLM side). As in the
-JAX package, ``encdec`` takes the whole batch (``frames`` and ``tokens``) in
-:func:`forward` and ``src_len`` in :func:`init_decode_state`.
+(:mod:`transformer`), the ``encdec`` family (:mod:`encdec`), ``ssm``
+(:mod:`ssm`, mamba2) and ``hybrid`` (:mod:`hybrid`, zamba2) are ported
+(:data:`ARCH_IDS`); deepseek-v2 (MLA) waits for its slice (ROADMAP.md
+Queue 1, LLM side). As in the JAX package, ``encdec`` takes the whole
+batch (``frames`` and ``tokens``) in :func:`forward` and ``src_len`` in
+:func:`init_decode_state`.
 """
 from __future__ import annotations
 
@@ -16,18 +17,21 @@ from typing import Any, Dict
 from repro_torch.common import pspec
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import DeviceLike
-from repro_torch.models import encdec, transformer
+from repro_torch.models import encdec, hybrid, ssm, transformer
 
 FAMILY_MODULES = {"dense": transformer, "vlm": transformer,
-                  "moe": transformer, "encdec": encdec}
+                  "moe": transformer, "ssm": ssm, "hybrid": hybrid,
+                  "encdec": encdec}
 
 _MODULE_FOR_ARCH = {
     "chameleon-34b": "chameleon_34b",
+    "mamba2-130m": "mamba2_130m",
     "yi-6b": "yi_6b",
     "seamless-m4t-large-v2": "seamless_m4t_large_v2",
     "phi3.5-moe-42b-a6.6b": "phi35_moe",
     "llama3.2-1b": "llama32_1b",
     "qwen2.5-3b": "qwen25_3b",
+    "zamba2-7b": "zamba2_7b",
     "granite-8b": "granite_8b",
 }
 
@@ -37,7 +41,7 @@ ARCH_IDS = tuple(_MODULE_FOR_ARCH)
 def _unported(what: str):
     return NotImplementedError(
         f"{what} is not ported yet (ported: {', '.join(ARCH_IDS)}; "
-        "ROADMAP.md Queue 1, LLM side)")
+        "deepseek-v2 waits: ROADMAP.md Queue 1, LLM side)")
 
 
 def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:

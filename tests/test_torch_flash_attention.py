@@ -6,11 +6,12 @@ sliding-window and unmasked; GQA 1:1, 2:1 and 4:1; D 16 / 32 / 64; f32 and
 bf16) and on the shapes that hit the edges of the bf16 kernel's 128 x 128
 tiles (the main path's 32 / 8 heads with S ragged to 64 and 128, cut to
 S = 200 and B = 1 for interpret mode; D = 128 ragged; S below one tile; a
-window whose first live tile is wholly masked for some rows) and on
+window whose first live tile is wholly masked for some rows; D = 112,
+zamba2's head dim, ragged and windowed) and on
 ``CROSS``, queries and keys of different lengths (Sq = 1, Sq < Sk and
-Sq > Sk, causal with the mask aligned at position 0 and unmasked, D 32 and
-64: the encoder-decoder's cross-attention and its decode), against three
-JAX functions on the same seeded inputs: the JAX ``ref.py``,
+Sq > Sk, causal with the mask aligned at position 0 and unmasked, D 32,
+64 and 112: the encoder-decoder's cross-attention and its decode),
+against three JAX functions on the same seeded inputs: the JAX ``ref.py``,
 ``flash_attention_pallas`` in interpret mode with 32-row blocks, and the
 models' jnp flash (``repro.models.attention.flash_attention``) with 32-row
 chunks. Tolerances are the reference's own (``test_kernels.py``): 2e-5 for
@@ -38,17 +39,20 @@ SWEEP = [pytest.param(*c, id="-".join(map(str, c[1:])) if c[0] == 2 else
          for c in [(2, 64, 4, 4, 16, True, 0), (2, 100, 8, 2, 32, True, 0),
                    (2, 128, 4, 4, 16, True, 48), (2, 96, 4, 2, 64, False, 0),
                    (1, 200, 32, 8, 64, True, 0), (2, 300, 8, 2, 128, True, 0),
-                   (2, 40, 4, 4, 64, True, 0), (2, 257, 4, 1, 32, True, 100)]]
+                   (2, 40, 4, 4, 64, True, 0), (2, 257, 4, 1, 32, True, 100),
+                   (1, 130, 4, 4, 112, True, 0), (2, 70, 4, 2, 112, True, 33)]]
 
 
 # (B, Sq, Sk, H, Kv, D, causal): Sq = 1 (a decode step's cross-attention,
 # and causal, where a row sees key 0 only), Sq < Sk and Sq > Sk across
-# several 32-row blocks, and seamless' smoke shapes (4 heads of 32)
+# several 32-row blocks, seamless' smoke shapes (4 heads of 32), and D = 112
+# (zamba2-7b's head dim, between the power-of-two instances)
 CROSS = [pytest.param(*c, id="-".join(map(str, c)))
          for c in [(2, 1, 40, 4, 4, 32, False), (2, 1, 40, 4, 2, 64, True),
                    (2, 24, 70, 4, 4, 64, False), (2, 24, 70, 8, 2, 32, True),
                    (2, 70, 24, 4, 4, 32, False), (2, 70, 24, 4, 1, 64, True),
-                   (2, 16, 12, 4, 4, 32, False), (2, 1, 12, 4, 4, 32, False)]]
+                   (2, 16, 12, 4, 4, 32, False), (2, 1, 12, 4, 4, 32, False),
+                   (2, 24, 70, 4, 4, 112, False), (2, 1, 40, 4, 2, 112, True)]]
 
 
 def _qkv(s, h, kv, d, seed, b=2, sk=None):
@@ -154,12 +158,12 @@ def test_flash_attention_head_dims_are_the_kernels():
         assert src.count(f"return {launcher[body]}<") == len(dims)
 
 
-@pytest.mark.parametrize("d", [8, 16, 32, 48, 64, 128, 256])
+@pytest.mark.parametrize("d", [8, 16, 32, 48, 64, 112, 128, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_flash_attention_body_per_dtype_and_head_dim(dtype, d):
     dtype = getattr(torch, dtype)
     want = {torch.bfloat16: "wgmma", torch.float32: "cuda-core"}.get(dtype)
-    if want is None or d not in (16, 32, 64, 128):
+    if want is None or d not in ops.BODIES[dtype][1]:
         with pytest.raises(ValueError):
             ops.kernel_body(dtype, d)
         q = torch.zeros(1, 4, 2, d, dtype=dtype)

@@ -247,27 +247,31 @@ def test_full_width_param_specs_match(arch):
     assert pspec.count(registry.param_specs(cfg)) == \
         j_pspec.count(j_registry.param_specs(jcfg))
     # fan_in survives the stacking: wq's is d_model, not its head count
+    # (every family but the attention-free ssm has a wq)
     wq = [s for path, s in ours.items() if path[-1] == "wq"]
-    assert wq and all(s.fan_in == cfg.d_model for s in wq)
+    assert bool(wq) == (cfg.family != "ssm")
+    assert all(s.fan_in == cfg.d_model for s in wq)
 
 
-@pytest.mark.parametrize("what", ["mamba2-130m", "attn_kind=mla",
-                                  "family=ssm", "family=hybrid",
+@pytest.mark.parametrize("what", ["deepseek-v2-236b", "attn_kind=mla",
+                                  "n_shared_experts=2", "family=rnn",
                                   "moe_impl=expert_parallel"])
 def test_unported_archs_and_families_raise(what):
     if "=" not in what:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="deepseek-v2 waits"):
             registry.get_config(what)
         return
     key, value = what.split("=")
+    phi = registry.get_config("phi3.5-moe-42b-a6.6b", smoke=True)
     if key == "moe_impl":  # raises by name where the FFN runs
-        cfg = registry.get_config("phi3.5-moe-42b-a6.6b", smoke=True).replace(
-            moe_impl=value)
+        cfg = phi.replace(moe_impl=value)
         params = registry.init_params(cfg, 0, "cpu")
         with pytest.raises(NotImplementedError,
-                           match="expert_parallel.*ROADMAP.md Queue 1 item 5"):
+                           match="expert_parallel.*ROADMAP.md Queue 1 item 9"):
             registry.forward(cfg, params,
                              {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
         return
+    base = phi if key == "n_shared_experts" else llama32_1b.smoke()
+    value = int(value) if value.isdigit() else value
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.param_specs(llama32_1b.smoke().replace(**{key: value}))
+        registry.param_specs(base.replace(**{key: value}))

@@ -104,6 +104,10 @@ def test_port_file_list_is_complete():
                 "repro_torch/configs/yi_6b.py",
                 "repro_torch/configs/qwen25_3b.py",
                 "repro_torch/configs/chameleon_34b.py",
+                "repro_torch/configs/mamba2_130m.py",
+                "repro_torch/configs/zamba2_7b.py",
+                "repro_torch/models/ssm.py",
+                "repro_torch/models/hybrid.py",
                 "repro_torch/models/moe.py",
                 "repro_torch/models/layers.py",
                 "repro_torch/models/attention.py",
