@@ -58,9 +58,15 @@ Phases, each of which raises on failure (nothing is caught):
    bf16 and f32 (records under ``"d112"``), and beside it the route not
    taken: q, k and v zero-padded to D = 128 on the host, K11 at 128 with
    scale 112^-1/2, the output sliced back, held to the plain version and
-   timed with its pads. Every K11 record also has the kernel
-   timed alone (``kernel_ms``: calls queued behind a device spin, so the
-   launch path drops out), and SDPA's the same way.
+   timed with its pads. deepseek-v2-236b's MLA prefill (128 / 128 heads,
+   qk / v head dims 192 / 128, B=4, S=1024, causal, v at its own width)
+   runs the (192, 128) instance in bf16 and f32, and the smoke config's
+   (48, 32) runs on a small shape (B=2, S=256, 4 / 4 heads), each timed
+   beside SDPA (which takes v at its own width too), records under
+   ``"mla"``; both pairs also join the sweep (``FLASH_MLA_SWEEP``). Every
+   K11 record also has the kernel timed alone (``kernel_ms``: calls queued
+   behind a device spin, so the launch path drops out), and SDPA's the
+   same way.
 3. The LLM families first, while the card's memory is free, at full width
    with bf16 weights from the seed, one server at a time, each freed before
    the next:
@@ -115,6 +121,23 @@ Phases, each of which raises on failure (nothing is caught):
      within ``DECODE_REL``, and the run through K11 against the run with
      ``attention.flash_attention``'s kernel call swapped for its plain
      version within ``ORACLE_REL``.
+   - deepseek-v2-236b (``moe`` with MLA and two shared experts) at full
+     width in bf16, as deep as the card's free memory holds beside the
+     forward's transient (measured on one layer first; printed as "n of 60
+     layers"; the run fails if the weights, the latent cache, the
+     transient and ``FAMILY_MARGIN_BYTES`` do not fit):
+     ``registry.forward`` on 4 x 1024 tokens (after one warm-up call), K11
+     exactly once per layer, each call at (4, 1024, 128, 128, 192 / 128)
+     causal with v unpadded; ``LLMServer.generate`` on 4 prompts of 16
+     tokens, 16 new, by the stepwise warm-up and the absorbed decode (K11
+     never), the tokens equal to the warm-up's; forward ms and its
+     ``model_flops`` rate, warm-up and decode ms per step, peak
+     allocation; one forward and one decode step under the profiler. Its
+     f32 oracle at full width and one layer (B=2, S=64, the bf16 weights
+     freed first): the absorbed decode against the expanded forward at
+     every position within ``DECODE_REL``, the forward through K11 against
+     the same forward with the plain flash within ``ORACLE_REL``, and the
+     routers' flips printed and held to ``ROUTER_TIE`` as phi's are.
    Every batched prefill prints its bf16 TFLOP/s as
    ``counting.model_flops(cfg, B·S, "forward")`` over its time.
    Then the FFM main paths at full width (``FFMConfig()``, V = 2^18, random
@@ -235,7 +258,8 @@ Phases, each of which raises on failure (nothing is caught):
    decode step (and, in the families phase while their weights are on the
    card, one granite-8b prefill and one phi3.5-moe decode step; in the
    encoder-decoder phase one seamless ``prefill_cross`` and one decode
-   step; in the SSM phase one forward and one decode step of each model)
+   step; in the SSM phase one forward and one decode step of each model;
+   in the MLA phase one deepseek forward and one decode step)
    under torch.profiler (kernels launched, device-busy time against
    wall time, top kernels; for training K10's share, for the prefills and
    seamless' decode step K11's).
@@ -322,6 +346,19 @@ FLASH_SEAMLESS_HEADS, FLASH_SEAMLESS_D = 16, 64
 # K11 at zamba2-7b's shared attention block (B and S of the LLM phase, 32
 # query and 32 KV heads of 3584 / 32 = 112, causal)
 FLASH_D112 = (32, 32, 112)
+# K11 at deepseek-v2-236b's MLA prefill (B and S of the LLM phase, 128
+# query and 128 KV heads, qk / v head dims 192 / 128, causal, v at its own
+# width): (H, Kv, D, Dv); and at the smoke config's (48, 32) on a small
+# shape: (B, S, H, Kv, D, Dv)
+FLASH_MLA = (128, 128, 192, 128)
+FLASH_MLA_SMALL = (2, 256, 4, 4, 48, 32)
+# the MLA pairs at the edges of the bf16 body's 128 x 128 tiles, each in
+# f32 and bf16: (B, S, H, Kv, D, causal, window, Dv)
+FLASH_MLA_SWEEP = ((2, 200, 4, 2, 192, True, 0, 128),
+                   (2, 300, 4, 4, 192, False, 0, 128),
+                   (2, 257, 4, 1, 192, True, 100, 128),
+                   (2, 70, 4, 4, 48, True, 0, 32),
+                   (2, 130, 4, 2, 48, False, 33, 32))
 # K4 against its plain version: test_kernels.py::test_ffm_interaction_sweep's
 # shapes and tolerances (rtol, atol), then F = 64, K = 16, whose (F, F, K)
 # f32 block would not fit in one CTA's shared memory (262,400 > 232,448 B)
@@ -376,8 +413,18 @@ SSM_FULL = {"batch": 4, "seq": 1024, "prompt": 16, "gen": 16,
 SSM_TINY = {"batch": 2, "seq": 20, "prompt": 8, "gen": 4, "oracle": (2, 20)}
 # decode against the chunked forward (test_archs.py::
 # test_decode_matches_forward's bound): the SSD scan and the recurrence sum
-# in different orders
+# in different orders; MLA's absorbed decode and its expanded forward too
 DECODE_REL = 5e-3
+# the MLA phase (deepseek-v2-236b at full width, bf16 weights from the
+# seed, as deep as the card's free memory holds beside the forward's
+# measured transient): the forward's batch and length; generate's batch,
+# prompt and new tokens; the f32 oracle's batch and length, at
+# MLA_ORACLE_LAYERS layers
+DEEPSEEK = "deepseek-v2-236b"
+MLA_FULL = {"batch": 4, "seq": 1024, "prompt": 16, "gen": 16,
+            "oracle": (2, 64)}
+MLA_TINY = {"batch": 2, "seq": 20, "prompt": 8, "gen": 4, "oracle": (2, 12)}
+MLA_ORACLE_LAYERS = 1
 # DCNv2 (paper §2.2) at the main path's FFMConfig: test_dcnv2_trains' SGD
 # steps, learning rate and stream seed, at the trainer's microbatch; its
 # forward on the card against the CPU's within rtol and atol of max |logit|
@@ -399,17 +446,30 @@ def bound(bytes_moved: float, flops: float, peak_flops: float = PEAK_F32_FLOPS):
                                        else "operations")
 
 
-def flash_smem_bytes(d: int, bf16: bool) -> int:
-    """K11's dynamic shared memory per block (csrc/flash_attention.cu). The
-    bf16 body (Tile<D>): a 128-row Q tile, 3 stages of 128-key K and V tiles
-    (D = 112 as wide as D = 128: TMA zero-fills the last 16 columns),
-    11 mbarriers and 1024 B of alignment slack. The f32 body (smem_floats):
-    64-row Q and K tiles with rows of D + 4 floats, the V tile, the 64 x 68
-    P tile."""
-    if bf16:  # D rounded up to whole 64-column boxes (112 -> 128)
-        d = d if d < 64 else -(-d // 64) * 64
-        return 128 * d * 2 + 3 * 2 * 128 * d * 2 + 11 * 8 + 1024
-    return (64 * (d + 4) * 2 + 64 * d + 64 * 68) * 4
+def flash_smem_bytes(d: int, dv: int, bf16: bool, stages=None):
+    """K11's dynamic shared memory per block at qk / v head dims (d, dv)
+    (csrc/flash_attention.cu) and its K / V ring depth. The bf16 body
+    (Tile<D, Dv>): a 128-row Q tile, ``stages`` stages of 128-key K and V
+    tiles (each width above 32 rounded up to whole 64-column boxes: 112 ->
+    128 and 48 -> 64, TMA zero-filling the rest), 2 + 3 ``stages``
+    mbarriers and 1024 B of alignment slack; ``stages`` None is the
+    kernel's choice, 3 where they fit the 232,448 B a block may use, else 2.
+    The f32 body (smem_floats): 64-row Q and K tiles with rows of D + 4
+    floats, the Dv-wide V tile, the 64 x 68 P tile (no ring: 0 stages).
+    Returns (bytes, stages)."""
+    if not bf16:
+        return (64 * (d + 4) * 2 + 64 * dv + 64 * 68) * 4, 0
+
+    def width(w):
+        return w if w <= 32 else -(-w // 64) * 64
+
+    def total(n):
+        return (128 * width(d) * 2 + n * 128 * (width(d) + width(dv)) * 2
+                + (2 + 3 * n) * 8 + 1024)
+
+    if stages is None:
+        stages = 3 if total(3) <= 232448 else 2
+    return total(stages), stages
 
 
 # template arguments as the mangled names spell them
@@ -419,15 +479,15 @@ MANGLED_TYPES = {"f": "float", "13__nv_bfloat16": "bf16", "a": "int8_t"}
 def ptxas_usage(log: str, needle: str):
     """(kernel, registers, spill line) for each entry function of the build
     log whose name contains ``needle``, named with its template arguments
-    (a type, then an int, as ``needle<float, 8>``)."""
+    (a type, then ints, as ``needle<float, 8>`` or ``needle<192, 128>``)."""
     found, name = [], None
     for line in log.splitlines():
         line = line.strip()
         if "Compiling entry function" in line:
             m = re.search(re.escape(needle) + r"I(f|13__nv_bfloat16|a)?"
-                          r"(?:Li(\d+)E)?", line)
+                          r"((?:Li\d+E)*)", line)
             targs = [MANGLED_TYPES[m.group(1)]] if m and m.group(1) else []
-            targs += [m.group(2)] if m and m.group(2) else []
+            targs += re.findall(r"Li(\d+)E", m.group(2)) if m else []
             name = (f"{needle}<{', '.join(targs)}>" if targs
                     else needle if needle in line else None)
         elif name and "spill" in line:
@@ -446,7 +506,7 @@ def rel(a, ref) -> float:
 
 def attention_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
     """The (row, column) pairs attention's mask keeps: the score and PV work
-    a call needs (4 D operations each)."""
+    a call needs (2 D + 2 Dv operations each)."""
     n = 0
     for r in range(sq):
         hi = min(r, sk - 1) if causal else sk - 1
@@ -455,14 +515,15 @@ def attention_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
     return n
 
 
-def attention_elements(q, k, causal: bool) -> int:
-    """Elements attention must move: q read and the output written, and
-    the k and v rows some query can see (under the causal mask, aligned at
-    position 0, none past key Sq - 1)."""
-    b, sq, _, _ = q.shape
+def attention_elements(q, k, v, causal: bool) -> int:
+    """Elements attention must move: q read and the output (Dv wide)
+    written, and the k and v rows some query can see (under the causal
+    mask, aligned at position 0, none past key Sq - 1)."""
+    b, sq, h, _ = q.shape
     sk, kv, d = k.shape[1:]
+    dv = v.shape[-1]
     live = min(sk, sq) if causal else sk
-    return 2 * q.numel() + 2 * b * live * kv * d
+    return q.numel() + b * sq * h * dv + b * live * kv * (d + dv)
 
 
 def make_slate(cfg, rng, n):
@@ -628,10 +689,16 @@ def main(argv=None) -> int:
               "four warp sums), minmax / "
               "quantize_codes / dequantize_codes 0 B, sparse_weight_grad "
               f"{K10_BLOCK * 32 * 4} B per {K10_BLOCK}-row block held (B = "
-              f"{TRAIN_BATCH}: 4; 8 KiB static), flash_attention bf16 "
-              f"{flash_smem_bytes(llm_cfg.resolved_head_dim, True)} B / f32 "
-              f"{flash_smem_bytes(llm_cfg.resolved_head_dim, False)} B (D = "
-              f"{llm_cfg.resolved_head_dim})")
+              f"{TRAIN_BATCH}: 4; 8 KiB static), flash_attention bf16 / "
+              "f32 at (D, Dv) "
+              + ", ".join(
+                  f"({d}, {dv}) {flash_smem_bytes(d, dv, True)[0]} B in "
+                  f"{flash_smem_bytes(d, dv, True)[1]} stages / "
+                  f"{flash_smem_bytes(d, dv, False)[0]} B"
+                  for d, dv in fa_ops.BODIES[torch.bfloat16][1])
+              + " (a 3-stage ring at (192, 128) would need "
+              f"{flash_smem_bytes(192, 128, True, 3)[0]} B of the 232448 a "
+              "block may use)")
         for name, regs, spill in ptxas_usage(lib.log,
                                              "flash_attention_kernel_wgmma"):
             print(f"  K11 bf16 body {name}: {regs} registers per thread at "
@@ -1293,17 +1360,18 @@ def main(argv=None) -> int:
     fa_h, fa_kv = llm_cfg.n_heads, llm_cfg.n_kv_heads
     fa_d = llm_cfg.resolved_head_dim
 
-    def qkv(b, s_, h, kv_, d, dtype, sk=None):
+    def qkv(b, s_, h, kv_, d, dtype, sk=None, dv=None):
         sk = s_ if sk is None else sk
+        dv = d if dv is None else dv
         return (randn(b, s_, h, d).to(dtype), randn(b, sk, kv_, d).to(dtype),
-                randn(b, sk, kv_, d).to(dtype))
+                randn(b, sk, kv_, dv).to(dtype))
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def sdpa_of(q_, k_, v_, causal):
         """The library yardstick: PyTorch's fused attention on (B, H, S, D)
         copies made outside the timed region (its causal mask is aligned at
-        position 0 too)."""
+        position 0 too; it takes MLA's v at its own width, as K11 does)."""
         h, kv_ = q_.shape[2], k_.shape[2]
         lq, lk, lv = (t.transpose(1, 2).contiguous() for t in (q_, k_, v_))
         if "enable_gqa" in (sdpa.__doc__ or ""):
@@ -1316,18 +1384,22 @@ def main(argv=None) -> int:
                 return sdpa(lq, lk, lv, is_causal=causal)
         return library
 
-    def flash_bf16_case(b_, s_, h, kv_, d, into=None, sk=None, causal=True):
+    def flash_bf16_case(b_, s_, h, kv_, d, into=None, sk=None, causal=True,
+                        dv=None):
         """K11's bf16 body at one layer's shape (Sq = ``s_``, Sk = ``sk``,
-        ``s_`` unless given), timed beside scaled_dot_product_attention,
-        held to 3e-2 and to the roundoff bounds; its record goes to
-        ``into`` as :func:`kernel_case` puts it."""
+        ``s_`` unless given; v ``dv`` wide, ``d`` unless given), timed
+        beside scaled_dot_product_attention, held to 3e-2 and to the
+        roundoff bounds; its record goes to ``into`` as :func:`kernel_case`
+        puts it."""
         sk = s_ if sk is None else sk
-        fq, fk, fv = qkv(b_, s_, h, kv_, d, torch.bfloat16, sk)
-        fa_io = 2 * attention_elements(fq, fk, causal)
-        fa_flops = 4 * d * b_ * h * attention_pairs(s_, sk, causal, 0)
+        dv = d if dv is None else dv
+        fq, fk, fv = qkv(b_, s_, h, kv_, d, torch.bfloat16, sk, dv)
+        fa_io = 2 * attention_elements(fq, fk, fv, causal)
+        fa_flops = 2 * (d + dv) * b_ * h * attention_pairs(s_, sk, causal, 0)
         library = sdpa_of(fq, fk, fv, causal)
-        shape = [b_, s_, h, kv_, d] if sk == s_ and causal else [
-            b_, s_, sk, h, kv_, d, "causal" if causal else "unmasked"]
+        dims = [d] if dv == d else [d, dv]
+        shape = [b_, s_, h, kv_, *dims] if sk == s_ and causal else [
+            b_, s_, sk, h, kv_, *dims, "causal" if causal else "unmasked"]
 
         def fn():
             return fa_ops.flash_attention(fq, fk, fv, causal=causal)
@@ -1364,18 +1436,20 @@ def main(argv=None) -> int:
               "yardstick, not checked)")
         return rec
 
-    def flash_f32_case(b_, s_, h, kv_, d, into=None, sk=None, causal=True):
+    def flash_f32_case(b_, s_, h, kv_, d, into=None, sk=None, causal=True,
+                       dv=None):
         """K11's f32 body at one layer's shape, within 2e-5 (max abs
         error). With ``into`` its record (time, bound, plain and
         scaled_dot_product_attention times) goes there; else it prints its
         error, time and bound."""
         sk = s_ if sk is None else sk
-        fq, fk, fv = qkv(b_, s_, h, kv_, d, torch.float32, sk)
-        f32_io = 4 * attention_elements(fq, fk, causal)
-        f32_flops = 4 * d * b_ * h * attention_pairs(s_, sk, causal, 0)
+        dv = d if dv is None else dv
+        fq, fk, fv = qkv(b_, s_, h, kv_, d, torch.float32, sk, dv)
+        f32_io = 4 * attention_elements(fq, fk, fv, causal)
+        f32_flops = 2 * (d + dv) * b_ * h * attention_pairs(s_, sk, causal, 0)
         if into is not None:
-            shape = [b_, s_, sk, h, kv_, d, "f32",
-                     "causal" if causal else "unmasked"]
+            shape = [b_, s_, sk, h, kv_, *([d] if dv == d else [d, dv]),
+                     "f32", "causal" if causal else "unmasked"]
 
             def fn():
                 return fa_ops.flash_attention(fq, fk, fv, causal=causal)
@@ -1421,7 +1495,8 @@ def main(argv=None) -> int:
             print(f"kernel flash_attention padded route D = {d}: not "
                   "measured (no card)")
             return None
-        dp = min(x for x in fa_ops.BODIES[torch.bfloat16][1] if x > d)
+        dp = min(x for x, xv in fa_ops.BODIES[torch.bfloat16][1]
+                 if x == xv and x > d)
         fq, fk, fv = qkv(b_, s_, h, kv_, d, torch.bfloat16)
 
         def padded():
@@ -1430,7 +1505,7 @@ def main(argv=None) -> int:
             out = torch.empty_like(qp)
             _build.launch("flash_attention", qp.data_ptr(), kp.data_ptr(),
                           vp.data_ptr(), out.data_ptr(), b_, s_, s_, h, kv_,
-                          dp, 1, 0, 1, float(np.float32(d ** -0.5)))
+                          dp, dp, 1, 0, 1, float(np.float32(d ** -0.5)))
             return out[..., :d].contiguous()
 
         got = padded()
@@ -1482,25 +1557,37 @@ def main(argv=None) -> int:
     flash_f32_case(fa_b, fa_s, *FLASH_D112, into=flash_rec["d112"])
     rec112["padded_route"] = flash_padded_route(fa_b, fa_s, *FLASH_D112,
                                                 rec112)
+    # deepseek-v2's MLA prefill (qk / v 192 / 128, v unpadded) in bf16 as
+    # served and in f32 as the oracle runs it, then the smoke config's
+    # (48, 32) on a small shape; records under the main record's "mla"
+    flash_rec["mla"] = []
+    h, kv_, d, dv = FLASH_MLA
+    flash_bf16_case(fa_b, fa_s, h, kv_, d, into=flash_rec["mla"], dv=dv)
+    flash_f32_case(fa_b, fa_s, h, kv_, d, into=flash_rec["mla"], dv=dv)
+    b_, s_, h, kv_, d, dv = FLASH_MLA_SMALL
+    for case in (flash_bf16_case, flash_f32_case):
+        case(b_, s_, h, kv_, d, into=flash_rec["mla"], dv=dv)
     worst = [0.0, 0.0]
     for dtype in (torch.float32, torch.bfloat16):
         tol = FLASH_TOL[str(dtype).removeprefix("torch.")]
-        for b_, s_, h, kv_, d, causal, window in FLASH_SWEEP:
-            q_, k_, v_ = qkv(b_, s_, h, kv_, d, dtype)
+        for case in FLASH_SWEEP + FLASH_MLA_SWEEP:
+            b_, s_, h, kv_, d, causal, window, *dv = case
+            q_, k_, v_ = qkv(b_, s_, h, kv_, d, dtype, dv=(dv or [d])[0])
             got = fa_ops.flash_attention(q_, k_, v_, causal=causal,
                                          window=window)
             want = fa_ref.flash_attention_ref(q_, k_, v_, causal=causal,
                                               window=window)
-            what = (f"flash_attention {dtype} {[b_, s_, h, kv_, d]} causal "
-                    f"{causal} window {window}")
+            what = (f"flash_attention {dtype} {[b_, s_, h, kv_, d, *dv]} "
+                    f"causal {causal} window {window}")
             check(allclose(got, want, tol, tol),
                   f"{what}: max abs err {max_err(got, want):.3e} > {tol}")
             if dtype == torch.bfloat16:
                 worst = [max(w, x) for w, x in zip(worst, check_flash_bf16(
                     got, want, q_, k_, v_, what, causal, window))]
-    print(f"kernel flash_attention: {len(FLASH_SWEEP)} sweep cases "
-          "(test_kernels.py's, D = 128, ragged tiles, S below one tile, "
-          "windows past the first tile) agree with the plain "
+    print(f"kernel flash_attention: {len(FLASH_SWEEP + FLASH_MLA_SWEEP)} "
+          "sweep cases (test_kernels.py's, D = 128, ragged tiles, S below "
+          "one tile, windows past the first tile, MLA's (192, 128) and "
+          "(48, 32)) agree with the plain "
           f"version in f32 (2e-5) and bf16 (3e-2; worst element {worst[0]:.3f}"
           f" and row {worst[1]:.3f} of the roundoff bounds)")
 
@@ -1525,6 +1612,8 @@ def main(argv=None) -> int:
     seamless_path(SEAMLESS_TINY if args.tiny else SEAMLESS_FULL, args, dev,
                   on_card, smi, run_phase, phase_launches)
     ssm_path(SSM_TINY if args.tiny else SSM_FULL, args, dev, on_card, smi,
+             run_phase, phase_launches)
+    mla_path(MLA_TINY if args.tiny else MLA_FULL, args, dev, on_card, smi,
              run_phase, phase_launches)
 
     # the FFM main path at full width
@@ -3642,6 +3731,274 @@ def ssm_path(fam, args, dev, on_card, smi, run_phase, phase_launches):
               + ", ".join(f"{k} rel {r:.3e} (bound {bd})"
                           for k, (r, bd) in rels.items()) + f" | {smi}")
         del p32
+    free()
+
+
+def mla_path(fam, args, dev, on_card, smi, run_phase, phase_launches):
+    """Phase 3, deepseek-v2-236b (MLA and the shared experts) at full width
+    in bf16, as deep as the card's free memory holds beside the forward's
+    transient (measured on one layer; printed as "n of 60 layers"):
+    ``registry.forward`` on B x S tokens (K11 exactly once per layer, each
+    at (B, S, 128, 128, 192 / 128) causal, v unpadded), then
+    ``LLMServer.generate`` (the stepwise warm-up and the absorbed decode,
+    K11 never); one forward and one decode step under the profiler. Then
+    the f32 oracle at full width and :data:`MLA_ORACLE_LAYERS` layer, the
+    bf16 weights freed first: the absorbed decode against the expanded
+    forward at every position (:data:`DECODE_REL`), and the forward through
+    K11 against the same forward with ``attention.flash_attention``'s
+    kernel call swapped for its plain version (:data:`ORACLE_REL`); the
+    routers' choices on the two paths are watched as phi's are."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models import moe, registry
+    from repro_torch.serving.server import LLMServer
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 9)
+    b, s, p_len, n_new = (fam[k] for k in ("batch", "seq", "prompt", "gen"))
+
+    def free():
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+
+    def tokens(cfg, shape):
+        return torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    def cache_bytes(cfg, batch, length):
+        """MLA's latent cache: ``ckv`` and the rope key per layer and
+        position (not ``n_kv_heads * head_dim``)."""
+        return (cfg.n_layers * batch * length
+                * (cfg.kv_lora_rank + cfg.qk_rope_dim)
+                * torch.empty((), dtype=getattr(torch, cfg.dtype)
+                              ).element_size())
+
+    def fits(cfg, transient):
+        """Fails unless the weights, the latent cache, ``transient`` (the
+        forward's, with the allocator's room around it) and
+        :data:`FAMILY_MARGIN_BYTES` fit the free memory."""
+        if not on_card:
+            return
+        need = (spec_bytes(registry.param_specs(cfg)) + transient
+                + cache_bytes(cfg, b, p_len + n_new + 1) + FAMILY_MARGIN_BYTES)
+        free_bytes = torch.cuda.mem_get_info(dev)[0]
+        check(need <= free_bytes, f"{cfg.arch_id} at {cfg.n_layers} layers "
+              f"needs {need} bytes, the card has {free_bytes} free")
+
+    free()
+    full = registry.get_config(DEEPSEEK, smoke=args.tiny)
+    kernel_call = fa_ops.flash_attention
+    n, transient = full.n_layers, 0
+    if on_card:
+        # the forward's transient on one layer (moe_dense's every-expert
+        # blocks: y_all alone is E x B·S x d_model; the logits), then as
+        # many layers as the free memory holds beside it, the transient
+        # counted twice: the caching allocator strands about as much again
+        # in segments that the weights' stacks share with freed draws (on
+        # an H100 at 8 layers: 8.0 GiB reserved but unallocated beside 4.7
+        # GiB free when the forward asked for one 6.25 GiB block)
+        cfg1 = full.replace(n_layers=1)
+        p1 = registry.init_params(cfg1, args.seed, dev)
+        t1 = tokens(cfg1, (b, s))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with torch.inference_mode():
+            registry.forward(cfg1, p1, {"tokens": t1})
+        torch.cuda.synchronize()
+        transient = torch.cuda.max_memory_allocated(dev) - base
+        del p1, t1
+        free()
+        one = spec_bytes(registry.param_specs(cfg1))
+        layer = spec_bytes(registry.param_specs(full.replace(n_layers=2))) - one
+        per_layer = layer + cache_bytes(cfg1, b, p_len + n_new + 1)
+        room = (torch.cuda.mem_get_info(dev)[0] - (one - layer)
+                - 2 * transient - FAMILY_MARGIN_BYTES)
+        n = min(full.n_layers, room // per_layer)
+        check(n >= 1, f"{DEEPSEEK}: one layer ({per_layer} bytes) does not "
+              f"fit beside the forward's transient of {transient} bytes")
+        print(f"llm {DEEPSEEK}: one layer {layer} bytes of bf16 weights, "
+              f"the embeddings and final norm {one - layer}; the forward's "
+              f"transient at B={b}, S={s} {transient} bytes (measured on one "
+              f"layer, counted twice); {n} layers fit | {smi}")
+    cfg = full.replace(n_layers=int(n))
+    fits(cfg, 2 * transient)
+    t0 = time.perf_counter()
+    params = registry.init_params(cfg, args.seed, dev)
+    free()  # the per-layer f32 draws' blocks back to the card
+    qk, vd = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    print(f"llm {DEEPSEEK}: {cfg.n_layers} of {full.n_layers} layers, d_model "
+          f"{cfg.d_model}, MLA {cfg.n_heads} heads, qk / v head dims {qk} / "
+          f"{vd}, q / kv latent ranks {cfg.q_lora_rank} / "
+          f"{cfg.kv_lora_rank}; MoE {cfg.n_experts} experts of "
+          f"{cfg.d_ff_expert}, top-{cfg.top_k}, {cfg.n_shared_experts} "
+          f"shared; vocab {cfg.padded_vocab}; {cfg.param_count()} parameters "
+          f"(param_count; {full.param_count()} at {full.n_layers} layers), "
+          f"{spec_bytes(registry.param_specs(cfg))} bytes of "
+          f"{cfg.param_dtype} weights made in {time.perf_counter() - t0:.1f} s"
+          f" | {smi}")
+    toks = tokens(cfg, (b, s))
+
+    def forward():
+        with torch.inference_mode():
+            return registry.forward(cfg, params, {"tokens": toks})
+
+    forward()  # first call (cuBLAS' choices)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    seen = []
+
+    def recording(q, k, v, **kw):
+        seen.append((tuple(q.shape), tuple(k.shape), tuple(v.shape),
+                     kw.get("causal"), kw.get("window")))
+        return kernel_call(q, k, v, **kw)
+
+    label_f = f"llm {DEEPSEEK} forward B={b} S={s}"
+    fa_ops.flash_attention = recording
+    try:
+        t0 = time.perf_counter()
+        lg, aux = run_phase(label_f, forward)
+        fwd_s = time.perf_counter() - t0
+    finally:
+        fa_ops.flash_attention = kernel_call
+    check(lg.shape == (b, s, cfg.padded_vocab)
+          and bool(torch.isfinite(lg).all()) and bool(torch.isfinite(aux))
+          and float(aux) > 0,
+          f"{label_f}: logits {tuple(lg.shape)}, finite "
+          f"{bool(torch.isfinite(lg).all())}, aux {float(aux)}")
+    del lg
+    h = cfg.n_heads
+    want_call = ((b, s, h, qk), (b, s, h, qk), (b, s, h, vd), True, 0)
+    check(len(seen) == cfg.n_layers and all(c == want_call for c in seen),
+          f"{label_f}: flash_attention called {len(seen)} times (want "
+          f"{cfg.n_layers}, each {want_call}): {seen[:2]}")
+    fwd_peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
+                if on_card else "not measured (no card)")
+    # one more call: at this depth the counted one may also pay the caching
+    # allocator's release and re-allocation of blocks
+    t0 = time.perf_counter()
+    forward()
+    if on_card:
+        torch.cuda.synchronize()
+    fwd2_s = time.perf_counter() - t0
+
+    server = LLMServer(cfg, params, device=dev)
+    prompts = tokens(cfg, (b, p_len))
+    first = server.generate(prompts, n_new)  # warm-up
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    label_g = f"llm {DEEPSEEK} generate B={b} P={p_len} new={n_new}"
+    out = run_phase(label_g, lambda: server.generate(prompts, n_new))
+    gen_peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
+                if on_card else "not measured (no card)")
+    check(out.shape == (b, n_new) and out.dtype == torch.int32
+          and bool(((out >= 0) & (out < cfg.padded_vocab)).all()),
+          f"{label_g}: tokens {tuple(out.shape)} {out.dtype} out of range")
+    check(torch.equal(out, first), f"{label_g}: differs from the warm-up's")
+    if on_card:
+        for label, want in ((label_f, cfg.n_layers), (label_g, 0)):
+            got = phase_launches[label]["flash_attention"]
+            check(got == want, f"{label}: flash_attention launched {got} "
+                  f"times, want {want}")
+    for label in (label_f, label_g):
+        print(f"launches {label}: {phase_launches[label]} | {smi}")
+    warm, dec = server.last_prefill_s, server.last_decode_s
+    print(f"llm {DEEPSEEK} ({cfg.n_layers} of {full.n_layers} layers): "
+          f"forward of {b} x {s} tokens {fwd_s * 1e3:.2f} ms the counted "
+          f"call, {fwd2_s * 1e3:.2f} ms the next "
+          f"({prefill_rate(cfg, b * s, fwd2_s, on_card)}; N counts the "
+          f"top-{cfg.top_k} and {cfg.n_shared_experts} shared experts, the "
+          f"dense combine runs all {cfg.n_experts}), peak allocated "
+          f"{fwd_peak} | generate: stepwise warm-up {warm * 1e3:.2f} ms "
+          f"({warm / p_len * 1e3:.3f} ms a prompt token), decode "
+          f"{dec / n_new * 1e3:.3f} ms per step ({b * n_new / dec:.0f} "
+          f"tokens/s), peak allocated {gen_peak} | K11 "
+          f"{phase_launches[label_f]['flash_attention']} / "
+          f"{phase_launches[label_g]['flash_attention']} | {smi}")
+    if on_card:
+        where_the_time_goes(f"moe forward ({DEEPSEEK}, {cfg.n_layers} layers,"
+                            f" B={b}, S={s})", forward, smi, top=8,
+                            share_of="flash_attention_kernel")
+        state = registry.init_decode_state(cfg, b, 2, device=dev)
+        tok0 = torch.zeros((b,), dtype=torch.int32, device=dev)
+
+        def step():
+            with torch.inference_mode():
+                return registry.decode_step(cfg, params, state, tok0)
+
+        step()
+        where_the_time_goes(f"moe decode step ({DEEPSEEK}, {cfg.n_layers} "
+                            f"layers, B={b}, absorbed MLA)", step, smi, top=8)
+        del state
+    del params, server
+    free()
+
+    # the f32 oracle at full width and MLA_ORACLE_LAYERS layers
+    ob, os_ = fam["oracle"]
+    cfg32 = full.replace(n_layers=MLA_ORACLE_LAYERS, dtype="float32",
+                         param_dtype="float32")
+    p32 = registry.init_params(cfg32, args.seed, dev)
+    tk = tokens(cfg32, (ob, os_))
+    routed = []
+    router = moe._router
+
+    def recording_router(*a):
+        routed.append(router(*a))
+        return routed[-1]
+
+    moe._router = recording_router
+    try:
+        with torch.inference_mode():
+            _build.reset_launches()
+            kern_full, _ = registry.forward(cfg32, p32, {"tokens": tk})
+            n_kern = _build.launches["flash_attention"]
+            st = registry.init_decode_state(cfg32, ob, os_, device=dev)
+            outs = []
+            for i in range(os_):
+                lg_i, st = registry.decode_step(cfg32, p32, st, tk[:, i])
+                outs.append(lg_i)
+            kern_dec = torch.stack(outs, 1)
+            n_dec = _build.launches["flash_attention"] - n_kern
+    finally:
+        moe._router = router
+
+    def plain(q, k, v, *, causal=True, window=0):
+        return fa_ref.flash_attention_ref(q, k, v, causal=causal,
+                                          window=window)
+
+    fa_ops.flash_attention = plain
+    try:
+        with torch.inference_mode():
+            _build.reset_launches()
+            plain_full, _ = registry.forward(cfg32, p32, {"tokens": tk})
+            n_plain = _build.launches["flash_attention"]
+    finally:
+        fa_ops.flash_attention = kernel_call
+    if on_card:
+        torch.cuda.synchronize()
+        check(n_kern == cfg32.n_layers and n_dec == 0 and n_plain == 0,
+              f"{DEEPSEEK} oracle: flash_attention launched {n_kern} times "
+              f"in the forward (want {cfg32.n_layers}), {n_dec} in decode, "
+              f"{n_plain} in the plain run")
+    check(bool(torch.isfinite(kern_full).all()) and kern_full.shape ==
+          (ob, os_, cfg32.padded_vocab), f"{DEEPSEEK} oracle: forward logits")
+    note = router_flips(cfg32, routed, ob, os_)
+    rels = {"absorbed decode vs expanded forward": (rel(kern_dec, kern_full),
+                                                    DECODE_REL),
+            "forward: K11 vs plain flash": (rel(kern_full, plain_full),
+                                            ORACLE_REL)}
+    for name, (r, bound_) in rels.items():
+        check(r < bound_, f"{DEEPSEEK} oracle: {name} rel {r:.3e} >= "
+              f"{bound_}; {note}")
+    print(f"llm {DEEPSEEK} oracle (f32, {cfg32.n_layers} of {full.n_layers} "
+          f"layers, B={ob}, S={os_}; K11 {n_kern} launches in the forward, "
+          f"{n_dec} in decode): "
+          + ", ".join(f"{k} rel {r:.3e} (bound {bd})"
+                      for k, (r, bd) in rels.items()) + f"; {note} | {smi}")
+    del p32, st, kern_full, kern_dec, plain_full
     free()
 
 

@@ -13,14 +13,19 @@
 //   S = 1024, H = 32, Kv = 8, D = 64, bf16, causal) the work is 17.2 GFLOP
 //   over 41.9 MB of Q, K, V and O: 17.4 us at the 989 TFLOP/s bf16 tensor
 //   peak against 12.5 us at 3.35 TB/s, so operations bound it, and only the
-//   tensor cores (wgmma) can come near that.
+//   tensor cores (wgmma) can come near that. At deepseek-v2's MLA prefill
+//   (B = 4, S = 1024, H = Kv = 128, qk / v head dims 192 / 128, causal)
+//   bytes bound it: 671.1 MB, 200.3 us, against 172.0 GFLOP, 173.9 us.
 //
-// Two bodies, chosen by dtype in one place (the C entry at the end):
-//   - bf16, D in {16, 32, 64, 112, 128}: flash_attention_kernel_wgmma,
-//     below. It needs sm_90a (TMA, mbarriers, wgmma, setmaxnreg).
-//   - f32, D in {16, 32, 64, 112, 128}: flash_attention_kernel, the CUDA-core
-//     body further down (f32 FMAs, expf, IEEE division). It is held to 2e-5,
-//     which a TF32 wgmma cannot meet, and serves the f32 oracle and sweeps.
+// Two bodies, chosen by dtype in one place (the C entry at the end), each
+// instantiated per (qk head dim D, v head dim Dv): D = Dv in {16, 32, 64,
+// 112, 128}, and MLA's (48, 32) and (192, 128) (deepseek-v2's smoke and
+// full configs; v is taken at its own width, never padded to D):
+//   - bf16: flash_attention_kernel_wgmma, below. It needs sm_90a (TMA,
+//     mbarriers, wgmma, setmaxnreg).
+//   - f32: flash_attention_kernel, the CUDA-core body further down (f32
+//     FMAs, expf, IEEE division). It is held to 2e-5, which a TF32 wgmma
+//     cannot meet, and serves the f32 oracle and sweeps.
 //
 // The bf16 body (FlashAttention-3's shape, its intra-warpgroup overlap and
 // its ping-pong between the two consumer warpgroups):
@@ -35,12 +40,13 @@
 //     every TMA load, running ahead into the next item (its Q as soon as the
 //     consumers' last QK^T of this one is done, its K / V as stages free).
 //   - Q is loaded once per item by TMA (a full and an empty mbarrier); K
-//     and V tiles of 128 keys go through TMA into a ring of kStages stages,
-//     each with a K-full, a V-full and an empty mbarrier (the consumers'
-//     eight warps arrive on the empty one after the PV wgmma that read V has
-//     completed). The tensor maps are
-//     built per call over the 4-D (B, S, heads, D) arrays as they are (row
-//     stride H*D or Kv*D), so a tile never reads the next batch row and
+//     and V tiles of 128 keys go through TMA into a ring of kStages stages
+//     (3; 2 at (192, 128), whose 3 stages would not fit the 232,448 B a
+//     block may hold), each with a K-full, a V-full and an empty mbarrier
+//     (the consumers' eight warps arrive on the empty one after the PV
+//     wgmma that read V has completed). The tensor maps are built per call
+//     over the 4-D (B, S, heads, D or Dv) arrays as they are (row stride
+//     H*D, Kv*D or Kv*Dv), so a tile never reads the next batch row and
 //     TMA's out-of-bounds zero fill replaces padding; ragged columns are
 //     still masked (cols < Sk).
 //   - S = Q K^T is wgmma m64n128k16 with Q and K read from shared memory
@@ -48,18 +54,23 @@
 //     registers, converted to bf16 in place from the S accumulator fragment
 //     (the m64n16 accumulator layout of keys 16kk..16kk+15 is the k16 A
 //     fragment), and V as the B operand from shared memory, MN-major
-//     (transpose bit set). P never goes through shared memory.
-//   - Shared tiles use the swizzle that equals a row's width: 128 B for
-//     D = 64, 64 B for D = 32, 32 B for D = 16; D = 128 is two 64-column
-//     boxes of 128 B swizzle, one after the other. The wgmma descriptors
-//     carry the same swizzle; every tile starts on a 1024 B boundary.
-//   - D = 112 (zamba2's shared block) takes D = 128's shared layout and
-//     products: its tensor maps keep the true 112 columns, so TMA's
-//     out-of-bounds fill zeroes columns 112-127 of every tile in shared
-//     memory (nothing is padded in device memory); QK^T takes 7 k16 steps,
-//     PV runs n128 over the zero columns (14% more PV work than an n112
-//     product, on a layout already proven at D = 128), and the epilogue
-//     stores 112 columns.
+//     (transpose bit set), N = Dv's shared width. P never goes through
+//     shared memory.
+//   - Q / K and V each have their own shared layout (Layout<W>, W = D or
+//     Dv): a width of 16 or 32 is one box whose swizzle equals a row's
+//     width (32 B, 64 B); a wider one is 64-column boxes of 128 B swizzle,
+//     one after the other (two at 128, three at 192). The wgmma
+//     descriptors carry the same swizzle; every tile starts on a 1024 B
+//     boundary.
+//   - A width that is not whole boxes (D = 112, zamba2's shared block; D =
+//     48, MLA's smoke qk dim) is held as the next whole box count (128,
+//     64): its tensor maps keep the true columns (a box may reach past
+//     them: at 48 the one 64-column box is wider than the row), so TMA's
+//     out-of-bounds fill zeroes the rest of every tile in shared memory
+//     (nothing is padded in device memory); QK^T takes D / 16 k16 steps
+//     and never reads the zeros; PV at Dv = 112 runs n128 over them (14%
+//     more PV work than an n112 product, on a layout already proven at D =
+//     128), and the epilogue stores Dv columns.
 //   - Each consumer issues S_i = Q K_i^T and O += P_{i-1} V_{i-1} as two
 //     wgmma groups, runs tile i's softmax while PV is still in flight, then
 //     waits for PV and releases stage i - 1: the exp2 work of one tile
@@ -98,33 +109,47 @@ constexpr float kNegInf = -1e30f;
 
 constexpr int kBM = 128;      // q rows per CTA (two consumer warpgroups)
 constexpr int kBN = 128;      // keys per K / V tile
-constexpr int kStages = 3;    // K / V ring depth
+constexpr int kSmemMax = 232448;  // dynamic shared memory a block may use
 constexpr int kWgThreads = 128;
 constexpr int kWgmmaThreads = 3 * kWgThreads;  // 2 consumers + 1 producer
 constexpr int kConsumerWarps = 8;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
-struct Tile {
-  static constexpr int kBox = D < 64 ? D : 64;  // columns per TMA box
-  // columns held in shared memory: D rounded up to whole boxes (128 for
-  // D = 112, whose columns 112-127 TMA's out-of-bounds fill zeroes)
-  static constexpr int kDP = (D + kBox - 1) / kBox * kBox;
-  static constexpr int kBoxes = kDP / kBox;     // 2 for D = 112 and 128
+// one operand's shared layout, W columns wide (D for Q and K, Dv for V)
+template <int W>
+struct Layout {
+  static constexpr int kBox = W <= 32 ? W : 64;  // columns per TMA box
+  // columns held in shared memory: W rounded up to whole boxes (128 for
+  // W = 112, 64 for W = 48: TMA's out-of-bounds fill zeroes the rest)
+  static constexpr int kDP = (W + kBox - 1) / kBox * kBox;
+  static constexpr int kBoxes = kDP / kBox;     // 2 at 112 / 128, 3 at 192
   static constexpr int kRowBytes = kBox * 2;    // = the swizzle width
   static constexpr uint32_t kSbo = 8 * kRowBytes;  // next 8 rows or keys
-  static constexpr int kQBytes = kBM * kDP * 2;
-  static constexpr int kKVBytes = kBN * kDP * 2;
   // wgmma descriptor layout codes: 1 = 128 B, 2 = 64 B, 3 = 32 B swizzle
   static constexpr uint64_t kLayout =
       kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
   static constexpr CUtensorMapSwizzle kSwizzle =
       kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
       : kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
-  // Q, then per stage K and V, then the barriers (Q full, Q empty, then per
-  // stage K full, V full, empty); 1024 B of slack to align
-  static constexpr int kBarOffset = kQBytes + kStages * 2 * kKVBytes;
+};
+
+// shared memory of one (D, Dv) instance: Q, then per stage K and V, then
+// the barriers (Q full, Q empty, then per stage K full, V full, empty);
+// 1024 B of slack to align. The ring is 3 deep where that fits, else 2
+// ((192, 128): 3 stages would need 296,024 B, 2 take 214,080)
+template <int D, int Dv>
+struct Tile {
+  using QK = Layout<D>;
+  using V = Layout<Dv>;
+  static constexpr int kQBytes = kBM * QK::kDP * 2;
+  static constexpr int kKBytes = kBN * QK::kDP * 2;
+  static constexpr int kVBytes = kBN * V::kDP * 2;
+  static constexpr int kStageBytes = kKBytes + kVBytes;
+  static constexpr int kStages =
+      kQBytes + 3 * kStageBytes + (2 + 3 * 3) * 8 + 1024 <= kSmemMax ? 3 : 2;
+  static constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
   static constexpr int kSmemBytes = kBarOffset + (2 + 3 * kStages) * 8 + 1024;
+  static_assert(kSmemBytes <= kSmemMax, "K11's tiles exceed shared memory");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -387,37 +412,37 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // S = Q K^T over one warpgroup's 64 q rows, as one wgmma group (both
 // operands K-major: a k16 step is 32 B along a row, within its box; D / 16
-// steps, so D = 112's zero-filled columns are never read)
+// steps, so the zero-filled columns of D = 48 and 112 are never read)
 template <int D>
 __device__ __forceinline__ void issue_qk(float (&s)[kBN / 2], uint32_t q_rows,
                                          uint32_t k_tile) {
-  using T = Tile<D>;
+  using L = Layout<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 / T::kBox, off = (kk * 16 % T::kBox) * 2;
+    const int c = kk * 16 / L::kBox, off = (kk * 16 % L::kBox) * 2;
     Wgmma<kBN>::ss(s,
-                   gmma_desc(q_rows + c * kBM * T::kRowBytes + off, 16,
-                             T::kSbo, T::kLayout),
-                   gmma_desc(k_tile + c * kBN * T::kRowBytes + off, 16,
-                             T::kSbo, T::kLayout),
+                   gmma_desc(q_rows + c * kBM * L::kRowBytes + off, 16,
+                             L::kSbo, L::kLayout),
+                   gmma_desc(k_tile + c * kBN * L::kRowBytes + off, 16,
+                             L::kSbo, L::kLayout),
                    kk > 0);
   }
   wgmma_commit();
 }
 
 // O += P V as one wgmma group: P from registers, V MN-major (a k16 step is
-// 16 keys down; D = 112's and 128's two boxes lie kBN rows apart). The
-// product is kDP wide: D = 112 runs n128 over V's zero-filled columns
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[Tile<D>::kDP / 2],
+// 16 keys down; the boxes of Dv = 112 and 128 lie kBN rows apart). The
+// product is V's kDP wide: Dv = 112 runs n128 over V's zero-filled columns
+template <int Dv>
+__device__ __forceinline__ void issue_pv(float (&o)[Layout<Dv>::kDP / 2],
                                          const uint32_t (&p)[kBN / 4],
                                          uint32_t v_tile) {
-  using T = Tile<D>;
+  using L = Layout<Dv>;
 #pragma unroll
   for (int kk = 0; kk < kBN / 16; ++kk)
-    Wgmma<T::kDP>::rs(o, &p[4 * kk],
-                 gmma_desc(v_tile + kk * 16 * T::kRowBytes, kBN * T::kRowBytes,
-                           T::kSbo, T::kLayout));
+    Wgmma<L::kDP>::rs(o, &p[4 * kk],
+                 gmma_desc(v_tile + kk * 16 * L::kRowBytes, kBN * L::kRowBytes,
+                           L::kSbo, L::kLayout));
   wgmma_commit();
 }
 
@@ -465,7 +490,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kBN / 2], float (&m)[2],
   for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
 }
 
-template <int D>
+template <int D, int Dv>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
                              const __grid_constant__ CUtensorMap map_k,
@@ -473,14 +498,17 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
                              __nv_bfloat16* __restrict__ out, int Sq, int Sk,
                              int B, int H, int Kv, int causal, int window,
                              float scale_log2) {
-  using T = Tile<D>;
+  using T = Tile<D, Dv>;
+  using QK = typename T::QK;
+  using V = typename T::V;
+  constexpr int kStages = T::kStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t smem_q = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_q = smem_q + T::kBarOffset, bar_q_empty = bar_q + 8;
   auto smem_k = [&](int s) {
-    return smem_q + T::kQBytes + s * 2 * T::kKVBytes;
+    return smem_q + T::kQBytes + s * T::kStageBytes;
   };
-  auto smem_v = [&](int s) { return smem_k(s) + T::kKVBytes; };
+  auto smem_v = [&](int s) { return smem_k(s) + T::kKBytes; };
   auto bar_k = [&](int s) { return bar_q + 8 * (2 + s); };
   auto bar_v = [&](int s) { return bar_q + 8 * (2 + kStages + s); };
   auto bar_empty = [&](int s) { return bar_q + 8 * (2 + 2 * kStages + s); };
@@ -511,20 +539,20 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
         const int kvh = w.h / (H / Kv);
         mbar_wait(bar_q_empty, (n & 1) ^ 1);  // the last item's QKs are done
         mbar_expect_tx(bar_q, T::kQBytes);
-        for (int c = 0; c < T::kBoxes; ++c)
-          tma_load(smem_q + c * kBM * T::kRowBytes, &map_q, bar_q, c * T::kBox,
-                   w.h, w.q0, w.b);
+        for (int c = 0; c < QK::kBoxes; ++c)
+          tma_load(smem_q + c * kBM * QK::kRowBytes, &map_q, bar_q,
+                   c * QK::kBox, w.h, w.q0, w.b);
         for (int t = w.t0; t < w.t1; ++t, ++tile) {
           const int s = tile % kStages;
           mbar_wait(bar_empty(s), ((tile / kStages) & 1) ^ 1);
-          mbar_expect_tx(bar_k(s), T::kKVBytes);
-          for (int c = 0; c < T::kBoxes; ++c)
-            tma_load(smem_k(s) + c * kBN * T::kRowBytes, &map_k, bar_k(s),
-                     c * T::kBox, kvh, t * kBN, w.b);
-          mbar_expect_tx(bar_v(s), T::kKVBytes);
-          for (int c = 0; c < T::kBoxes; ++c)
-            tma_load(smem_v(s) + c * kBN * T::kRowBytes, &map_v, bar_v(s),
-                     c * T::kBox, kvh, t * kBN, w.b);
+          mbar_expect_tx(bar_k(s), T::kKBytes);
+          for (int c = 0; c < QK::kBoxes; ++c)
+            tma_load(smem_k(s) + c * kBN * QK::kRowBytes, &map_k, bar_k(s),
+                     c * QK::kBox, kvh, t * kBN, w.b);
+          mbar_expect_tx(bar_v(s), T::kVBytes);
+          for (int c = 0; c < V::kBoxes; ++c)
+            tma_load(smem_v(s) + c * kBN * V::kRowBytes, &map_v, bar_v(s),
+                     c * V::kBox, kvh, t * kBN, w.b);
         }
       }
     }
@@ -538,8 +566,8 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   const int warp = (threadIdx.x % kWgThreads) / 32, lane = threadIdx.x % 32;
   const int col0 = 2 * (lane % 4);  // column of register 0 in an n8 block
-  const uint32_t q_rows = smem_q + wg * 64 * T::kRowBytes;
-  float s[kBN / 2], o[T::kDP / 2], m[2], l[2], corr[2];
+  const uint32_t q_rows = smem_q + wg * 64 * QK::kRowBytes;
+  float s[kBN / 2], o[V::kDP / 2], m[2], l[2], corr[2];
   uint32_t p[kBN / 4];
 #pragma unroll
   for (int j = 0; j < kBN / 2; ++j) s[j] = 0.0f;
@@ -570,7 +598,7 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
     m[0] = m[1] = kNegInf;
     l[0] = l[1] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < T::kDP / 2; ++j) o[j] = 0.0f;
+    for (int j = 0; j < V::kDP / 2; ++j) o[j] = 0.0f;
 
     // straight-line wgmma groups (no group waited for on one path and not on
     // another), or ptxas serializes every wgmma
@@ -599,7 +627,7 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
       turn_wait(wg);
       wgmma_fence();
       issue_qk<D>(s, q_rows, smem_k(st));  // S_i
-      issue_pv<D>(o, p, smem_v(prev));     // O += P_{i-1} V_{i-1}
+      issue_pv<Dv>(o, p, smem_v(prev));    // O += P_{i-1} V_{i-1}
       turn_pass(wg);
       wgmma_wait<1>();                     // S_i done, PV may still run
       fence_regs(s);
@@ -610,7 +638,7 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
       release(bar_empty(prev));
       round_p();
 #pragma unroll
-      for (int j = 0; j < T::kDP / 2; ++j) o[j] *= corr[(j >> 1) & 1];
+      for (int j = 0; j < V::kDP / 2; ++j) o[j] *= corr[(j >> 1) & 1];
     }
     release(bar_q_empty);  // every QK of the item is done: the next Q may load
     if (n_tiles > 0) {     // the last tile's PV
@@ -619,7 +647,7 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
       fence_regs(o);
       turn_wait(wg);
       wgmma_fence();
-      issue_pv<D>(o, p, smem_v(last % kStages));
+      issue_pv<Dv>(o, p, smem_v(last % kStages));
       turn_pass(wg);
       wgmma_wait<0>();
       fence_regs(o);
@@ -639,9 +667,9 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
       const int row = row0 + 8 * half;
       if (row >= Sq) continue;
       __nv_bfloat16* dst =
-          out + ((static_cast<int64_t>(w.b) * Sq + row) * H + w.h) * D + col0;
+          out + ((static_cast<int64_t>(w.b) * Sq + row) * H + w.h) * Dv + col0;
 #pragma unroll
-      for (int jb = 0; jb < D / 8; ++jb)  // the D real columns only
+      for (int jb = 0; jb < Dv / 8; ++jb)  // the Dv real columns only
         *reinterpret_cast<__nv_bfloat162*>(dst + 8 * jb) =
             __floats2bfloat162_rn(o[4 * jb + 2 * half] / den[half],
                                   o[4 * jb + 2 * half + 1] / den[half]);
@@ -669,33 +697,33 @@ EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// a (B, S, heads, D) bf16 array as it lies in memory, boxes of `rows` rows
-// of one head and kBox columns (the map's innermost extent stays D: a box
-// past column D - 1 is zero-filled in shared memory, nothing is padded in
-// device memory; D = 112's row stride of 224 B is a multiple of 16 B, as
-// TMA requires)
-template <int D>
+// a (B, S, heads, W) bf16 array as it lies in memory, boxes of `rows` rows
+// of one head and Layout<W>::kBox columns (the map's innermost extent stays
+// W: a box past column W - 1 is zero-filled in shared memory, nothing is
+// padded in device memory; the row strides of W = 48 and 112, 96 B and
+// 224 B, are multiples of 16 B, as TMA requires)
+template <int W>
 bool encode_map(CUtensorMap* map, const void* base, int64_t B, int64_t S,
                 int64_t heads, uint32_t rows) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(W),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D * 2),
-                                 static_cast<cuuint64_t>(heads * D * 2),
-                                 static_cast<cuuint64_t>(S * heads * D * 2)};
-  const cuuint32_t box[4] = {Tile<D>::kBox, 1, rows, 1};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(W * 2),
+                                 static_cast<cuuint64_t>(heads * W * 2),
+                                 static_cast<cuuint64_t>(S * heads * W * 2)};
+  const cuuint32_t box[4] = {Layout<W>::kBox, 1, rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, Tile<D>::kSwizzle,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, Layout<W>::kSwizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, int Dv>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
                          int64_t B, int64_t Sq, int64_t Sk, int64_t H,
                          int64_t Kv, int64_t causal, int64_t window,
@@ -703,10 +731,10 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   CUtensorMap map_q, map_k, map_v;
   if (!encode_map<D>(&map_q, q, B, Sq, H, kBM) ||
       !encode_map<D>(&map_k, k, B, Sk, Kv, kBN) ||
-      !encode_map<D>(&map_v, v, B, Sk, Kv, kBN))
+      !encode_map<Dv>(&map_v, v, B, Sk, Kv, kBN))
     return cudaErrorInvalidValue;
-  auto* kernel = flash_attention_kernel_wgmma<D>;
-  const int smem = Tile<D>::kSmemBytes;
+  auto* kernel = flash_attention_kernel_wgmma<D, Dv>;
+  const int smem = Tile<D, Dv>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -735,7 +763,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
 //     and masked (cols < Sk), never padded in device memory.
 //   - Thread (ty, tx) = (tid / 16, tid % 16) owns the scores of rows
 //     ty + 16 i and columns tx + 16 j (i, j < 4) and the outputs of the same
-//     rows, columns tx * D/16 .. + D/16. A row's 64 scores sit in the 16
+//     rows, columns tx * Dv/16 .. + Dv/16. A row's 64 scores sit in the 16
 //     lanes of one half-warp, so the row max and sum are xor-shuffle trees
 //     and m, l and the rescale factor stay in registers; only P goes through
 //     shared memory.
@@ -752,25 +780,26 @@ __device__ __forceinline__ float lane(const float4& v, int i) {
 }
 
 // shared memory of one CTA (floats): Q and K tiles with rows of D + 4 (16-byte
-// rows whose starts fall on different banks), the V tile, the P tile
-template <int D>
+// rows whose starts fall on different banks), the V tile (Dv wide), the P
+// tile; 150,528 B at (192, 128)
+template <int D, int Dv>
 constexpr int smem_floats() {
-  return kBQ * (D + 4) + kBK * (D + 4) + kBK * D + kBQ * kPS;
+  return kBQ * (D + 4) + kBK * (D + 4) + kBK * Dv + kBQ * kPS;
 }
 
-template <int D>
+template <int D, int Dv>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
                        int64_t Sq, int64_t Sk, int H, int Kv, int causal,
                        int64_t window, float scale) {
   constexpr int QS = D + 4;
-  constexpr int DC = D / 16;  // output columns per thread
+  constexpr int DC = Dv / 16;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Ks = Qs + kBQ * QS;
   float* Vs = Ks + kBK * QS;
-  float* Ps = Vs + kBK * D;
+  float* Ps = Vs + kBK * Dv;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
@@ -806,14 +835,14 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int idx = tid; idx < kBK * D; idx += kThreads) {
       const int r = idx / D, d = idx % D;
       const int64_t col = k0 + r;
-      float kk = 0.0f, vv = 0.0f;
-      if (col < Sk) {
-        const int64_t off = ((b * Sk + col) * Kv + kvh) * D + d;
-        kk = k[off];
-        vv = v[off];
-      }
-      Ks[r * QS + d] = kk;
-      Vs[r * D + d] = vv;
+      Ks[r * QS + d] =
+          col < Sk ? k[((b * Sk + col) * Kv + kvh) * D + d] : 0.0f;
+    }
+    for (int idx = tid; idx < kBK * Dv; idx += kThreads) {
+      const int r = idx / Dv, d = idx % Dv;
+      const int64_t col = k0 + r;
+      Vs[r * Dv + d] =
+          col < Sk ? v[((b * Sk + col) * Kv + kvh) * Dv + d] : 0.0f;
     }
     __syncthreads();
 
@@ -891,7 +920,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int jj = 0; jj < 4; ++jj) {
         float vr[DC];
 #pragma unroll
-        for (int c = 0; c < DC; ++c) vr[c] = Vs[(j + jj) * D + tx * DC + c];
+        for (int c = 0; c < DC; ++c) vr[c] = Vs[(j + jj) * Dv + tx * DC + c];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -910,19 +939,19 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int64_t row = q0 + ty + 16 * i;
     if (row >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    float* o = out + ((b * Sq + row) * H + h) * D + tx * DC;
+    float* o = out + ((b * Sq + row) * H + h) * Dv + tx * DC;
 #pragma unroll
     for (int c = 0; c < DC; ++c) o[c] = acc[i][c] / denom;
   }
 }
 
-template <int D>
+template <int D, int Dv>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
                        int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t Kv,
                        int64_t causal, int64_t window, float scale,
                        cudaStream_t stream) {
-  const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
-  auto* kernel = flash_attention_kernel<D>;
+  const int smem = smem_floats<D, Dv>() * static_cast<int>(sizeof(float));
+  auto* kernel = flash_attention_kernel<D, Dv>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -935,43 +964,51 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// (D, Dv) as one case label of the C entry's switch
+constexpr int64_t pair(int64_t d, int64_t dv) { return d << 16 | dv; }
+
 }  // namespace
 
-// q: (B, Sq, H, D), k, v: (B, Sk, Kv, D), out: (B, Sq, H, D), all contiguous
-// and of one dtype (f32, or bf16 when bf16 != 0); D in {16, 32, 64, 112,
-// 128}; window 0 = no window; scale = D^-1/2 rounded to f32. bf16 takes the
-// wgmma body and needs q, k and v on 16-byte boundaries (TMA); f32 the
-// CUDA-core body.
+// q: (B, Sq, H, D), k: (B, Sk, Kv, D), v: (B, Sk, Kv, Dv), out: (B, Sq, H,
+// Dv), all contiguous and of one dtype (f32, or bf16 when bf16 != 0); (D,
+// Dv) one of the pairs below; window 0 = no window; scale = D^-1/2 rounded
+// to f32. bf16 takes the wgmma body and needs q, k and v on 16-byte
+// boundaries (TMA); f32 the CUDA-core body.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int64_t B, int64_t Sq, int64_t Sk,
-                               int64_t H, int64_t Kv, int64_t D, int64_t causal,
-                               int64_t window, int64_t bf16, float scale,
-                               void* stream) {
+                               int64_t H, int64_t Kv, int64_t D, int64_t Dv,
+                               int64_t causal, int64_t window, int64_t bf16,
+                               float scale, void* stream) {
   constexpr int64_t kMax = 0x7fffffff;
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || Kv <= 0 || H % Kv != 0 ||
       window < 0 || window > kMax || Sq > kMax || Sk > kMax || B > 65535 ||
-      H > 65535 || (Sq + kBM - 1) / kBM * B * H > kMax)
+      H > 65535 || (Sq + kBM - 1) / kBM * B * H > kMax || D <= 0 || Dv <= 0 ||
+      D > 0xffff || Dv > 0xffff)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
          reinterpret_cast<uintptr_t>(v)) % 16 != 0)
       return static_cast<int>(cudaErrorInvalidValue);
-    switch (D) {
-      case 16: return launch_wgmma<16>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
-      case 32: return launch_wgmma<32>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
-      case 64: return launch_wgmma<64>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
-      case 112: return launch_wgmma<112>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
-      case 128: return launch_wgmma<128>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
+    switch (pair(D, Dv)) {
+      case pair(16, 16): return launch_wgmma<16, 16>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
+      case pair(32, 32): return launch_wgmma<32, 32>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
+      case pair(64, 64): return launch_wgmma<64, 64>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
+      case pair(112, 112): return launch_wgmma<112, 112>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
+      case pair(128, 128): return launch_wgmma<128, 128>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
+      case pair(48, 32): return launch_wgmma<48, 32>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
+      case pair(192, 128): return launch_wgmma<192, 128>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  switch (D) {
-    case 16: return launch_f32<16>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
-    case 32: return launch_f32<32>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
-    case 64: return launch_f32<64>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
-    case 112: return launch_f32<112>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
-    case 128: return launch_f32<128>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
+  switch (pair(D, Dv)) {
+    case pair(16, 16): return launch_f32<16, 16>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
+    case pair(32, 32): return launch_f32<32, 32>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
+    case pair(64, 64): return launch_f32<64, 64>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
+    case pair(112, 112): return launch_f32<112, 112>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
+    case pair(128, 128): return launch_f32<128, 128>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
+    case pair(48, 32): return launch_f32<48, 32>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
+    case pair(192, 128): return launch_f32<192, 128>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

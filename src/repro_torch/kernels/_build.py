@@ -69,9 +69,10 @@ SIGNATURES = {
     "dequantize_codes": (_P, _P, _F, _F, _I, _I, _P),
     # x, g, out, B, I, J, stream
     "sparse_weight_grad": (_P, _P, _P, _I, _I, _I, _P),
-    # q, k, v, out, B, Sq, Sk, H, Kv, D, causal, window, bf16, scale, stream
+    # q, k, v, out, B, Sq, Sk, H, Kv, D, Dv, causal, window, bf16, scale,
+    # stream
     "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _F, _P),
+                        _I, _F, _P),
 }
 
 # launches per kernel since the last reset (plain integers; set them to 0 to

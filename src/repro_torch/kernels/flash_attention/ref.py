@@ -9,7 +9,8 @@ NEG_INF = -1e30
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: (B, Sq, H, D); k, v: (B, Sk, Kv, D) -> (B, Sq, H, D) in q's dtype."""
+    """q: (B, Sq, H, D); k: (B, Sk, Kv, D); v: (B, Sk, Kv, Dv) -> (B, Sq, H,
+    Dv) in q's dtype, the scores scaled by D^-1/2."""
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     qh = q.reshape(b, sq, kv, h // kv, d)
@@ -24,4 +25,4 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = s.masked_fill(~m, NEG_INF)
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
-    return o.reshape(b, sq, h, d).to(q.dtype)
+    return o.reshape(b, sq, h, v.shape[-1]).to(q.dtype)

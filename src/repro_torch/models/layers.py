@@ -83,10 +83,11 @@ def _check_act(cfg) -> None:
         raise _unported(f"act {cfg.act!r}")
 
 
-def ffn_specs(cfg) -> Dict[str, ParamSpec]:
-    """``wi`` / ``wo``, and SwiGLU's gate ``wg``."""
+def ffn_specs(cfg, d_ff: int | None = None) -> Dict[str, ParamSpec]:
+    """``wi`` / ``wo``, and SwiGLU's gate ``wg``; ``d_ff`` defaults to the
+    config's (the MoE's shared experts pass theirs)."""
     _check_act(cfg)
-    d, d_ff = cfg.d_model, cfg.d_ff
+    d, d_ff = cfg.d_model, d_ff or cfg.d_ff
     dt = torch_dtype(cfg.param_dtype)
     sp = {"wi": ParamSpec((d, d_ff), ("embed", "mlp"), "scaled", dt),
           "wo": ParamSpec((d_ff, d), ("mlp", "embed"), "scaled", dt)}

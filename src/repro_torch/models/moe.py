@@ -5,10 +5,12 @@ experts' outputs with the router's one-hot ``(T, E)`` weights: the JAX
 package's exact path, and the one it takes whenever there is no device
 mesh. Router: f32 logits, softmax, top-k, renormalized with a 1e-9 floor;
 the Switch-style load-balance loss is ``aux = E * sum_e f_e * P_e``.
+Shared experts (deepseek-v2's ``n_shared_experts``) are one FFN of
+``n_shared_experts * d_ff_expert`` that every token runs, added after the
+routed combine.
 
 The expert-parallel path (``shard_map`` and two ``all_to_all``) is
-distribution tooling and raises; so do deepseek-v2's shared experts, which
-come with MLA (ROADMAP.md Queue 1).
+distribution tooling and raises.
 """
 from __future__ import annotations
 
@@ -17,12 +19,10 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.common.pspec import ParamSpec, torch_dtype
+from repro_torch.models import layers
 
 
 def moe_specs(cfg) -> Dict[str, ParamSpec]:
-    if cfg.n_shared_experts:
-        raise NotImplementedError("shared experts (deepseek-v2) are not "
-                                  "ported yet (ROADMAP.md Queue 1, LLM side)")
     d = cfg.d_model
     f = cfg.d_ff_expert or cfg.d_ff
     e = cfg.n_experts
@@ -39,6 +39,8 @@ def moe_specs(cfg) -> Dict[str, ParamSpec]:
     if cfg.act == "swiglu":
         sp["wg"] = ParamSpec((e, d, f), ("experts", "embed", "expert_mlp"),
                              "scaled", dt, fan_in=d)
+    if cfg.n_shared_experts:
+        sp["shared"] = layers.ffn_specs(cfg, d_ff=cfg.n_shared_experts * f)
     return sp
 
 
@@ -95,10 +97,14 @@ def moe_dense(cfg, p, x: torch.Tensor, *, aux: bool = True
 def moe_forward(cfg, p, x: torch.Tensor, *, aux: bool = True
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The MoE FFN: ``moe_dense`` for ``"dense"`` and for ``"auto"``, which
-    resolves to it as the JAX package does without a mesh. Returns
-    ``(y, aux)``, aux None when ``aux`` is False."""
+    resolves to it as the JAX package does without a mesh, then the shared
+    experts' FFN added. Returns ``(y, aux)``, aux None when ``aux`` is
+    False."""
     if cfg.moe_impl == "expert_parallel":
         raise NotImplementedError(
             "moe_impl='expert_parallel' (shard_map + all_to_all) is not "
             "ported yet (ROADMAP.md Queue 1 item 9, distribution tooling)")
-    return moe_dense(cfg, p, x, aux=aux)
+    y, a = moe_dense(cfg, p, x, aux=aux)
+    if cfg.n_shared_experts:
+        y = y + layers.apply_ffn(cfg, p["shared"], x)
+    return y, a

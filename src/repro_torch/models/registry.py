@@ -1,13 +1,12 @@
 """Architecture registry (port of ``repro/models/registry.py``): arch id ->
 config, family -> module.
 
-The ``dense``, ``vlm`` and ``moe`` families with GQA attention
-(:mod:`transformer`), the ``encdec`` family (:mod:`encdec`), ``ssm``
-(:mod:`ssm`, mamba2) and ``hybrid`` (:mod:`hybrid`, zamba2) are ported
-(:data:`ARCH_IDS`); deepseek-v2 (MLA) waits for its slice (ROADMAP.md
-Queue 1, LLM side). As in the JAX package, ``encdec`` takes the whole
-batch (``frames`` and ``tokens``) in :func:`forward` and ``src_len`` in
-:func:`init_decode_state`.
+Every arch id of the JAX package is ported (:data:`ARCH_IDS`): the
+``dense``, ``vlm`` and ``moe`` families with GQA attention or deepseek-v2's
+MLA (:mod:`transformer`), the ``encdec`` family (:mod:`encdec`), ``ssm``
+(:mod:`ssm`, mamba2) and ``hybrid`` (:mod:`hybrid`, zamba2). As in the JAX
+package, ``encdec`` takes the whole batch (``frames`` and ``tokens``) in
+:func:`forward` and ``src_len`` in :func:`init_decode_state`.
 """
 from __future__ import annotations
 
@@ -31,6 +30,7 @@ _MODULE_FOR_ARCH = {
     "phi3.5-moe-42b-a6.6b": "phi35_moe",
     "llama3.2-1b": "llama32_1b",
     "qwen2.5-3b": "qwen25_3b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
     "zamba2-7b": "zamba2_7b",
     "granite-8b": "granite_8b",
 }
@@ -40,8 +40,8 @@ ARCH_IDS = tuple(_MODULE_FOR_ARCH)
 
 def _unported(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet (ported: {', '.join(ARCH_IDS)}; "
-        "deepseek-v2 waits: ROADMAP.md Queue 1, LLM side)")
+        f"{what} is not ported (ported: {', '.join(ARCH_IDS)}, every arch "
+        "id of the JAX package; ROADMAP.md Queue 1 lists what remains)")
 
 
 def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:

@@ -1,15 +1,15 @@
 """Decoder-only transformer (port of ``repro/models/transformer.py``): the
-``dense``, ``vlm`` and ``moe`` families with GQA attention, dense or MoE
-FFNs, and a KV cache in the activation dtype or in int8.
+``dense``, ``vlm`` and ``moe`` families with GQA attention or deepseek-v2's
+MLA, dense or MoE FFNs, and a KV cache in the activation dtype or in int8
+(MLA: the latent cache).
 
 Parameters stay stacked over layers, ``(L, ...)`` as in the JAX package, so
 a weight tree crosses between the packages unchanged; the loop over layers
 takes layer ``i``'s views with :func:`layer_params`. The decode cache is
 preallocated (``(L, B, size, Kv, D)``) and written in place: a decode step
 or a prefill returns a state that shares its cache tensors with the state
-it was given. ``pos`` is a Python int.
-
-MLA comes with deepseek-v2 (ROADMAP.md Queue 1, LLM side).
+it was given. ``pos`` is a Python int. As in the JAX package, MLA has no
+batched prefill (:func:`prefill` raises): its forward stands in for one.
 """
 from __future__ import annotations
 
@@ -24,16 +24,18 @@ from repro_torch.models import attention, layers, moe
 
 
 def _check(cfg) -> None:
-    if cfg.attn_kind != "gqa":
+    if cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(
-            f"{cfg.arch_id}: attn_kind {cfg.attn_kind!r} is not ported yet "
-            "(MLA: ROADMAP.md Queue 1, LLM side)")
+            f"{cfg.arch_id}: attn_kind {cfg.attn_kind!r} is not ported "
+            "(ROADMAP.md Queue 1, LLM side)")
 
 
 def _layer_specs(cfg) -> Dict[str, Any]:
+    attn = (attention.mla_specs if cfg.attn_kind == "mla"
+            else attention.gqa_specs)
     sp: Dict[str, Any] = {"ln1": layers.norm_specs(cfg),
                           "ln2": layers.norm_specs(cfg),
-                          "attn": attention.gqa_specs(cfg)}
+                          "attn": attn(cfg)}
     if cfg.is_moe:
         sp["moe"] = moe.moe_specs(cfg)
     else:
@@ -73,11 +75,15 @@ def _layer_fwd(cfg, p, x: torch.Tensor, positions: torch.Tensor,
                window: int, aux: bool):
     """One layer over the whole sequence; returns (x, aux, k, v): aux as
     :func:`_ffn` gives it, k and v the layer's post-RoPE keys and values,
-    which the prefill keeps."""
+    which the prefill keeps (None for MLA, which has no prefill)."""
     h = layers.apply_norm(cfg, p["ln1"], x)
-    q, k, v = attention._project_qkv(cfg, p["attn"], h, positions)
-    o = attention.flash_attention(q, k, v, window=window)
-    x = x + attention._out_proj(o, p["attn"]["wo"])
+    if cfg.attn_kind == "mla":
+        k = v = None
+        x = x + attention.mla_forward(cfg, p["attn"], h, window=window)
+    else:
+        q, k, v = attention._project_qkv(cfg, p["attn"], h, positions)
+        o = attention.flash_attention(q, k, v, window=window)
+        x = x + attention._out_proj(o, p["attn"]["wo"])
     h, a = _ffn(cfg, p, layers.apply_norm(cfg, p["ln2"], x), aux)
     return x + h, a, k, v
 
@@ -112,11 +118,15 @@ def forward(cfg, params, tokens: torch.Tensor, *,
 def init_decode_state(cfg, batch: int, max_len: int, *, window: int = 0,
                       device: DeviceLike = None):
     """Stacked-over-layers KV cache (zeros) + position counter; int8 codes
-    and scales when ``cfg.kv_cache_dtype == "int8"``."""
+    and scales when ``cfg.kv_cache_dtype == "int8"``; MLA's latent cache
+    (no window) whatever the cache dtype, as in the JAX package."""
     _check(cfg)
-    init = (attention.init_kv_cache_int8 if cfg.kv_cache_dtype == "int8"
-            else attention.init_kv_cache)
-    one = init(cfg, batch, max_len, window=window, device=device)
+    if cfg.attn_kind == "mla":
+        one = attention.init_mla_cache(cfg, batch, max_len, device=device)
+    else:
+        init = (attention.init_kv_cache_int8 if cfg.kv_cache_dtype == "int8"
+                else attention.init_kv_cache)
+        one = init(cfg, batch, max_len, window=window, device=device)
     cache = {k: torch.zeros((cfg.n_layers,) + tuple(a.shape), dtype=a.dtype,
                             device=a.device) for k, a in one.items()}
     return {"cache": cache, "pos": 0}
@@ -138,8 +148,11 @@ def decode_step(cfg, params, state, tokens: torch.Tensor, *, window: int = 0):
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
         h = layers.apply_norm(cfg, lp["ln1"], x)
-        h, _ = decode(cfg, lp["attn"], h, _layer_cache(state["cache"], i),
-                      pos, window=window)
+        lcache = _layer_cache(state["cache"], i)
+        if cfg.attn_kind == "mla":
+            h, _ = attention.mla_decode(cfg, lp["attn"], h, lcache, pos)
+        else:
+            h, _ = decode(cfg, lp["attn"], h, lcache, pos, window=window)
         x = x + h
         h, _ = _ffn(cfg, lp, layers.apply_norm(cfg, lp["ln2"], x), aux=False)
         x = x + h
@@ -154,9 +167,9 @@ def prefill(cfg, params, tokens: torch.Tensor, state, *, window: int = 0):
     tokens: (B, S_prompt). Returns (last-position logits (B, V), state with
     the cache's first S_prompt slots written and pos = S_prompt). Each layer
     runs its attention through :func:`attention.flash_attention` once (K11 on
-    the card). The int8 cache raises, as in the JAX package."""
+    the card). MLA and the int8 cache raise, as in the JAX package."""
     _check(cfg)
-    if cfg.kv_cache_dtype == "int8":
+    if cfg.attn_kind == "mla" or cfg.kv_cache_dtype == "int8":
         raise NotImplementedError("prefill supports native GQA caches only")
     s = tokens.shape[1]
     positions = _positions(tokens)

@@ -7,18 +7,23 @@ bf16) and on the shapes that hit the edges of the bf16 kernel's 128 x 128
 tiles (the main path's 32 / 8 heads with S ragged to 64 and 128, cut to
 S = 200 and B = 1 for interpret mode; D = 128 ragged; S below one tile; a
 window whose first live tile is wholly masked for some rows; D = 112,
-zamba2's head dim, ragged and windowed) and on
+zamba2's head dim, ragged and windowed; MLA's qk / v head dims 48 / 32
+and 192 / 128, causal, ragged, windowed and unmasked) and on
 ``CROSS``, queries and keys of different lengths (Sq = 1, Sq < Sk and
 Sq > Sk, causal with the mask aligned at position 0 and unmasked, D 32,
-64 and 112: the encoder-decoder's cross-attention and its decode),
-against three JAX functions on the same seeded inputs: the JAX ``ref.py``,
-``flash_attention_pallas`` in interpret mode with 32-row blocks, and the
-models' jnp flash (``repro.models.attention.flash_attention``) with 32-row
-chunks. Tolerances are the reference's own (``test_kernels.py``): 2e-5 for
-f32, 3e-2 for bf16. ``test_attention.py::test_flash_noncausal`` has a twin
-on its own inputs. The wrapper's checks (the head dims and dtypes each
-kernel body takes, TMA's 16-byte alignment) and its launch count (none on
-CPU tensors) are tested too.
+64 and 112, and the MLA pairs: the encoder-decoder's cross-attention and
+its decode), against three JAX functions on the same seeded inputs: the
+JAX ``ref.py``, ``flash_attention_pallas`` in interpret mode with 32-row
+blocks, and the models' jnp flash (``repro.models.attention.
+flash_attention``) with 32-row chunks. The JAX functions take one head dim
+for q, k and v: for an MLA pair they get v zero-padded to the qk dim and
+their output is sliced back to v's, as ``repro.models.attention.
+mla_forward`` does; the port takes v at its own width. Tolerances are the
+reference's own (``test_kernels.py``): 2e-5 for f32, 3e-2 for bf16.
+``test_attention.py::test_flash_noncausal`` has a twin on its own inputs.
+The wrapper's checks (the (qk, v) head-dim pairs and dtypes each kernel
+body takes, TMA's 16-byte alignment) and its launch count (none on CPU
+tensors) are tested too.
 """
 import jax
 import jax.numpy as jnp
@@ -33,49 +38,77 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops, ref
 from repro_torch.models import attention
 
-# (B, S, H, Kv, D, causal, window); test_kernels.py's four keep their ids
-SWEEP = [pytest.param(*c, id="-".join(map(str, c[1:])) if c[0] == 2 else
-                      f"B{c[0]}-" + "-".join(map(str, c[1:])))
-         for c in [(2, 64, 4, 4, 16, True, 0), (2, 100, 8, 2, 32, True, 0),
-                   (2, 128, 4, 4, 16, True, 48), (2, 96, 4, 2, 64, False, 0),
-                   (1, 200, 32, 8, 64, True, 0), (2, 300, 8, 2, 128, True, 0),
-                   (2, 40, 4, 4, 64, True, 0), (2, 257, 4, 1, 32, True, 100),
-                   (1, 130, 4, 4, 112, True, 0), (2, 70, 4, 2, 112, True, 33)]]
+def _params(cases, d_at, ids):
+    """pytest params of ``cases`` (7 entries, D at ``d_at``) with v's head
+    dim appended: D's own for a square case (its id unchanged), an MLA
+    case's 8th entry (its id then ends in ``-v<Dv>``)."""
+    out = []
+    for c in cases:
+        head, dv = c[:7], (c[7] if len(c) > 7 else c[d_at])
+        out.append(pytest.param(*head, dv, id=ids(head) + (
+            f"-v{dv}" if len(c) > 7 else "")))
+    return out
 
 
-# (B, Sq, Sk, H, Kv, D, causal): Sq = 1 (a decode step's cross-attention,
-# and causal, where a row sees key 0 only), Sq < Sk and Sq > Sk across
-# several 32-row blocks, seamless' smoke shapes (4 heads of 32), and D = 112
-# (zamba2-7b's head dim, between the power-of-two instances)
-CROSS = [pytest.param(*c, id="-".join(map(str, c)))
-         for c in [(2, 1, 40, 4, 4, 32, False), (2, 1, 40, 4, 2, 64, True),
-                   (2, 24, 70, 4, 4, 64, False), (2, 24, 70, 8, 2, 32, True),
-                   (2, 70, 24, 4, 4, 32, False), (2, 70, 24, 4, 1, 64, True),
-                   (2, 16, 12, 4, 4, 32, False), (2, 1, 12, 4, 4, 32, False),
-                   (2, 24, 70, 4, 4, 112, False), (2, 1, 40, 4, 2, 112, True)]]
+def _sweep_id(c):
+    return ("-".join(map(str, c[1:])) if c[0] == 2 else
+            f"B{c[0]}-" + "-".join(map(str, c[1:])))
 
 
-def _qkv(s, h, kv, d, seed, b=2, sk=None):
-    """q (b, s, h, d), k and v (b, sk, kv, d); sk = s unless given."""
+# (B, S, H, Kv, D, causal, window[, Dv]); test_kernels.py's four keep their
+# ids; then MLA's (qk, v) pairs of deepseek-v2's smoke and full configs
+SWEEP = _params([
+    (2, 64, 4, 4, 16, True, 0), (2, 100, 8, 2, 32, True, 0),
+    (2, 128, 4, 4, 16, True, 48), (2, 96, 4, 2, 64, False, 0),
+    (1, 200, 32, 8, 64, True, 0), (2, 300, 8, 2, 128, True, 0),
+    (2, 40, 4, 4, 64, True, 0), (2, 257, 4, 1, 32, True, 100),
+    (1, 130, 4, 4, 112, True, 0), (2, 70, 4, 2, 112, True, 33),
+    (2, 70, 4, 4, 48, True, 0, 32), (2, 96, 4, 2, 48, False, 0, 32),
+    (2, 100, 4, 4, 48, True, 33, 32), (1, 130, 4, 4, 192, True, 0, 128),
+    (2, 70, 4, 1, 192, False, 0, 128)], 4, _sweep_id)
+
+
+# (B, Sq, Sk, H, Kv, D, causal[, Dv]): Sq = 1 (a decode step's
+# cross-attention, and causal, where a row sees key 0 only), Sq < Sk and
+# Sq > Sk across several 32-row blocks, seamless' smoke shapes (4 heads of
+# 32), D = 112 (zamba2-7b's head dim, between the power-of-two instances),
+# and MLA's pairs
+CROSS = _params([
+    (2, 1, 40, 4, 4, 32, False), (2, 1, 40, 4, 2, 64, True),
+    (2, 24, 70, 4, 4, 64, False), (2, 24, 70, 8, 2, 32, True),
+    (2, 70, 24, 4, 4, 32, False), (2, 70, 24, 4, 1, 64, True),
+    (2, 16, 12, 4, 4, 32, False), (2, 1, 12, 4, 4, 32, False),
+    (2, 24, 70, 4, 4, 112, False), (2, 1, 40, 4, 2, 112, True),
+    (2, 24, 70, 4, 4, 48, False, 32), (2, 1, 40, 4, 4, 192, True, 128),
+    (2, 70, 24, 4, 4, 192, True, 128), (2, 24, 70, 4, 2, 192, False, 128)],
+    5, lambda c: "-".join(map(str, c)))
+
+
+def _qkv(s, h, kv, d, seed, b=2, sk=None, dv=None):
+    """q (b, s, h, d), k (b, sk, kv, d) and v (b, sk, kv, dv); sk = s and
+    dv = d unless given."""
     rng = np.random.default_rng(seed)
     sk = s if sk is None else sk
+    dv = d if dv is None else dv
     return (rng.normal(size=(b, s, h, d)).astype(np.float32),
             rng.normal(size=(b, sk, kv, d)).astype(np.float32),
-            rng.normal(size=(b, sk, kv, d)).astype(np.float32))
+            rng.normal(size=(b, sk, kv, dv)).astype(np.float32))
 
 
-@pytest.mark.parametrize("B,S,H,Kv,D,causal,window", SWEEP)
+@pytest.mark.parametrize("B,S,H,Kv,D,causal,window,Dv", SWEEP)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_attention_matches_jax(B, S, H, Kv, D, causal, window, dtype):
-    _check_against_jax(_qkv(S, H, Kv, D, S + H, b=B), dtype, causal, window)
+def test_flash_attention_matches_jax(B, S, H, Kv, D, causal, window, Dv,
+                                     dtype):
+    _check_against_jax(_qkv(S, H, Kv, D, S + H, b=B, dv=Dv), dtype, causal,
+                       window)
 
 
-@pytest.mark.parametrize("B,Sq,Sk,H,Kv,D,causal", CROSS)
+@pytest.mark.parametrize("B,Sq,Sk,H,Kv,D,causal,Dv", CROSS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_sq_ne_sk_matches_jax(B, Sq, Sk, H, Kv, D, causal,
-                                              dtype):
-    _check_against_jax(_qkv(Sq, H, Kv, D, Sq + 7 * Sk, b=B, sk=Sk), dtype,
-                       causal, 0)
+                                              Dv, dtype):
+    _check_against_jax(_qkv(Sq, H, Kv, D, Sq + 7 * Sk, b=B, sk=Sk, dv=Dv),
+                       dtype, causal, 0)
 
 
 def test_flash_noncausal():
@@ -100,8 +133,13 @@ def test_flash_noncausal():
 
 def _check_against_jax(arrs, dtype, causal, window):
     """The port's ref.py, ops.py and models.attention against the JAX ref,
-    the Pallas kernel in interpret mode and the models' jnp flash."""
-    jq, jk, jv = (jnp.asarray(a).astype(dtype) for a in arrs)
+    the Pallas kernel in interpret mode and the models' jnp flash (v
+    zero-padded to the qk dim on the JAX side, their output sliced back to
+    v's)."""
+    d, dv = arrs[0].shape[-1], arrs[2].shape[-1]
+    vpad = np.pad(arrs[2], ((0, 0), (0, 0), (0, 0), (0, d - dv)))
+    jq, jk, jv = (jnp.asarray(a).astype(dtype)
+                  for a in (arrs[0], arrs[1], vpad))
     tq, tk, tv = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs)
     before = dict(_build.launches)
     ours = {
@@ -123,19 +161,29 @@ def _check_against_jax(arrs, dtype, causal, window):
     }
     tol = 2e-5 if dtype == "float32" else 3e-2
     for name, got in ours.items():
-        assert got.dtype == tq.dtype and got.shape == tq.shape, name
+        assert (got.dtype == tq.dtype
+                and got.shape == tq.shape[:3] + (dv,)), name
         for jname, want in theirs.items():
+            want = np.asarray(want, np.float32)
+            assert not want[..., dv:].any()  # v's zero columns stay zero
             np.testing.assert_allclose(
-                got.float().numpy(), np.asarray(want, np.float32), rtol=tol,
-                atol=tol, err_msg=f"port {name} vs JAX {jname}")
+                got.float().numpy(), want[..., :dv], rtol=tol, atol=tol,
+                err_msg=f"port {name} vs JAX {jname}")
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "dtype_mix", "gqa", "shape",
-                                 "int", "window"])
+                                 "int", "window", "v_narrower",
+                                 "unlisted_pair"])
 def test_flash_attention_refuses_what_the_kernel_does_not_take(bad):
     q, k, v = (torch.from_numpy(a) for a in _qkv(8, 4, 2, 16, 0))
-    if bad == "head_dim":  # 48 is not one of the kernel's instances
+    if bad == "head_dim":  # square 48 is not an instance (48 takes v 32)
         q, k, v = (torch.zeros(*t.shape[:3], 48) for t in (q, k, v))
+    elif bad == "v_narrower":  # D = 64 is square-only
+        q, k = (torch.zeros(*t.shape[:3], 64) for t in (q, k))
+        v = torch.zeros(*v.shape[:3], 32)
+    elif bad == "unlisted_pair":  # 192 takes v 128 only
+        q, k = (torch.zeros(*t.shape[:3], 192) for t in (q, k))
+        v = torch.zeros(*v.shape[:3], 64)
     elif bad == "dtype_mix":
         k = k.to(torch.bfloat16)
     elif bad == "gqa":  # 4 query heads over 3 kv heads
@@ -152,25 +200,31 @@ def test_flash_attention_head_dims_are_the_kernels():
     src = (_build.CSRC / "flash_attention.cu").read_text()
     launcher = {"wgmma": "launch_wgmma", "cuda-core": "launch_f32"}
     assert {body for body, _ in ops.BODIES.values()} == set(launcher)
-    for body, dims in ops.BODIES.values():
-        for d in dims:
-            assert f"case {d}: return {launcher[body]}<{d}>(" in src
-        assert src.count(f"return {launcher[body]}<") == len(dims)
+    for body, pairs in ops.BODIES.values():
+        for d, dv in pairs:
+            assert (f"case pair({d}, {dv}): return {launcher[body]}<{d}, "
+                    f"{dv}>(") in src
+        assert src.count(f"return {launcher[body]}<") == len(pairs)
 
 
-@pytest.mark.parametrize("d", [8, 16, 32, 48, 64, 112, 128, 256])
+@pytest.mark.parametrize("d", [8, 16, 32, 48, 64, 112, 128, 256, 192,
+                               (48, 32), (192, 128), (128, 64), (32, 48)],
+                         ids=str)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_flash_attention_body_per_dtype_and_head_dim(dtype, d):
+    """``d`` is the qk head dim of a square case, or a (qk, v) pair."""
     dtype = getattr(torch, dtype)
+    d, dv = d if isinstance(d, tuple) else (d, d)
     want = {torch.bfloat16: "wgmma", torch.float32: "cuda-core"}.get(dtype)
-    if want is None or d not in ops.BODIES[dtype][1]:
+    if want is None or (d, dv) not in ops.BODIES[dtype][1]:
         with pytest.raises(ValueError):
-            ops.kernel_body(dtype, d)
+            ops.kernel_body(dtype, d, dv)
         q = torch.zeros(1, 4, 2, d, dtype=dtype)
+        v = torch.zeros(1, 4, 1, dv, dtype=dtype)
         with pytest.raises(ValueError):  # the wrapper asks the same helper
-            ops.flash_attention(q, q[:, :, :1], q[:, :, :1])
+            ops.flash_attention(q, q[:, :, :1], v)
     else:
-        assert ops.kernel_body(dtype, d) == want
+        assert ops.kernel_body(dtype, d, dv) == want
 
 
 @pytest.mark.parametrize("offset", [0, 2, 8, 16, 32])

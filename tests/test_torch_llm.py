@@ -247,20 +247,19 @@ def test_full_width_param_specs_match(arch):
     assert pspec.count(registry.param_specs(cfg)) == \
         j_pspec.count(j_registry.param_specs(jcfg))
     # fan_in survives the stacking: wq's is d_model, not its head count
-    # (every family but the attention-free ssm has a wq)
+    # (every family but the attention-free ssm has a wq, and MLA, whose
+    # query goes through wdq and wuq; MLA's wo keeps H * v_head_dim)
     wq = [s for path, s in ours.items() if path[-1] == "wq"]
-    assert bool(wq) == (cfg.family != "ssm")
+    assert bool(wq) == (cfg.family != "ssm" and cfg.attn_kind != "mla")
     assert all(s.fan_in == cfg.d_model for s in wq)
+    if cfg.attn_kind == "mla":
+        wo = ours[("layers", "attn", "wo")]
+        assert wo.fan_in == cfg.n_heads * cfg.v_head_dim
 
 
-@pytest.mark.parametrize("what", ["deepseek-v2-236b", "attn_kind=mla",
-                                  "n_shared_experts=2", "family=rnn",
+@pytest.mark.parametrize("what", ["q_lora_rank=0", "family=rnn",
                                   "moe_impl=expert_parallel"])
 def test_unported_archs_and_families_raise(what):
-    if "=" not in what:
-        with pytest.raises(NotImplementedError, match="deepseek-v2 waits"):
-            registry.get_config(what)
-        return
     key, value = what.split("=")
     phi = registry.get_config("phi3.5-moe-42b-a6.6b", smoke=True)
     if key == "moe_impl":  # raises by name where the FFN runs
@@ -271,7 +270,9 @@ def test_unported_archs_and_families_raise(what):
             registry.forward(cfg, params,
                              {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
         return
-    base = phi if key == "n_shared_experts" else llama32_1b.smoke()
+    # MLA's direct query projection (no config sets it) on deepseek-v2
+    base = (registry.get_config("deepseek-v2-236b", smoke=True)
+            if key == "q_lora_rank" else llama32_1b.smoke())
     value = int(value) if value.isdigit() else value
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         registry.param_specs(base.replace(**{key: value}))

@@ -106,6 +106,7 @@ def test_port_file_list_is_complete():
                 "repro_torch/configs/chameleon_34b.py",
                 "repro_torch/configs/mamba2_130m.py",
                 "repro_torch/configs/zamba2_7b.py",
+                "repro_torch/configs/deepseek_v2_236b.py",
                 "repro_torch/models/ssm.py",
                 "repro_torch/models/hybrid.py",
                 "repro_torch/models/moe.py",
@@ -151,7 +152,7 @@ CONFIG_PAIRS = [(llama32_1b.config, j_llama.config),
                  lambda: JModelConfig(n_heads=8, head_dim=16))]
 CONFIG_IDS = ["config", "smoke", "custom"]
 for _name in ("phi35_moe", "granite_8b", "yi_6b", "qwen25_3b",
-              "chameleon_34b"):
+              "chameleon_34b", "deepseek_v2_236b"):
     _ours = importlib.import_module(f"repro_torch.configs.{_name}")
     _theirs = importlib.import_module(f"repro.configs.{_name}")
     for _kind in ("config", "smoke"):
