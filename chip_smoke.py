@@ -66,7 +66,18 @@ Phases, each of which raises on failure (nothing is caught):
    ``"mla"``; both pairs also join the sweep (``FLASH_MLA_SWEEP``). Every
    K11 record also has the kernel timed alone (``kernel_ms``: calls queued
    behind a device spin, so the launch path drops out), and SDPA's the
-   same way.
+   same way. Then flash attention's backward, K13 (dQ) and K12 (dK, dV),
+   the port's own kernels, at ``FLASH_BWD``'s shapes in bf16 and f32
+   (llama3.2-1b's train step, the main record; D = 128; D = 112;
+   deepseek-v2's (192, 128) at (4, 1024, 128 / 128); (48, 32); seamless'
+   unmasked Sq = 256 against Sk = 1024; a window): K11's log-sum-exp
+   output first, against the plain one within ``LSE_TOL`` (1 + |lse|);
+   then the gradients against the plain backward on K11's output and
+   log-sum-exp (f32 within ``BWD_REL`` of each gradient's largest |value|,
+   bf16 per element within 2u |g| + ``BWD_REL`` max |g|), a repeat call
+   bit-identical; each kernel timed alone beside its bound, the plain
+   backward and the backward alone of autograd through
+   ``scaled_dot_product_attention`` (the yardstick, never on the path).
 3. The LLM families first, while the card's memory is free, at full width
    with bf16 weights from the seed, one server at a time, each freed before
    the next:
@@ -251,6 +262,18 @@ Phases, each of which raises on failure (nothing is caught):
      P=256): the prefill's last logits and cache (through K11) against 256
      stepwise ``decode_step``s over the prompt (never through K11), rel <
      1e-4 (``ORACLE_REL``).
+   - LLM training: ``make_train_step`` (Adam, lr 1e-3) on full-width
+     llama3.2-1b in bf16 (weights from the seed, uncut), 3 steps on one
+     batch of 4 x 1024 ``lm_batches`` tokens: the loss finite and falling,
+     K11 (with its log-sum-exp), K13 and K12 exactly once per layer (16)
+     each step; ms per step after the first, tokens/s, TFLOP/s
+     (``model_flops``' 6 N T plus attention), peak allocation. Its f32
+     oracle at full width and 2 layers (B=2, S=256): every leaf's gradient
+     of ``loss_fn`` through K11 / K13 / K12 against the same loss's
+     gradients with ``attention.flash_attention``'s kernel call swapped for
+     autograd through the plain flash (which launches nothing), rel <
+     ``ORACLE_REL``. Then every other arch id's smoke config trains 3 steps
+     on the card, the loss finite and falling.
    Every kernel's launch counter must have risen during these runs.
 4. Where the time goes: one more microbatch per engine (and per staged
    ``"ffm"`` twin) and on the N = 4 fleet, one training microbatch, 8
@@ -259,10 +282,11 @@ Phases, each of which raises on failure (nothing is caught):
    card, one granite-8b prefill and one phi3.5-moe decode step; in the
    encoder-decoder phase one seamless ``prefill_cross`` and one decode
    step; in the SSM phase one forward and one decode step of each model;
-   in the MLA phase one deepseek forward and one decode step)
-   under torch.profiler (kernels launched, device-busy time against
-   wall time, top kernels; for training K10's share, for the prefills and
-   seamless' decode step K11's).
+   in the MLA phase one deepseek forward and one decode step), one more
+   LLM train step under torch.profiler (kernels launched, device-busy time
+   against wall time, top kernels; for training K10's share, for the
+   prefills and seamless' decode step K11's, for the LLM train step K11's,
+   K13's and K12's).
 
 The second-to-last lines are the kernels' JSON record and the nvidia-smi
 line; the last line is ``{"ok": true, "device": {...}}``. Without a card (or
@@ -359,6 +383,31 @@ FLASH_MLA_SWEEP = ((2, 200, 4, 2, 192, True, 0, 128),
                    (2, 257, 4, 1, 192, True, 100, 128),
                    (2, 70, 4, 4, 48, True, 0, 32),
                    (2, 130, 4, 2, 48, False, 33, 32))
+# K13 / K12 (flash attention's backward) against the plain backward on the
+# same K11 output and log-sum-exp: f32 within BWD_REL of each gradient's
+# largest |value| (f32 sums in other orders); bf16 per element within 2u |g|
+# + BWD_REL max |g| (both round one f32 value to bf16: at most one bf16 ulp,
+# 2u |g|, apart, beside the f32 bound). K11's log-sum-exp against the plain
+# one within LSE_TOL (1 + |lse|): f32 the CUDA-core body's expf and sums,
+# bf16 the wgmma body's ex2.approx (2 ulp) and its log2(e) fold
+BWD_REL = 1e-4
+LSE_TOL = {"float32": 2e-5, "bfloat16": 1e-4}
+# the backward's shapes, each in bf16 and f32: (B, Sq, Sk, H, Kv, D, Dv,
+# causal, window, timed calls): llama3.2-1b's train step (the main record),
+# D = 128 (phi3.5-moe / granite-8b heads), zamba2's D = 112, deepseek-v2's
+# MLA (192, 128) (few timed calls: tens of ms a backward), the smoke
+# config's (48, 32), seamless' unmasked cross-attention (Sq != Sk), a window
+# with S ragged to the 64-row tiles
+FLASH_BWD = ((4, 1024, 1024, 32, 8, 64, 64, True, 0, 20),
+             (4, 1024, 1024, 32, 8, 128, 128, True, 0, 10),
+             (4, 1024, 1024, 32, 32, 112, 112, True, 0, 5),
+             (4, 1024, 1024, 128, 128, 192, 128, True, 0, 2),
+             (2, 256, 256, 4, 4, 48, 32, True, 0, 10),
+             (4, 256, 1024, 16, 16, 64, 64, False, 0, 10),
+             (2, 1000, 1000, 8, 2, 64, 64, True, 200, 10))
+BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
+BWD_REPLACES = ("none: the port's own (the JAX package differentiates its jnp "
+                "flash, src/repro/models/attention.py:36)")
 # K4 against its plain version: test_kernels.py::test_ffm_interaction_sweep's
 # shapes and tolerances (rtol, atol), then F = 64, K = 16, whose (F, F, K)
 # f32 block would not fit in one CTA's shared memory (262,400 > 232,448 B)
@@ -429,6 +478,16 @@ MLA_ORACLE_LAYERS = 1
 # steps, learning rate and stream seed, at the trainer's microbatch; its
 # forward on the card against the CPU's within rtol and atol of max |logit|
 DCN_STEPS, DCN_LR, DCN_SEED, DCN_TOL = 30, 0.05, 8, 1e-5
+# the LLM training phase (llama3.2-1b at full width, bf16 weights from the
+# seed, uncut): one batch of lm_batches, Adam at lr, steps on it; the f32
+# oracle's batch and length at oracle_layers layers; every other arch id's
+# smoke config trains steps on a (B, S) batch
+LLM_TRAIN_FULL = {"batch": 4, "seq": 1024, "steps": 3, "lr": 1e-3,
+                  "oracle": (2, 256), "oracle_layers": 2, "smoke": (2, 64)}
+LLM_TRAIN_TINY = {"batch": 2, "seq": 16, "steps": 3, "lr": 1e-3,
+                  "oracle": (2, 12), "oracle_layers": 2, "smoke": (2, 16)}
+FLASH_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkdv")
 # bf16's unit roundoff (8 significant bits)
 BF16_U = 2.0 ** -8
 
@@ -470,6 +529,15 @@ def flash_smem_bytes(d: int, dv: int, bf16: bool, stages=None):
     if stages is None:
         stages = 3 if total(3) <= 232448 else 2
     return total(stages), stages
+
+
+def flash_bwd_smem_bytes(d: int, dv: int):
+    """K13's and K12's dynamic shared memory per block at qk / v head dims
+    (d, dv) (csrc/flash_attention_bwd.cu: 64-row tiles of f32 rows W + 4
+    floats wide; K13 Q, dO, K, V and dS; K12 the same and P^T, 128 floats of
+    lse and Delta)."""
+    tiles = 2 * 64 * (d + 4) + 2 * 64 * (dv + 4)
+    return (tiles + 64 * 68) * 4, (tiles + 2 * 64 * 68 + 128) * 4
 
 
 # template arguments as the mangled names spell them
@@ -579,7 +647,8 @@ def where_the_time_goes(name, fn, smi, top=6, share_of=None):
     """One more call of ``fn`` (a microbatch) under torch.profiler: the
     card's kernel time against the call's wall time (profiler included), the
     number of kernels the call launched, the kernels with the most device
-    time, and the share of device time of kernels named ``share_of``."""
+    time, and the share of device time of kernels whose names hold
+    ``share_of`` (one substring, or each of a tuple)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -607,10 +676,10 @@ def where_the_time_goes(name, fn, smi, top=6, share_of=None):
           f"({100 * dev_ms / wall_ms:.1f}% of wall) | {smi}")
     for kname, (n, t) in ranked:
         print(f"  {t:.4f} ms in {n} launches: {kname[:90]}")
-    if share_of is not None:
-        hits = [v for k, v in by_name.items() if share_of in k]
+    for part in (share_of,) if isinstance(share_of, str) else share_of or ():
+        hits = [v for k, v in by_name.items() if part in k]
         n, t = sum(c for c, _ in hits), sum(ms for _, ms in hits)
-        print(f"  {share_of}: {n} launches, {t:.4f} ms = "
+        print(f"  {part}: {n} launches, {t:.4f} ms = "
               f"{100 * t / dev_ms:.1f}% of device busy time")
     return len(kern)
 
@@ -702,7 +771,17 @@ def main(argv=None) -> int:
         for name, regs, spill in ptxas_usage(lib.log,
                                              "flash_attention_kernel_wgmma"):
             print(f"  K11 bf16 body {name}: {regs} registers per thread at "
-                  f"entry (setmaxnreg: consumers 232, producer 40); {spill}")
+                  f"entry (setmaxnreg: consumers 232, producer 40); {spill} "
+                  "(with the lse write: one instance serves training, which "
+                  "passes an lse pointer, and serving, which passes null)")
+        for kid, needle in (("K13", "flash_attention_bwd_dq_kernel"),
+                            ("K12", "flash_attention_bwd_dkdv_kernel")):
+            for name, regs, spill in ptxas_usage(lib.log, needle):
+                print(f"  {kid} {name}: {regs} registers per thread; {spill}")
+        print("  dynamic shared memory per block of K13 / K12 at (D, Dv) "
+              + ", ".join(f"({d}, {dv}) {flash_bwd_smem_bytes(d, dv)[0]} / "
+                          f"{flash_bwd_smem_bytes(d, dv)[1]} B"
+                          for d, dv in fa_ops.HEAD_DIMS))
         for kid, needle in (("K1", "gather_dequant_rows_q8_kernel"),
                             ("K4", "ffm_interaction_matrix_kernel"),
                             ("K5/K6", "ffm_fused_logits_kernel")):
@@ -750,22 +829,23 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return t0.elapsed_time(t1) / TIMING_ITERS
 
-    def call_ms(fn):
+    def call_ms(fn, n=TIMING_ITERS, warm=10):
         """Mean time (ms) of one eager ``fn()`` call, Python wrapper
-        included: CUDA events around TIMING_ITERS back-to-back calls."""
+        included: CUDA events around ``n`` back-to-back calls after ``warm``
+        warm-up calls."""
         if not on_card:
             return None
-        for _ in range(10):
+        for _ in range(warm):
             fn()
         torch.cuda.synchronize()
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
-        for _ in range(TIMING_ITERS):
+        for _ in range(n):
             fn()
         t1.record()
         torch.cuda.synchronize()
-        return t0.elapsed_time(t1) / TIMING_ITERS
+        return t0.elapsed_time(t1) / n
 
     def kernel_ms(fn, n=20):
         """Device time (ms) of one ``fn()`` without its launch path: the
@@ -1504,8 +1584,8 @@ def main(argv=None) -> int:
                           for t in (fq, fk, fv))
             out = torch.empty_like(qp)
             _build.launch("flash_attention", qp.data_ptr(), kp.data_ptr(),
-                          vp.data_ptr(), out.data_ptr(), b_, s_, s_, h, kv_,
-                          dp, dp, 1, 0, 1, float(np.float32(d ** -0.5)))
+                          vp.data_ptr(), out.data_ptr(), None, b_, s_, s_, h,
+                          kv_, dp, dp, 1, 0, 1, float(np.float32(d ** -0.5)))
             return out[..., :d].contiguous()
 
         got = padded()
@@ -1590,6 +1670,171 @@ def main(argv=None) -> int:
           "(48, 32)) agree with the plain "
           f"version in f32 (2e-5) and bf16 (3e-2; worst element {worst[0]:.3f}"
           f" and row {worst[1]:.3f} of the roundoff bounds)")
+
+    # K13 (dQ) and K12 (dK, dV), flash attention's backward: the port's own
+    # kernels (the JAX package differentiates its jnp flash), held to the
+    # plain backward on K11's output and log-sum-exp, which K11 is held to
+    # first; each kernel timed alone beside its bound, the plain backward
+    # and the backward alone of autograd through scaled_dot_product_attention
+    def sdpa_bwd_of(q_, k_, v_, do_, causal):
+        """The library yardstick: the backward alone (dq, dk, dv) of autograd
+        through scaled_dot_product_attention on (B, H, S, D) copies, its
+        forward run once outside the timed region."""
+        h, kv_ = q_.shape[2], k_.shape[2]
+        lq, lk, lv = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q_, k_, v_))
+        gout = do_.transpose(1, 2).contiguous()
+        if "enable_gqa" in (sdpa.__doc__ or ""):
+            out = sdpa(lq, lk, lv, is_causal=causal, enable_gqa=True)
+        else:
+            out = sdpa(lq, lk.repeat_interleave(h // kv_, dim=1),
+                       lv.repeat_interleave(h // kv_, dim=1), is_causal=causal)
+
+        def library():
+            return torch.autograd.grad(out, (lq, lk, lv), gout,
+                                       retain_graph=True)
+        return library
+
+    def flash_bwd_case(b_, sq, sk, h, kv_, d, dv, causal, window, n_timed,
+                       dtype):
+        """K11's log-sum-exp, then K13 and K12 against the plain backward at
+        one shape; returns their two records (K13's, K12's)."""
+        bf16 = dtype == torch.bfloat16
+        tname = str(dtype).removeprefix("torch.")
+        q_, k_, v_ = qkv(b_, sq, h, kv_, d, dtype, sk, dv)
+        do_ = randn(b_, sq, h, dv).to(dtype)
+        o_, lse_ = fa_ops.flash_attention_fwd(q_, k_, v_, causal=causal,
+                                              window=window)
+        o_ref, lse_ref = fa_ref.flash_attention_ref(
+            q_, k_, v_, causal=causal, window=window, return_lse=True)
+        lse_share = float(((lse_ - lse_ref).abs() / (1 + lse_ref.abs()))
+                          .max()) / LSE_TOL[tname]
+        what = (f"flash backward {tname} {[b_, sq, sk, h, kv_, d, dv]} "
+                f"causal {causal} window {window}")
+        check(allclose(o_, o_ref, FLASH_TOL[tname], FLASH_TOL[tname])
+              and lse_share <= 1,
+              f"{what}: K11 with lse: out err {max_err(o_, o_ref):.3e}, lse "
+              f"{lse_share:.3f} of its bound")
+        got = fa_ops.flash_attention_bwd(q_, k_, v_, o_, lse_, do_,
+                                         causal=causal, window=window)
+        want = fa_ref.flash_attention_bwd_ref(q_, k_, v_, o_, lse_, do_,
+                                              causal=causal, window=window)
+        again = fa_ops.flash_attention_bwd(q_, k_, v_, o_, lse_, do_,
+                                           causal=causal, window=window)
+        check(all(torch.equal(a, c) for a, c in zip(got, again)),
+              f"{what}: two backward calls differ")
+        shares = {}
+        for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+            w = w.float()
+            e = (g.float() - w).abs()
+            top = float(w.abs().max())
+            if bf16:
+                lim = 2 * BF16_U * w.abs() + BWD_REL * top
+                shares[gname] = float((e / lim.clamp_min(1e-30)).max())
+            else:
+                shares[gname] = float(e.max()) / max(BWD_REL * top, 1e-30)
+            check(shares[gname] <= 1, f"{what}: {gname} at "
+                  f"{shares[gname]:.3f} of its bound")
+        # each kernel alone, on outputs allocated once (K13 first: it
+        # writes the rowsum(dO o O) that K12 reads)
+        dq_, dk_, dv_ = (torch.empty_like(t) for t in (q_, k_, v_))
+        delta_ = torch.empty((b_, h, sq), dtype=torch.float32, device=dev)
+        sizes = (b_, sq, sk, h, kv_, d, dv, int(causal), window, int(bf16),
+                 float(np.float32(d ** -0.5)))
+
+        def k13():
+            _build.launch("flash_attention_bwd_dq", q_.data_ptr(),
+                          k_.data_ptr(), v_.data_ptr(), o_.data_ptr(),
+                          lse_.data_ptr(), do_.data_ptr(), dq_.data_ptr(),
+                          delta_.data_ptr(), *sizes)
+
+        def k12():
+            _build.launch("flash_attention_bwd_dkdv", q_.data_ptr(),
+                          k_.data_ptr(), v_.data_ptr(), do_.data_ptr(),
+                          lse_.data_ptr(), delta_.data_ptr(), dk_.data_ptr(),
+                          dv_.data_ptr(), *sizes)
+
+        def plain():
+            return fa_ref.flash_attention_bwd_ref(
+                q_, k_, v_, o_, lse_, do_, causal=causal, window=window)
+
+        library = sdpa_bwd_of(q_, k_, v_, do_, causal) if not window else None
+        # calls long next to a launch: few of them, one warm-up
+        times = {"k13": call_ms(k13, n_timed, 1),
+                 "k12": call_ms(k12, n_timed, 1),
+                 "plain": call_ms(plain, max(1, n_timed // 5), 1),
+                 "library": call_ms(library, n_timed, 1) if library else None}
+        # the work each kernel's function needs, from this call's shapes
+        esz = 2 if bf16 else 4
+        n_pairs = b_ * h * attention_pairs(sq, sk, causal, window)
+        live = min(sk, sq) if causal else sk
+        q_el, o_el, rows = b_ * sq * h * d, b_ * sq * h * dv, b_ * h * sq
+        peak = PEAK_BF16_TENSOR_FLOPS if bf16 else PEAK_F32_FLOPS
+        work = {  # (bytes, operations): K13 reads q, the k / v rows some
+            # query sees, o, dO and lse and writes dq and Delta; K12 reads q,
+            # dO, k, v, lse and Delta and writes dk and dv
+            "k13": (esz * (2 * q_el + b_ * live * kv_ * (d + dv) + 2 * o_el)
+                    + 8 * rows, 2 * (2 * d + dv) * n_pairs),
+            "k12": (esz * (q_el + o_el + 2 * b_ * sk * kv_ * (d + dv))
+                    + 8 * rows, 2 * (2 * d + 2 * dv) * n_pairs)}
+        recs = []
+        for key, name, err in (
+                ("k13", "flash_attention_bwd_dq", max_err(got[0], want[0])),
+                ("k12", "flash_attention_bwd_dkdv",
+                 max(max_err(got[1], want[1]), max_err(got[2], want[2])))):
+            b_ms, b_by = bound(*work[key], peak)
+            recs.append({
+                "name": name, "route": "cuda", "source": BWD_SOURCE,
+                "replaces": BWD_REPLACES, "max_abs_err": err,
+                "ms": times[key], "plain_ms": times["plain"],
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": times["library"], "bytes": work[key][0],
+                "shape": [b_, sq, sk, h, kv_, d, dv, tname,
+                          "causal" if causal else "unmasked", window],
+                "tolerance": ("2u|g| + " if bf16 else "") + f"{BWD_REL} max|g|",
+                "bound_shares": shares, "lse_share": lse_share})
+        # the backward as a whole: q, k, v, o, dO and lse read once, dq, dk
+        # and dv written once; 2 (3 D + 2 Dv) operations per kept pair
+        whole = bound(esz * (2 * q_el + 2 * o_el + b_ * (live + sk) * kv_
+                             * (d + dv)) + 4 * rows,
+                      2 * (3 * d + 2 * dv) * n_pairs, peak)
+        if on_card:
+            pair = times["k13"] + times["k12"]
+            yard = ("not timed (SDPA has no window)" if library is None
+                    else f"{times['library']:.4f} ms: the pair "
+                    f"{pair / times['library']:.2f}x its time")
+            timing = (
+                f"K13 {ms_text(times['k13'], recs[0]['bound_ms'])}, K12 "
+                f"{ms_text(times['k12'], recs[1]['bound_ms'])}; the pair "
+                f"{pair:.4f} ms against the backward's bound {whole[0]:.4f}"
+                f" ms ({whole[1]}) | plain {times['plain']:.4f} ms | "
+                f"scaled_dot_product_attention's backward {yard} | {smi}")
+        else:
+            timing = "not measured (no card)"
+        print(f"kernel {what}: K11 lse at {lse_share:.3f} of its bound; "
+              "dq / dk / dv at "
+              + " / ".join(f"{v:.3f}" for v in shares.values())
+              + " of their bounds (" + recs[0]["tolerance"]
+              + "), a repeat bit-identical | " + timing)
+        return recs
+
+    bwd_main = None
+    for case in FLASH_BWD:
+        b_, sq, sk, h, kv_, d, dv, causal, window, n_timed = case
+        if args.tiny:  # the rehearsal scales S down, as for seamless
+            b_, sq, sk = 2, max(1, sq * fa_s // 1024), max(1, sk * fa_s // 1024)
+            window = window * fa_s // 1024
+        for dtype in (torch.bfloat16, torch.float32):
+            recs = flash_bwd_case(b_, sq, sk, h, kv_, d, dv, causal, window,
+                                  n_timed, dtype)
+            if bwd_main is None:
+                bwd_main = recs
+                for rec in recs:
+                    rec["shapes"] = []
+                kernels.extend(recs)
+            else:
+                for main, rec in zip(bwd_main, recs):
+                    main["shapes"].append(rec)
 
     # -- phase 3: the main paths -------------------------------------------
     main_launches = dict.fromkeys(_build.launches, 0)
@@ -1781,6 +2026,10 @@ def main(argv=None) -> int:
                                  run_phase, phase_launches, r_rows, n_cand)
     llm_prefill, llm_decode = llm_path(llm_cfg, llm, args, dev, on_card, smi,
                                        run_phase, phase_launches)
+    llm_train = llm_train_path(llm_cfg,
+                               LLM_TRAIN_TINY if args.tiny else LLM_TRAIN_FULL,
+                               args, dev, on_card, smi, run_phase,
+                               phase_launches)
 
     if on_card:
         for name, c in main_launches.items():
@@ -1813,6 +2062,11 @@ def main(argv=None) -> int:
         where_the_time_goes(
             f"LLM decode step ({llm_cfg.arch_id}, B={llm['batch']}, after the "
             "prefill)", llm_decode, smi, top=8)
+        where_the_time_goes(
+            f"LLM train step ({llm_cfg.arch_id}, B={LLM_TRAIN_FULL['batch']}, "
+            f"S={LLM_TRAIN_FULL['seq']}, Adam)", llm_train, smi, top=8,
+            share_of=("flash_attention_kernel", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkdv"))
     fleet_close()
     for rec in kernels:
         rec["launches"] = main_launches[rec["name"]]
@@ -3037,6 +3291,176 @@ def llm_path(cfg, llm, args, dev, on_card, smi, run_phase, phase_launches):
           + f" (bound {ORACLE_REL})")
     del p32, st_pre, st
     return prefill, decode
+
+
+def llm_train_path(cfg, tr, args, dev, on_card, smi, run_phase,
+                   phase_launches):
+    """Phase 3, LLM training: ``make_train_step`` (Adam) on full-width
+    llama3.2-1b in bf16, ``tr["steps"]`` steps on one batch of
+    ``lm_batches``: the loss finite and falling, K11, K13 and K12 exactly
+    once per layer a step; ms per step after the first, tokens/s, TFLOP/s
+    (``model_flops``' 6 N T plus attention's forward and backward), peak
+    allocation. Then the f32 oracle at full width and reduced depth: the
+    gradients of ``loss_fn`` through K11 / K13 / K12 against the same
+    gradients through the plain versions (``attention.flash_attention``'s
+    kernel call swapped for autograd through ``flash_attention_ref``, which
+    must launch nothing), per leaf rel < ``ORACLE_REL``. Then every other
+    arch id's smoke config trains ``tr["steps"]`` steps, finite and falling.
+    Returns a callable that runs one more full-width step (phase 4)."""
+    import torch
+
+    from repro_torch.common import counting
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models import registry
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.steps import loss_and_grads, make_train_step
+
+    def batch_of(c, b, s, seed):
+        out = {k: torch.from_numpy(v).to(dev) for k, v in
+               next(lm_batches(c.vocab_size, b, s, 1, seed=seed)).items()}
+        if c.family == "encdec":
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            out["frames"] = torch.randn((b, s, c.d_model), generator=gen,
+                                        device=dev)
+        return out
+
+    b, s = tr["batch"], tr["seq"]
+    t0 = time.perf_counter()
+    opt = make_optimizer("adam", lr=tr["lr"])
+    run = {"params": registry.init_params(cfg, args.seed, dev), "step": 0}
+    run["opt"] = opt.init(run["params"])
+    step_fn = make_train_step(cfg, opt)
+    batch = batch_of(cfg, b, s, args.seed)
+
+    def one_step():
+        run["params"], run["opt"], run["step"], m = step_fn(
+            run["params"], run["opt"], run["step"], batch)
+        return m
+
+    print(f"llm train: {cfg.arch_id} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.dtype}, Adam lr {tr['lr']}) weights and "
+          f"state built in {time.perf_counter() - t0:.1f} s")
+    losses, secs = [], []
+    for i in range(tr["steps"]):
+        if on_card and i == 1:
+            torch.cuda.reset_peak_memory_stats(dev)
+        label = f"llm train step {i} B={b} S={s}"
+        t0 = time.perf_counter()
+        m = run_phase(label, one_step)
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        counts = phase_launches[label]
+        print(f"launches {label}: "
+              + ", ".join(f"{k} {counts[k]}" for k in FLASH_KERNELS))
+        if on_card:
+            for name in FLASH_KERNELS:
+                check(counts[name] == cfg.n_layers,
+                      f"{label}: {name} launched {counts[name]} times, want "
+                      f"one per layer ({cfg.n_layers})")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"llm train: losses {losses} not finite and falling")
+    ms = 1e3 * sum(secs[1:]) / len(secs[1:])
+    attn = (2 * (cfg.resolved_head_dim * 2) + 2 * (5 * cfg.resolved_head_dim)
+            ) * b * cfg.n_heads * attention_pairs(s, s, True, 0) * cfg.n_layers
+    flops = counting.model_flops(cfg, b * s, "train") + attn
+    rate = (f"{flops / ms / 1e9:.1f} TFLOP/s" if on_card
+            else "TFLOP/s not measured (no card)")
+    peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
+            if on_card else "not measured (no card)")
+    print(f"llm train: losses {', '.join(f'{x:.4f}' for x in losses)} | "
+          f"{ms:.2f} ms per step after the first (first {1e3 * secs[0]:.2f} "
+          f"ms) | {b * s / ms * 1e3:.0f} tokens/s | {rate} ({flops:.4e} FLOP "
+          f"a step: model_flops' 6 N T {flops - attn:.4e} + attention "
+          f"{attn:.4e}) | peak allocated {peak} | {smi}")
+
+    # the f32 oracle: K11 / K13 / K12 against autograd through the plain
+    # flash, per leaf
+    ob, os_ = tr["oracle"]
+    cfg32 = cfg.replace(n_layers=tr["oracle_layers"], dtype="float32",
+                        param_dtype="float32")
+    p32 = registry.init_params(cfg32, args.seed, dev)
+    b32 = batch_of(cfg32, ob, os_, args.seed + 1)
+
+    def oracle_run():
+        _build.reset_launches()
+        loss, _, grads = loss_and_grads(cfg32, p32, b32)
+        if on_card:
+            torch.cuda.synchronize()
+        return loss, grads, dict(_build.launches)
+
+    kern_loss, kern_g, n_kern = oracle_run()
+    kernel_call = fa_ops.flash_attention
+
+    def plain(q, k, v, *, causal=True, window=0):
+        return fa_ref.flash_attention_ref(q, k, v, causal=causal,
+                                          window=window)
+
+    fa_ops.flash_attention = plain
+    try:
+        plain_loss, plain_g, n_plain = oracle_run()
+    finally:
+        fa_ops.flash_attention = kernel_call
+    if on_card:
+        check(all(n_kern[k] == cfg32.n_layers for k in FLASH_KERNELS)
+              and not any(n_plain[k] for k in FLASH_KERNELS),
+              f"llm train oracle: launches {n_kern} through the kernels, "
+              f"{n_plain} in the plain run")
+    rels = {}
+
+    def walk(kg, pg, name=""):
+        if isinstance(kg, dict):
+            for key in kg:
+                walk(kg[key], pg[key], f"{name}/{key}")
+        else:
+            rels[name] = rel(kg, pg)
+
+    walk(kern_g, plain_g)
+    worst = max(rels, key=rels.get)
+    check(all(math.isfinite(r) and r < ORACLE_REL for r in rels.values())
+          and rel(kern_loss, plain_loss) < ORACLE_REL,
+          f"llm train oracle: gradient {worst} rel {rels[worst]:.3e} >= "
+          f"{ORACLE_REL}")
+    print(f"llm train oracle (f32, {cfg32.n_layers} of {cfg.n_layers} "
+          f"layers, B={ob}, S={os_}): loss rel "
+          f"{rel(kern_loss, plain_loss):.3e}; {len(rels)} leaves' gradients "
+          f"through K11 / K13 / K12 vs the plain flash, worst {worst} rel "
+          f"{rels[worst]:.3e} (bound {ORACLE_REL})")
+    del p32, kern_g, plain_g
+
+    # every other arch id's smoke config, on the card
+    sb, ss = tr["smoke"]
+    for arch in registry.ARCH_IDS:
+        if arch == cfg.arch_id:
+            continue
+        c = registry.get_config(arch, smoke=True)
+        sopt = make_optimizer("adam", lr=tr["lr"])
+        sp = registry.init_params(c, args.seed, dev)
+        sst, sstep, sbatch = sopt.init(sp), 0, batch_of(c, sb, ss, args.seed)
+        sstep_fn = make_train_step(c, sopt)
+        slosses = []
+
+        def smoke_steps():
+            nonlocal sp, sst, sstep
+            for _ in range(tr["steps"]):
+                sp, sst, sstep, m = sstep_fn(sp, sst, sstep, sbatch)
+                slosses.append(float(m["loss"]))
+
+        label = f"llm train smoke {arch}"
+        run_phase(label, smoke_steps)
+        check(all(math.isfinite(x) for x in slosses)
+              and slosses[-1] < slosses[0],
+              f"{label}: losses {slosses} not finite and falling")
+        counts = phase_launches[label]
+        print(f"{label} ({c.family}, {sb}x{ss} tokens, {c.dtype}): losses "
+              f"{', '.join(f'{x:.4f}' for x in slosses)} | launches "
+              + ", ".join(f"{k} {counts[k]}" for k in FLASH_KERNELS))
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return one_step
 
 
 def spec_bytes(specs) -> int:

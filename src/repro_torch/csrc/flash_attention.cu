@@ -92,6 +92,15 @@
 //   - The wgmma groups of the main loop are straight-line code: a group
 //     waited for on one path and not on another makes ptxas serialize every
 //     wgmma (each followed by its own wait).
+//
+// Both bodies optionally write each row's log-sum-exp of the masked, scaled
+// scores, lse (B, H, Sq) f32 in natural-log units, for the backward (K13 and
+// K12 in flash_attention_bwd.cu recompute P = exp(S D^-1/2 - lse) from it):
+// m + log(max(l, 1e-30)) from the final row max m and the row sum l after
+// its quad (bf16) or half-warp (f32) reduction. The bf16 body keeps m in the
+// log2 domain (log2(e) folded into the scale) and converts once, at the
+// write: lse = m ln 2 + log(max(l, 1e-30)). A null lse pointer writes
+// nothing (serving passes null); one instance serves both.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -114,6 +123,7 @@ constexpr int kWgThreads = 128;
 constexpr int kWgmmaThreads = 3 * kWgThreads;  // 2 consumers + 1 producer
 constexpr int kConsumerWarps = 8;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // one operand's shared layout, W columns wide (D for Q and K, Dv for V)
 template <int W>
@@ -495,8 +505,9 @@ __global__ void __launch_bounds__(kWgmmaThreads, 1)
 flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
                              const __grid_constant__ CUtensorMap map_k,
                              const __grid_constant__ CUtensorMap map_v,
-                             __nv_bfloat16* __restrict__ out, int Sq, int Sk,
-                             int B, int H, int Kv, int causal, int window,
+                             __nv_bfloat16* __restrict__ out,
+                             float* __restrict__ lse, int Sq, int Sk, int B,
+                             int H, int Kv, int causal, int window,
                              float scale_log2) {
   using T = Tile<D, Dv>;
   using QK = typename T::QK;
@@ -662,6 +673,15 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap map_q,
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       den[r] = fmaxf(l[r], 1e-30f);
     }
+    if (lse != nullptr && lane % 4 == 0) {  // one thread of the quad per row
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = row0 + 8 * half;
+        if (row < Sq)
+          lse[(static_cast<int64_t>(w.b) * H + w.h) * Sq + row] =
+              m[half] * kLn2 + logf(den[half]);
+      }
+    }
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = row0 + 8 * half;
@@ -725,8 +745,8 @@ bool encode_map(CUtensorMap* map, const void* base, int64_t B, int64_t S,
 
 template <int D, int Dv>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                         int64_t B, int64_t Sq, int64_t Sk, int64_t H,
-                         int64_t Kv, int64_t causal, int64_t window,
+                         void* lse, int64_t B, int64_t Sq, int64_t Sk,
+                         int64_t H, int64_t Kv, int64_t causal, int64_t window,
                          float scale, cudaStream_t stream) {
   CUtensorMap map_q, map_k, map_v;
   if (!encode_map<D>(&map_q, q, B, Sq, H, kBM) ||
@@ -748,8 +768,9 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   const unsigned blocks = static_cast<unsigned>(items < sms ? items : sms);
   kernel<<<blocks, kWgmmaThreads, smem, stream>>>(
       map_q, map_k, map_v, static_cast<__nv_bfloat16*>(out),
-      static_cast<int>(Sq), static_cast<int>(Sk), static_cast<int>(B),
-      static_cast<int>(H), static_cast<int>(Kv), causal != 0,
+      static_cast<float*>(lse), static_cast<int>(Sq), static_cast<int>(Sk),
+      static_cast<int>(B), static_cast<int>(H), static_cast<int>(Kv),
+      causal != 0,
       static_cast<int>(window), scale * kLog2e);
   return cudaGetLastError();
 }
@@ -791,7 +812,8 @@ template <int D, int Dv>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
-                       int64_t Sq, int64_t Sk, int H, int Kv, int causal,
+                       float* __restrict__ lse, int64_t Sq, int64_t Sk, int H,
+                       int Kv, int causal,
                        int64_t window, float scale) {
   constexpr int QS = D + 4;
   constexpr int DC = Dv / 16;  // output columns per thread
@@ -939,6 +961,9 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int64_t row = q0 + ty + 16 * i;
     if (row >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    // every lane of the half-warp holds the row's m and l: one writes lse
+    if (lse != nullptr && tx == 0)
+      lse[(b * H + h) * Sq + row] = m[i] + logf(denom);
     float* o = out + ((b * Sq + row) * H + h) * Dv + tx * DC;
 #pragma unroll
     for (int c = 0; c < DC; ++c) o[c] = acc[i][c] / denom;
@@ -947,8 +972,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D, int Dv>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
-                       int64_t B, int64_t Sq, int64_t Sk, int64_t H, int64_t Kv,
-                       int64_t causal, int64_t window, float scale,
+                       void* lse, int64_t B, int64_t Sq, int64_t Sk, int64_t H,
+                       int64_t Kv, int64_t causal, int64_t window, float scale,
                        cudaStream_t stream) {
   const int smem = smem_floats<D, Dv>() * static_cast<int>(sizeof(float));
   auto* kernel = flash_attention_kernel<D, Dv>;
@@ -959,8 +984,9 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
                   static_cast<unsigned>(H), static_cast<unsigned>(B));
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk,
-      static_cast<int>(H), static_cast<int>(Kv), causal != 0, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(lse), Sq, Sk, static_cast<int>(H),
+      static_cast<int>(Kv), causal != 0, window, scale);
   return cudaGetLastError();
 }
 
@@ -970,12 +996,14 @@ constexpr int64_t pair(int64_t d, int64_t dv) { return d << 16 | dv; }
 }  // namespace
 
 // q: (B, Sq, H, D), k: (B, Sk, Kv, D), v: (B, Sk, Kv, Dv), out: (B, Sq, H,
-// Dv), all contiguous and of one dtype (f32, or bf16 when bf16 != 0); (D,
-// Dv) one of the pairs below; window 0 = no window; scale = D^-1/2 rounded
-// to f32. bf16 takes the wgmma body and needs q, k and v on 16-byte
-// boundaries (TMA); f32 the CUDA-core body.
+// Dv), all contiguous and of one dtype (f32, or bf16 when bf16 != 0); lse:
+// (B, H, Sq) f32 or null (not written); (D, Dv) one of the pairs below;
+// window 0 = no window; scale = D^-1/2 rounded to f32. bf16 takes the wgmma
+// body and needs q, k and v on 16-byte boundaries (TMA); f32 the CUDA-core
+// body.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int64_t B, int64_t Sq, int64_t Sk,
+                               void* out, void* lse, int64_t B, int64_t Sq,
+                               int64_t Sk,
                                int64_t H, int64_t Kv, int64_t D, int64_t Dv,
                                int64_t causal, int64_t window, int64_t bf16,
                                float scale, void* stream) {
@@ -991,24 +1019,24 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
          reinterpret_cast<uintptr_t>(v)) % 16 != 0)
       return static_cast<int>(cudaErrorInvalidValue);
     switch (pair(D, Dv)) {
-      case pair(16, 16): return launch_wgmma<16, 16>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
-      case pair(32, 32): return launch_wgmma<32, 32>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
-      case pair(64, 64): return launch_wgmma<64, 64>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
-      case pair(112, 112): return launch_wgmma<112, 112>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
-      case pair(128, 128): return launch_wgmma<128, 128>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
-      case pair(48, 32): return launch_wgmma<48, 32>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
-      case pair(192, 128): return launch_wgmma<192, 128>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
+      case pair(16, 16): return launch_wgmma<16, 16>(q, k, v, out, lse, B, Sq, Sk, H, Kv, causal, window, scale, s);
+      case pair(32, 32): return launch_wgmma<32, 32>(q, k, v, out, lse, B, Sq, Sk, H, Kv, causal, window, scale, s);
+      case pair(64, 64): return launch_wgmma<64, 64>(q, k, v, out, lse, B, Sq, Sk, H, Kv, causal, window, scale, s);
+      case pair(112, 112): return launch_wgmma<112, 112>(q, k, v, out, lse, B, Sq, Sk, H, Kv, causal, window, scale, s);
+      case pair(128, 128): return launch_wgmma<128, 128>(q, k, v, out, lse, B, Sq, Sk, H, Kv, causal, window, scale, s);
+      case pair(48, 32): return launch_wgmma<48, 32>(q, k, v, out, lse, B, Sq, Sk, H, Kv, causal, window, scale, s);
+      case pair(192, 128): return launch_wgmma<192, 128>(q, k, v, out, lse, B, Sq, Sk, H, Kv, causal, window, scale, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   switch (pair(D, Dv)) {
-    case pair(16, 16): return launch_f32<16, 16>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
-    case pair(32, 32): return launch_f32<32, 32>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
-    case pair(64, 64): return launch_f32<64, 64>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
-    case pair(112, 112): return launch_f32<112, 112>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
-    case pair(128, 128): return launch_f32<128, 128>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
-    case pair(48, 32): return launch_f32<48, 32>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
-    case pair(192, 128): return launch_f32<192, 128>(q, k, v, out, B, Sq, Sk, H, Kv, causal, window, scale, s);
+    case pair(16, 16): return launch_f32<16, 16>(q, k, v, out, lse, B, Sq, Sk, H, Kv, causal, window, scale, s);
+    case pair(32, 32): return launch_f32<32, 32>(q, k, v, out, lse, B, Sq, Sk, H, Kv, causal, window, scale, s);
+    case pair(64, 64): return launch_f32<64, 64>(q, k, v, out, lse, B, Sq, Sk, H, Kv, causal, window, scale, s);
+    case pair(112, 112): return launch_f32<112, 112>(q, k, v, out, lse, B, Sq, Sk, H, Kv, causal, window, scale, s);
+    case pair(128, 128): return launch_f32<128, 128>(q, k, v, out, lse, B, Sq, Sk, H, Kv, causal, window, scale, s);
+    case pair(48, 32): return launch_f32<48, 32>(q, k, v, out, lse, B, Sq, Sk, H, Kv, causal, window, scale, s);
+    case pair(192, 128): return launch_f32<192, 128>(q, k, v, out, lse, B, Sq, Sk, H, Kv, causal, window, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -5,7 +5,8 @@ interaction structure (so FFM-class models beat linear ones, as in the
 paper's Table 1) plus optional distribution drift. Features are hashed as
 Fwumious Wabbit hashes them: each (field, raw value) pair maps to one index
 in a single shared hash space. The same seed gives the same batches as the
-JAX package's stream, bit for bit. ``lm_batches`` comes with the LLM side.
+JAX package's stream, bit for bit; so does ``lm_batches``, the LLM
+training stream.
 """
 from __future__ import annotations
 
@@ -92,3 +93,24 @@ class CTRStream:
         full = self.sample(n_candidates)
         ctx_idx, ctx_val = full["idx"][0, :fc], full["val"][0, :fc]
         return ctx_idx, ctx_val, full["idx"][:, fc:], full["val"][:, fc:]
+
+
+def lm_batches(vocab: int, batch: int, seq: int, n: int, seed: int = 0
+               ) -> Iterator[Dict[str, np.ndarray]]:
+    """Markov-ish synthetic token stream (learnable, not uniform noise):
+    ``n`` batches of ``tokens`` and next-token ``labels``, (batch, seq)
+    int32 each."""
+    rng = np.random.default_rng(seed)
+    trans = rng.integers(0, vocab, (vocab, 4))
+    for _ in range(n):
+        toks = np.zeros((batch, seq + 1), np.int64)
+        toks[:, 0] = rng.integers(0, vocab, batch)
+        for t in range(seq):
+            choice = rng.integers(0, 4, batch)
+            nxt = trans[toks[:, t], choice]
+            noise = rng.random(batch) < 0.1
+            toks[:, t + 1] = np.where(noise, rng.integers(0, vocab, batch), nxt)
+        yield {
+            "tokens": toks[:, :-1].astype(np.int32),
+            "labels": toks[:, 1:].astype(np.int32),
+        }

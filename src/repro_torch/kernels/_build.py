@@ -69,10 +69,16 @@ SIGNATURES = {
     "dequantize_codes": (_P, _P, _F, _F, _I, _I, _P),
     # x, g, out, B, I, J, stream
     "sparse_weight_grad": (_P, _P, _P, _I, _I, _I, _P),
-    # q, k, v, out, B, Sq, Sk, H, Kv, D, Dv, causal, window, bf16, scale,
-    # stream
-    "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _F, _P),
+    # q, k, v, out, lse (or null), B, Sq, Sk, H, Kv, D, Dv, causal, window,
+    # bf16, scale, stream
+    "flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _F, _P),
+    # K13: q, k, v, o, lse, dout, dq, delta, then as above from B
+    "flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # K12: q, k, v, dout, lse, delta, dk, dv, then as above from B
+    "flash_attention_bwd_dkdv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 # launches per kernel since the last reset (plain integers; set them to 0 to

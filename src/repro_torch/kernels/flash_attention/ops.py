@@ -1,15 +1,22 @@
-"""Flash attention through the kernel (port of
-``repro/kernels/flash_attention/ops.py``).
+"""Flash attention through the kernels (port of
+``repro/kernels/flash_attention/ops.py``, and its backward).
 
 :func:`flash_attention` computes ``softmax(q kᵀ D^-½ + mask) v`` with GQA.
 A CPU tensor gets the plain version (``ref.py``); a CUDA tensor gets K11 in
-``csrc/flash_attention.cu`` or an exception. Unlike the Pallas wrapper
-nothing is padded or transposed and no block size is chosen here: the
-kernel reads q, k and v in their (B, S, heads, D) layouts, masks the ragged
-tail tiles and fixes its own tiling. K11 has two bodies, picked by dtype
-(:data:`BODIES`): bf16 runs on TMA and ``wgmma`` (sm_90a), f32 on CUDA-core
-FMAs. v may be narrower than q and k (MLA: qk dim 192, v dim 128), and is
-taken at its own width, never padded.
+``csrc/flash_attention.cu`` or an exception. When autograd needs its
+gradient (grad mode on and q, k or v requiring one), the call goes through
+:class:`FlashAttention`: K11 also writes each row's log-sum-exp, and the
+backward runs K13 (dQ) then K12 (dK, dV) in ``csrc/flash_attention_bwd.cu``,
+the port's own kernels (the JAX package differentiates its jnp flash by
+autodiff); on CPU tensors both directions take the plain versions. Any
+other call, serving's included, launches K11 without the log-sum-exp.
+
+Unlike the Pallas wrapper nothing is padded or transposed and no block size
+is chosen here: the kernel reads q, k and v in their (B, S, heads, D)
+layouts, masks the ragged tail tiles and fixes its own tiling. K11 has two
+bodies, picked by dtype (:data:`BODIES`): bf16 runs on TMA and ``wgmma``
+(sm_90a), f32 on CUDA-core FMAs. v may be narrower than q and k (MLA: qk
+dim 192, v dim 128), and is taken at its own width, never padded.
 """
 from __future__ import annotations
 
@@ -17,7 +24,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                      flash_attention_ref)
 
 # (qk head dim D, v head dim Dv) pairs each instance takes: D = Dv for the
 # GQA families, deepseek-v2's MLA at 192 / 128 (config) and 48 / 32 (smoke)
@@ -50,20 +58,17 @@ def check_tma_alignment(**ptrs: int) -> None:
                              "aligned, as the wgmma body's TMA loads need")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: (B, Sq, H, D); k: (B, Sk, Kv, D); v: (B, Sk, Kv, Dv), one dtype
-    (f32 or bf16) on one device -> (B, Sq, H, Dv) in q's dtype, f32
-    accumulation, the scores scaled by D^-1/2. The causal mask is aligned at
-    position 0 (``cols <= rows``); ``window`` > 0 keeps ``cols > rows -
-    window``."""
+def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                window: int) -> str:
+    """Raise unless q, k, v fit one K11 call; return the body that takes
+    it."""
     if (q.dim() != 4 or k.dim() != 4 or v.dim() != 4
             or v.shape[:3] != k.shape[:3]):
         raise ValueError(f"q (B, Sq, H, D), k (B, Sk, Kv, D) and v (B, Sk, "
                          f"Kv, Dv) expected, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    b, sq, h, d = q.shape
-    sk, kv, dv = k.shape[1], k.shape[2], v.shape[3]
+    b, _, h, d = q.shape
+    kv, dv = k.shape[2], v.shape[3]
     if k.shape[0] != b or k.shape[3] != d or kv == 0 or h % kv:
         raise ValueError(f"k {tuple(k.shape)} does not fit q {tuple(q.shape)} "
                          "(same B and D, H a multiple of Kv)")
@@ -75,19 +80,122 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"window must be >= 0, got {window}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
+    return body
+
+
+def _scale(d: int) -> float:
+    return float(np.float32(d ** -0.5))
+
+
+def _k11(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+         window: int, with_lse: bool):
+    """K11 on CUDA tensors, the plain version on CPU ones: the output, and
+    with ``with_lse`` also the (B, H, Sq) f32 log-sum-exp."""
+    body = _check_args(q, k, v, window)
     if not q.is_cuda:
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   return_lse=with_lse)
+    b, sq, h, d = q.shape
+    sk, kv, dv = k.shape[1], k.shape[2], v.shape[3]
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.check(t, name, q.dtype)
     out = q.new_empty((b, sq, h, dv))
+    lse = (q.new_empty((b, h, sq), dtype=torch.float32) if with_lse
+           else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     if sk == 0:
         raise ValueError("k and v hold no positions")
     if body == "wgmma":
         check_tma_alignment(q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr())
     _build.launch("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  out.data_ptr(), b, sq, sk, h, kv, d, dv, int(causal),
-                  window, int(q.dtype == torch.bfloat16),
-                  float(np.float32(d ** -0.5)))
-    return out
+                  out.data_ptr(), None if lse is None else lse.data_ptr(), b,
+                  sq, sk, h, kv, d, dv, int(causal), window,
+                  int(q.dtype == torch.bfloat16), _scale(d))
+    return (out, lse) if with_lse else out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B, Sq, H, D); k: (B, Sk, Kv, D); v: (B, Sk, Kv, Dv), one dtype
+    (f32 or bf16) on one device -> (B, Sq, H, Dv) in q's dtype, f32
+    accumulation, the scores scaled by D^-1/2. The causal mask is aligned at
+    position 0 (``cols <= rows``); ``window`` > 0 keeps ``cols > rows -
+    window``. Differentiable through :class:`FlashAttention` when grad mode
+    is on and q, k or v requires a gradient."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window)
+    return _k11(q, k, v, causal, window, with_lse=False)
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0):
+    """As :func:`flash_attention` (never through autograd), returning
+    ``(out, lse)``: lse (B, H, Sq) f32 is each row's log-sum-exp of the
+    masked, scaled scores in natural-log units, as the backward takes it."""
+    return _k11(q, k, v, causal, window, with_lse=True)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True, window: int = 0):
+    """The gradients (dq, dk, dv), in q's dtype, of :func:`flash_attention`
+    at (q, k, v) for the output cotangent ``do`` (B, Sq, H, Dv), from the
+    forward's output ``o`` and ``lse`` (:func:`flash_attention_fwd`). CUDA
+    tensors: K13 (dQ, and each row's rowsum(dO o O) for K12) then K12 (dK,
+    dV); CPU tensors: ``ref.flash_attention_bwd_ref``."""
+    _check_args(q, k, v, window)
+    b, sq, h, d = q.shape
+    sk, kv, dv = k.shape[1], k.shape[2], v.shape[3]
+    if (tuple(o.shape) != (b, sq, h, dv) or tuple(do.shape) != tuple(o.shape)
+            or tuple(lse.shape) != (b, h, sq)):
+        raise ValueError(f"o and do (B, Sq, H, Dv) = {(b, sq, h, dv)} and lse "
+                         f"(B, H, Sq) expected, got {tuple(o.shape)}, "
+                         f"{tuple(do.shape)}, {tuple(lse.shape)}")
+    if o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"o and do must be {q.dtype}, got {o.dtype}, "
+                         f"{do.dtype}")
+    if not (q.device == o.device == do.device == lse.device):
+        raise ValueError(f"q on {q.device}, o on {o.device}, do on "
+                         f"{do.device}, lse on {lse.device}")
+    if not q.is_cuda:
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       window=window)
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        _build.check(t, name, q.dtype)
+    _build.check(lse, "lse", torch.float32)
+    dq, dk, dvv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0 or sk == 0:
+        return dq.zero_(), dk.zero_(), dvv.zero_()
+    delta = q.new_empty((b, h, sq), dtype=torch.float32)
+    sizes = (b, sq, sk, h, kv, d, dv, int(causal), window,
+             int(q.dtype == torch.bfloat16), _scale(d))
+    _build.launch("flash_attention_bwd_dq", q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
+                  dq.data_ptr(), delta.data_ptr(), *sizes)
+    _build.launch("flash_attention_bwd_dkdv", q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr(), dk.data_ptr(), dvv.data_ptr(), *sizes)
+    return dq, dk, dvv
+
+
+class FlashAttention(torch.autograd.Function):
+    """K11 with its log-sum-exp forward; K13 then K12 backward (the plain
+    versions on CPU tensors). q, k and v get gradients; causal and window
+    none."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out, lse = _k11(q, k, v, causal, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        # autograd may hand over a non-contiguous cotangent
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None

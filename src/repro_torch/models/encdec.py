@@ -13,11 +13,11 @@ S_src, the forward's cross-attention at Sq = S_tgt against Sk = S_src, and
 a decode step's at Sq = 1.
 
 Parameters stay stacked over layers (``enc_layers`` and ``dec_layers``,
-``(L, ...)`` as in the JAX package; :func:`transformer.layer_params` takes
-layer ``i``'s views). The decode state is preallocated: the self-attention
-caches ``(L, B, size, Kv, D)`` as in :mod:`transformer`, and the cross keys
-and values ``(L, B, S_src, Kv, D)`` that :func:`prefill_cross` writes in
-place; ``pos`` is a Python int.
+``(L, ...)`` as in the JAX package; each loop over layers takes them apart
+once with :func:`transformer.unstack`). The decode state is preallocated:
+the self-attention caches ``(L, B, size, Kv, D)`` as in :mod:`transformer`,
+and the cross keys and values ``(L, B, S_src, Kv, D)`` that
+:func:`prefill_cross` writes in place; ``pos`` is a Python int.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ from repro_torch.common import pspec
 from repro_torch.common.device import DeviceLike
 from repro_torch.common.pspec import torch_dtype
 from repro_torch.models import attention, layers
-from repro_torch.models.transformer import layer_params
+from repro_torch.models.transformer import unstack
 
 
 def _enc_layer_specs(cfg) -> Dict[str, Any]:
@@ -83,8 +83,7 @@ def encode(cfg, params, frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, S_src, d_model) stub embeddings -> encoder states in
     ``cfg.dtype``."""
     x = frames.to(torch_dtype(cfg.dtype))
-    for i in range(cfg.n_enc_layers):
-        lp = layer_params(params["enc_layers"], i)
+    for lp in unstack(params["enc_layers"]):
         a = lp["attn"]
         h = layers.apply_norm(cfg, lp["ln1"], x)
         q, k, v = (attention._proj(h, a[w]) for w in ("wq", "wk", "wv"))
@@ -103,8 +102,7 @@ def forward(cfg, params, batch: Dict[str, torch.Tensor], *,
     enc_out = encode(cfg, params, batch["frames"])
     x = layers.embed_tokens(cfg, params["embed"], batch["tokens"]).to(
         torch_dtype(cfg.dtype))
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["dec_layers"], i)
+    for lp in unstack(params["dec_layers"]):
         h = layers.apply_norm(cfg, lp["ln1"], x)
         x = x + attention.gqa_forward(cfg, lp["self_attn"], h, window=w)
         h = layers.apply_norm(cfg, lp["ln_x"], x)
@@ -150,9 +148,8 @@ def prefill_cross(cfg, params, state, frames: torch.Tensor):
         raise ValueError(f"{frames.shape[1]} frames for cross caches of "
                          f"{src_len} positions")
     enc_out = encode(cfg, params, frames)
-    for i in range(cfg.n_layers):
-        k, v = _cross_kv(layer_params(params["dec_layers"], i)["cross"],
-                         enc_out)
+    for i, lp in enumerate(unstack(params["dec_layers"])):
+        k, v = _cross_kv(lp["cross"], enc_out)
         state["cross_k"][i] = k
         state["cross_v"][i] = v
     return dict(state)
@@ -164,8 +161,7 @@ def decode_step(cfg, params, state, tokens: torch.Tensor, *, window: int = 0):
     pos = state["pos"]
     x = layers.embed_tokens(cfg, params["embed"], tokens[:, None]).to(
         torch_dtype(cfg.dtype))
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["dec_layers"], i)
+    for i, lp in enumerate(unstack(params["dec_layers"])):
         h = layers.apply_norm(cfg, lp["ln1"], x)
         cache = {k: a[i] for k, a in state["self"].items()}
         h, _ = attention.gqa_decode(cfg, lp["self_attn"], h, cache, pos,

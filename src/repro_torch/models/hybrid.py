@@ -15,7 +15,8 @@ The mamba blocks are :mod:`ssm`'s. The shared block's attention is
 per super-block; zamba2-7b's heads are 112 wide) and
 :func:`attention.gqa_decode`'s plain readout in decode. Parameters stay
 stacked as in the JAX package: ``mamba`` (n_super, P-1, ...), ``lora``
-(n_super, ...), ``tail`` (n_tail, ...). The decode state is preallocated and
+(n_super, ...), ``tail`` (n_tail, ...); each loop over them takes them
+apart once with ``transformer.unstack``. The decode state is preallocated and
 written in place: mamba states (n_super, P-1, B, ...), one KV cache per
 super-block (n_super, B, size, Kv, D), the tail's states (n_tail, B, ...);
 ``pos`` is a Python int. The JAX ``forward``'s ``remat``, ``last_only`` and
@@ -31,7 +32,7 @@ from repro_torch.common import pspec
 from repro_torch.common.device import DeviceLike
 from repro_torch.common.pspec import ParamSpec, torch_dtype
 from repro_torch.models import attention, layers, ssm
-from repro_torch.models.transformer import layer_params
+from repro_torch.models.transformer import unstack
 
 
 def _n_super(cfg) -> int:
@@ -90,6 +91,12 @@ def param_specs(cfg) -> Dict[str, Any]:
     return sp
 
 
+def _tail(cfg, params):
+    """The trailing mamba blocks' parameters, one tree each (none when
+    ``n_layers`` is a multiple of the period)."""
+    return unstack(params["tail"]) if _n_tail(cfg) else []
+
+
 def _mamba_block(cfg, lp, x: torch.Tensor) -> torch.Tensor:
     return x + ssm.mamba_forward(cfg, lp["mixer"],
                                  layers.apply_norm(cfg, lp["ln"], x))
@@ -122,14 +129,13 @@ def forward(cfg, params, tokens: torch.Tensor, *,
         return attention.gqa_forward(cfg, sp["attn"], h, window=w)
 
     x = x0
-    for s in range(_n_super(cfg)):
-        lp = layer_params(params["mamba"], s)
-        for j in range(cfg.attn_period - 1):
-            x = _mamba_block(cfg, layer_params(lp, j), x)
-        x = _shared_block(cfg, shared, layer_params(params["lora"], s), x,
-                          x0, attn_fn)
-    for t in range(_n_tail(cfg)):
-        x = _mamba_block(cfg, layer_params(params["tail"], t), x)
+    for blocks, lora in zip(unstack(params["mamba"]),
+                            unstack(params["lora"])):
+        for lp in unstack(blocks):
+            x = _mamba_block(cfg, lp, x)
+        x = _shared_block(cfg, shared, lora, x, x0, attn_fn)
+    for lp in _tail(cfg, params):
+        x = _mamba_block(cfg, lp, x)
     x = layers.apply_norm(cfg, params["ln_f"], x)
     return (layers.logits(cfg, params["embed"], x),
             torch.zeros((), dtype=torch.float32, device=x.device))
@@ -169,10 +175,10 @@ def decode_step(cfg, params, state, tokens: torch.Tensor, *, window: int = 0):
         torch_dtype(cfg.dtype))
     shared = params["shared"]
     x = x0
-    for s in range(_n_super(cfg)):
-        lp = layer_params(params["mamba"], s)
-        for j in range(cfg.attn_period - 1):
-            x = _mamba_step(cfg, layer_params(lp, j), x,
+    for s, (blocks, lora) in enumerate(zip(unstack(params["mamba"]),
+                                           unstack(params["lora"]))):
+        for j, lp in enumerate(unstack(blocks)):
+            x = _mamba_step(cfg, lp, x,
                             {k: a[s, j] for k, a in state["mamba"].items()})
         cache = {k: a[s] for k, a in state["attn"].items()}
 
@@ -181,10 +187,9 @@ def decode_step(cfg, params, state, tokens: torch.Tensor, *, window: int = 0):
                                           window=window)
             return out
 
-        x = _shared_block(cfg, shared, layer_params(params["lora"], s), x,
-                          x0, attn_fn)
-    for t in range(_n_tail(cfg)):
-        x = _mamba_step(cfg, layer_params(params["tail"], t), x,
+        x = _shared_block(cfg, shared, lora, x, x0, attn_fn)
+    for t, lp in enumerate(_tail(cfg, params)):
+        x = _mamba_step(cfg, lp, x,
                         {k: a[t] for k, a in state["tail"].items()})
     x = layers.apply_norm(cfg, params["ln_f"], x)
     lg = layers.logits(cfg, params["embed"], x)[:, 0]

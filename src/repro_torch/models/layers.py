@@ -6,9 +6,9 @@ result: norms run in f32 and cast back, RoPE runs in f32, SwiGLU takes the
 gate's ``silu`` in f32 and casts it to the activation dtype before the
 product, the ReLU FFN clamps in the activation dtype. Only what the ported
 configs run is here: RMSNorm and LayerNorm, the SwiGLU and ReLU FFNs, tied
-or untied embeddings. The GELU FFN (no config of the JAX package sets it)
-and ``cross_entropy`` (the training step) are not ported (ROADMAP.md Queue
-1, LLM side).
+or untied embeddings, and the training loss :func:`cross_entropy`. The
+GELU FFN (no config of the JAX package sets it) is not ported (ROADMAP.md
+Queue 1, LLM side).
 """
 from __future__ import annotations
 
@@ -133,3 +133,16 @@ def logits(cfg, p, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return torch.matmul(x, p["tok"].T)
     return torch.matmul(x, p["unembed"])
+
+
+def cross_entropy(logits_: torch.Tensor, labels: torch.Tensor,
+                  vocab_size: int) -> torch.Tensor:
+    """Mean cross-entropy over the positions whose label is >= 0 (labels < 0
+    are masked): f32 log-sum-exp minus the gold logit, summed and divided by
+    ``max(count, 1)``, as the JAX package computes it. ``vocab_size`` is
+    taken and unused, as there."""
+    lf = logits_.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return torch.sum((lse - gold) * mask) / torch.clamp_min(mask.sum(), 1.0)

@@ -6,7 +6,8 @@ Every arch id of the JAX package is ported (:data:`ARCH_IDS`): the
 MLA (:mod:`transformer`), the ``encdec`` family (:mod:`encdec`), ``ssm``
 (:mod:`ssm`, mamba2) and ``hybrid`` (:mod:`hybrid`, zamba2). As in the JAX
 package, ``encdec`` takes the whole batch (``frames`` and ``tokens``) in
-:func:`forward` and ``src_len`` in :func:`init_decode_state`.
+:func:`forward` and :func:`loss_fn`, and ``src_len`` in
+:func:`init_decode_state`.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Any, Dict
 from repro_torch.common import pspec
 from repro_torch.common.config import ModelConfig
 from repro_torch.common.device import DeviceLike
-from repro_torch.models import encdec, hybrid, ssm, transformer
+from repro_torch.models import encdec, hybrid, layers, ssm, transformer
 
 FAMILY_MODULES = {"dense": transformer, "vlm": transformer,
                   "moe": transformer, "ssm": ssm, "hybrid": hybrid,
@@ -72,6 +73,15 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, Any], *, window=None):
     if cfg.family == "encdec":
         return mod.forward(cfg, params, batch, window=window)
     return mod.forward(cfg, params, batch["tokens"], window=window)
+
+
+def loss_fn(cfg: ModelConfig, params, batch: Dict[str, Any], *, window=None):
+    """The training loss: mean cross-entropy of the forward's logits against
+    ``batch["labels"]`` (< 0 masked) plus ``router_aux_coef`` times the
+    routers' aux loss. Returns ``(loss, {"ce", "aux"})``."""
+    logits, aux = forward(cfg, params, batch, window=window)
+    ce = layers.cross_entropy(logits, batch["labels"], cfg.padded_vocab)
+    return ce + cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,

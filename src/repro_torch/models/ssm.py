@@ -15,7 +15,8 @@ the conv adds its K shifted products in ``sum``'s order in the input's
 dtype, then the bias, and takes SiLU in f32; the scan runs in f32; softplus
 is ``logaddexp(x, 0)`` (:func:`softplus`), not torch's thresholded one.
 
-Parameters stay stacked over layers (``(L, ...)``); the decode state is
+Parameters stay stacked over layers (``(L, ...)``; each loop over layers
+takes them apart once with ``transformer.unstack``); the decode state is
 preallocated (``conv`` (L, B, d_conv-1, conv_dim) in ``cfg.dtype``, ``ssm``
 (L, B, H, N, P) in f32) and written in place; ``pos`` is a Python int. The
 JAX ``forward``'s ``remat``, ``last_only`` and ``rt`` are not ported: no
@@ -31,7 +32,7 @@ from repro_torch.common import pspec
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.common.pspec import ParamSpec, torch_dtype
 from repro_torch.models import layers
-from repro_torch.models.transformer import layer_params
+from repro_torch.models.transformer import unstack
 
 State = Dict[str, torch.Tensor]
 
@@ -249,8 +250,7 @@ def forward(cfg, params, tokens: torch.Tensor, *,
     loss; ``window`` is taken and unused, as in the JAX package."""
     x = layers.embed_tokens(cfg, params["embed"], tokens).to(
         torch_dtype(cfg.dtype))
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
+    for lp in unstack(params["layers"]):
         x = x + mamba_forward(cfg, lp["mixer"],
                               layers.apply_norm(cfg, lp["ln"], x))
     x = layers.apply_norm(cfg, params["ln_f"], x)
@@ -277,8 +277,7 @@ def decode_step(cfg, params, state, tokens: torch.Tensor, *, window: int = 0):
     new_state); the states are updated in place."""
     x = layers.embed_tokens(cfg, params["embed"], tokens[:, None]).to(
         torch_dtype(cfg.dtype))
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
+    for i, lp in enumerate(unstack(params["layers"])):
         h = layers.apply_norm(cfg, lp["ln"], x)
         h, _ = mamba_decode(cfg, lp["mixer"], h,
                             {k: a[i] for k, a in state["cache"].items()})

@@ -4,8 +4,9 @@ MLA, dense or MoE FFNs, and a KV cache in the activation dtype or in int8
 (MLA: the latent cache).
 
 Parameters stay stacked over layers, ``(L, ...)`` as in the JAX package, so
-a weight tree crosses between the packages unchanged; the loop over layers
-takes layer ``i``'s views with :func:`layer_params`. The decode cache is
+a weight tree crosses between the packages unchanged; every loop over layers
+takes the stacks apart once with :func:`unstack` (``unbind``, whose
+backward is one ``stack`` per leaf). The decode cache is
 preallocated (``(L, B, size, Kv, D)``) and written in place: a decode step
 or a prefill returns a state that shares its cache tensors with the state
 it was given. ``pos`` is a Python int. As in the JAX package, MLA has no
@@ -52,11 +53,16 @@ def param_specs(cfg) -> Dict[str, Any]:
     }
 
 
-def layer_params(stacked, i: int):
-    """Layer ``i``'s parameters: views into the ``(L, ...)`` stacks."""
+def unstack(stacked):
+    """The ``(L, ...)`` stacks taken apart once: a list of L per-layer trees
+    of views into them. Each leaf is one ``unbind(0)``, whose backward is
+    one ``stack``; indexing each layer (``stacked[i]``) would have its
+    backward write a zero-filled gradient of the whole stack per layer."""
     if isinstance(stacked, dict):
-        return {k: layer_params(v, i) for k, v in stacked.items()}
-    return stacked[i]
+        parts = {k: unstack(v) for k, v in stacked.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    return list(stacked.unbind(0))
 
 
 # ---------------------------------------------------------------------------
@@ -102,9 +108,8 @@ def forward(cfg, params, tokens: torch.Tensor, *,
     x = layers.embed_tokens(cfg, params["embed"], tokens).to(
         torch_dtype(cfg.dtype))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, a, _, _ = _layer_fwd(cfg, layer_params(params["layers"], i), x,
-                                positions, w, aux=True)
+    for lp in unstack(params["layers"]):
+        x, a, _, _ = _layer_fwd(cfg, lp, x, positions, w, aux=True)
         if a is not None:
             aux = aux + a
     x = layers.apply_norm(cfg, params["ln_f"], x)
@@ -145,8 +150,7 @@ def decode_step(cfg, params, state, tokens: torch.Tensor, *, window: int = 0):
               else attention.gqa_decode)
     x = layers.embed_tokens(cfg, params["embed"], tokens[:, None]).to(
         torch_dtype(cfg.dtype))
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
+    for i, lp in enumerate(unstack(params["layers"])):
         h = layers.apply_norm(cfg, lp["ln1"], x)
         lcache = _layer_cache(state["cache"], i)
         if cfg.attn_kind == "mla":
@@ -175,10 +179,9 @@ def prefill(cfg, params, tokens: torch.Tensor, state, *, window: int = 0):
     positions = _positions(tokens)
     x = layers.embed_tokens(cfg, params["embed"], tokens).to(
         torch_dtype(cfg.dtype))
-    for i in range(cfg.n_layers):
+    for i, lp in enumerate(unstack(params["layers"])):
         lcache = _layer_cache(state["cache"], i)
-        x, _, k, v = _layer_fwd(cfg, layer_params(params["layers"], i), x,
-                                positions, window, aux=False)
+        x, _, k, v = _layer_fwd(cfg, lp, x, positions, window, aux=False)
         lcache["k"][:, :s] = k.to(lcache["k"].dtype)
         lcache["v"][:, :s] = v.to(lcache["v"].dtype)
     x = layers.apply_norm(cfg, params["ln_f"], x[:, -1:])

@@ -77,7 +77,7 @@ def test_layers_match(f32, which):
     jcfg, jp, cfg, tp = f32
     rng = np.random.default_rng(1)
     lp_j = jax.tree_util.tree_map(lambda a: a[0], jp["layers"])
-    lp_t = transformer.layer_params(tp["layers"], 0)
+    lp_t = transformer.unstack(tp["layers"])[0]
     if which == "norm":
         x = rng.normal(size=(2, 16, cfg.d_model)).astype(np.float32) * 3
         got = layers.apply_norm(cfg, lp_t["ln1"], torch.from_numpy(x))
@@ -101,7 +101,7 @@ def test_gqa_forward_matches(f32):
     jcfg, jp, cfg, tp = f32
     x = np.random.default_rng(2).normal(size=(2, 16, cfg.d_model)).astype(
         np.float32)
-    got = attention.gqa_forward(cfg, transformer.layer_params(tp["layers"], 1)
+    got = attention.gqa_forward(cfg, transformer.unstack(tp["layers"])[1]
                                 ["attn"], torch.from_numpy(x))
     want = j_attention.gqa_forward(
         jcfg, jax.tree_util.tree_map(lambda a: a[1], jp["layers"])["attn"],

@@ -197,7 +197,7 @@ def test_moe_dense_matches(phi):
         np.float32)
     for layer in range(cfg.n_layers):
         jm = jax.tree_util.tree_map(lambda a: a[layer], jp["layers"])["moe"]
-        tm = transformer.layer_params(tp["layers"], layer)["moe"]
+        tm = transformer.unstack(tp["layers"])[layer]["moe"]
         assert tm["router"].dtype == torch.float32
         y, aux = moe.moe_dense(cfg, tm, torch.from_numpy(x))
         jy, jaux = j_moe.moe_dense(jcfg, jm, jnp.asarray(x))

@@ -183,7 +183,7 @@ def test_constant_leaves_are_seeded(f32):
 
 def test_mla_q_and_latent_match(f32):
     jcfg, jp, cfg, tp = f32
-    ta, ja = transformer.layer_params(tp["layers"], 0)["attn"], \
+    ta, ja = transformer.unstack(tp["layers"])[0]["attn"], \
         _layer(jp["layers"])["attn"]
     x = _x(cfg, 13, 3)
     pos = np.arange(13)[None, :]
@@ -207,7 +207,7 @@ def test_mla_forward_matches(f32, monkeypatch):
     """Through the port's flash wrapper at qk / v dims (48, 32), v
     unpadded, the plain version on CPU tensors (no launch)."""
     jcfg, jp, cfg, tp = f32
-    ta, ja = transformer.layer_params(tp["layers"], 0)["attn"], \
+    ta, ja = transformer.unstack(tp["layers"])[0]["attn"], \
         _layer(jp["layers"])["attn"]
     x = _x(cfg, 20, 4)
     seen = []
@@ -232,7 +232,7 @@ def test_mla_decode_matches_step_by_step(f32):
     """Each step's output and the latent cache against JAX's; the port's
     cache tensors are the ones it was given, written in place."""
     jcfg, jp, cfg, tp = f32
-    ta, ja = transformer.layer_params(tp["layers"], 0)["attn"], \
+    ta, ja = transformer.unstack(tp["layers"])[0]["attn"], \
         _layer(jp["layers"])["attn"]
     steps = 9
     xs = np.random.default_rng(5).normal(
@@ -257,7 +257,7 @@ def test_shared_expert_moe_matches(f32):
     jcfg, jp, cfg, tp = f32
     x = _x(cfg, 16, 6)
     for layer in range(cfg.n_layers):
-        tm = transformer.layer_params(tp["layers"], layer)["moe"]
+        tm = transformer.unstack(tp["layers"])[layer]["moe"]
         jm = _layer(jp["layers"], layer)["moe"]
         assert set(tm["shared"]) == {"wi", "wg", "wo"}
         y, aux = moe.moe_forward(cfg, tm, torch.from_numpy(x))

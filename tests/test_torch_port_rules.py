@@ -8,7 +8,9 @@
 * the card is the default: an entry point without ``device`` raises when
   CUDA is absent;
 * every kernel wrapper sends CPU tensors to its plain version and counts no
-  launch.
+  launch (K13 and K12 through the backward's one wrapper);
+* the training launcher, like the other entry points, trains on the card
+  unless told otherwise.
 """
 import ast
 import dataclasses
@@ -38,6 +40,7 @@ from repro_torch.kernels.row_gather import ops as rg_ops
 from repro_torch.kernels.row_gather import ref as rg_ref
 from repro_torch.kernels.sparse_mlp import ops as sk_ops
 from repro_torch.kernels.sparse_mlp import ref as sk_ref
+from repro_torch.launch import train as train_cli
 from repro_torch.models import registry
 from repro_torch.serving.engine import InferenceEngine
 from repro_torch import quickstart
@@ -119,6 +122,7 @@ def test_port_file_list_is_complete():
                 "repro_torch/train/steps.py",
                 "repro_torch/serving/server.py",
                 "repro_torch/launch/serve.py",
+                "repro_torch/launch/train.py",
                 "repro_torch/serving/context_cache.py",
                 "repro_torch/train/hogwild.py",
                 "repro_torch/quickstart.py",
@@ -131,7 +135,7 @@ def test_port_file_list_is_complete():
     sources = {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu")}
     assert sources == {"row_gather.cu", "ffm_interaction.cu",
                        "ffm_fused_logits.cu", "quantize.cu", "sparse_mlp.cu",
-                       "flash_attention.cu"}
+                       "flash_attention.cu", "flash_attention_bwd.cu"}
 
 
 @pytest.mark.parametrize("kw", [{}, {"n_fields": 8, "context_fields": 5,
@@ -225,6 +229,9 @@ def test_card_is_the_default():
         LLMServer(llm, cpu_params)
     assert LLMServer(llm, cpu_params, device="cpu").generate(
         torch.zeros((1, 3), dtype=torch.int32), 2).shape == (1, 2)
+    # the training launcher trains on the card unless told otherwise
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.main(["--arch", "llama3.2-1b", "--smoke", "--steps", "1"])
 
 
 def _cases():
@@ -263,6 +270,10 @@ def _cases():
     fq = t(rng.normal(size=(2, 9, 4, 16)).astype(np.float32))
     fk = t(rng.normal(size=(2, 9, 2, 16)).astype(np.float32))
     fv = t(rng.normal(size=(2, 9, 2, 16)).astype(np.float32))
+    # the backward's: K11's output and log-sum-exp, a cotangent
+    bwd_args = (fq, fk, fv, *fa_ref.flash_attention_ref(fq, fk, fv,
+                                                        return_lse=True),
+                t(rng.normal(size=(2, 9, 4, 16)).astype(np.float32)))
     return {
         "gather_dequant_rows_q8": (rg_ops.gather_dequant_rows_q8,
                                    rg_ref.gather_dequant_rows_q8_ref,
@@ -293,6 +304,11 @@ def _cases():
                                sk_ref.sparse_weight_grad_ref, (x, gm)),
         "flash_attention": (fa_ops.flash_attention, fa_ref.flash_attention_ref,
                             (fq, fk, fv)),
+        # K13 and K12 sit behind one wrapper, the backward
+        "flash_attention_bwd_dq": (fa_ops.flash_attention_bwd,
+                                   fa_ref.flash_attention_bwd_ref, bwd_args),
+        "flash_attention_bwd_dkdv": (fa_ops.flash_attention_bwd,
+                                     fa_ref.flash_attention_bwd_ref, bwd_args),
     }
 
 
