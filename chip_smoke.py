@@ -70,14 +70,19 @@ Phases, each of which raises on failure (nothing is caught):
    the port's own kernels, at ``FLASH_BWD``'s shapes in bf16 and f32
    (llama3.2-1b's train step, the main record; D = 128; D = 112;
    deepseek-v2's (192, 128) at (4, 1024, 128 / 128); (48, 32); seamless'
-   unmasked Sq = 256 against Sk = 1024; a window): K11's log-sum-exp
+   unmasked Sq = 256 against Sk = 1024; a window; (16, 16) and (32, 32), so
+   every pair of ``ops.HEAD_DIMS`` runs): K11's log-sum-exp
    output first, against the plain one within ``LSE_TOL`` (1 + |lse|);
    then the gradients against the plain backward on K11's output and
-   log-sum-exp (f32 within ``BWD_REL`` of each gradient's largest |value|,
-   bf16 per element within 2u |g| + ``BWD_REL`` max |g|), a repeat call
-   bit-identical; each kernel timed alone beside its bound, the plain
-   backward and the backward alone of autograd through
-   ``scaled_dot_product_attention`` (the yardstick, never on the path).
+   log-sum-exp (f32 within ``BWD_REL`` of each gradient's largest |value|;
+   bf16, whose wgmma bodies round P and dS to bf16 before their products,
+   per element within 2u (A + |g|) + ``BWD_REL`` max |g|, A the same
+   products on absolute values, ``ref.flash_attention_bwd_abs_ref``), a
+   repeat call bit-identical, the body that ran named (``ops.BWD_BODIES``);
+   each kernel timed alone beside its bound, the plain backward and the
+   backward alone of autograd through ``scaled_dot_product_attention`` (the
+   yardstick, never on the path). Phase 1 prints both bodies' ptxas
+   registers and spills per pair and their shared memory.
 3. The LLM families first, while the card's memory is free, at full width
    with bf16 weights from the seed, one server at a time, each freed before
    the next:
@@ -385,11 +390,14 @@ FLASH_MLA_SWEEP = ((2, 200, 4, 2, 192, True, 0, 128),
                    (2, 130, 4, 2, 48, False, 33, 32))
 # K13 / K12 (flash attention's backward) against the plain backward on the
 # same K11 output and log-sum-exp: f32 within BWD_REL of each gradient's
-# largest |value| (f32 sums in other orders); bf16 per element within 2u |g|
-# + BWD_REL max |g| (both round one f32 value to bf16: at most one bf16 ulp,
-# 2u |g|, apart, beside the f32 bound). K11's log-sum-exp against the plain
-# one within LSE_TOL (1 + |lse|): f32 the CUDA-core body's expf and sums,
-# bf16 the wgmma body's ex2.approx (2 ulp) and its log2(e) fold
+# largest |value| (f32 sums in other orders); bf16 per element within
+# 2u (A + |g|) + BWD_REL max |g|: the wgmma bodies round P and dS to bf16
+# before their products (K12 forms dS from the rounded P: at most 2u of each
+# term, so 2u A, A = ref.flash_attention_bwd_abs_ref's sum of the terms'
+# magnitudes) and both sides round the f32 gradient once (2u |g|), beside
+# the f32 bound. K11's log-sum-exp against the plain one within LSE_TOL
+# (1 + |lse|): f32 the CUDA-core body's expf and sums, bf16 the wgmma body's
+# ex2.approx (2 ulp) and its log2(e) fold
 BWD_REL = 1e-4
 LSE_TOL = {"float32": 2e-5, "bfloat16": 1e-4}
 # the backward's shapes, each in bf16 and f32: (B, Sq, Sk, H, Kv, D, Dv,
@@ -397,14 +405,17 @@ LSE_TOL = {"float32": 2e-5, "bfloat16": 1e-4}
 # D = 128 (phi3.5-moe / granite-8b heads), zamba2's D = 112, deepseek-v2's
 # MLA (192, 128) (few timed calls: tens of ms a backward), the smoke
 # config's (48, 32), seamless' unmasked cross-attention (Sq != Sk), a window
-# with S ragged to the 64-row tiles
+# with S ragged to the 64-row tiles; then the two smallest pairs of
+# ops.HEAD_DIMS, (16, 16) causal and (32, 32) under a window with S ragged
 FLASH_BWD = ((4, 1024, 1024, 32, 8, 64, 64, True, 0, 20),
              (4, 1024, 1024, 32, 8, 128, 128, True, 0, 10),
              (4, 1024, 1024, 32, 32, 112, 112, True, 0, 5),
              (4, 1024, 1024, 128, 128, 192, 128, True, 0, 2),
              (2, 256, 256, 4, 4, 48, 32, True, 0, 10),
              (4, 256, 1024, 16, 16, 64, 64, False, 0, 10),
-             (2, 1000, 1000, 8, 2, 64, 64, True, 200, 10))
+             (2, 1000, 1000, 8, 2, 64, 64, True, 200, 10),
+             (2, 256, 256, 8, 2, 16, 16, True, 0, 10),
+             (2, 200, 200, 4, 1, 32, 32, True, 64, 10))
 BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
 BWD_REPLACES = ("none: the port's own (the JAX package differentiates its jnp "
                 "flash, src/repro/models/attention.py:36)")
@@ -531,13 +542,36 @@ def flash_smem_bytes(d: int, dv: int, bf16: bool, stages=None):
     return total(stages), stages
 
 
-def flash_bwd_smem_bytes(d: int, dv: int):
+def bwd_bf16_share(got, want, terms) -> float:
+    """The largest share, over the elements of one gradient, of K13 / K12's
+    bf16 bound |got - want| <= 2u (A + |want|) + BWD_REL max |want|, A =
+    ``terms`` (that gradient's ``ref.flash_attention_bwd_abs_ref``); the
+    bound holds where it is at most 1."""
+    w = want.float()
+    lim = 2 * BF16_U * (terms + w.abs()) + BWD_REL * float(w.abs().max())
+    return float(((got.float() - w).abs() / lim.clamp_min(1e-30)).max())
+
+
+def flash_bwd_smem_bytes(d: int, dv: int, bf16: bool):
     """K13's and K12's dynamic shared memory per block at qk / v head dims
-    (d, dv) (csrc/flash_attention_bwd.cu: 64-row tiles of f32 rows W + 4
-    floats wide; K13 Q, dO, K, V and dS; K12 the same and P^T, 128 floats of
-    lse and Delta)."""
-    tiles = 2 * 64 * (d + 4) + 2 * 64 * (dv + 4)
-    return (tiles + 64 * 68) * 4, (tiles + 2 * 64 * 68 + 128) * 4
+    (d, dv) (csrc/flash_attention_bwd.cu). The bf16 bodies (DqTile /
+    DkdvTile, widths above 32 rounded up to whole 64-column boxes as K11's):
+    K13 a 128-row Q and dO, 3 stages of a 64-key K and V, 1 + 2 x 3
+    mbarriers; K12 a 64-key K and V, 3 stages of a 64-row Q and dO, two
+    8192 B buffers of P^T, 1024 B of lse / Delta buffers, 1 + 2 x 3 + 4
+    mbarriers; each with 1024 B of alignment slack. The f32 bodies:
+    64-row tiles of f32 rows W + 4 floats wide; K13 Q, dO, K, V and dS; K12
+    the same and P^T, 128 floats of lse and Delta. Returns (K13, K12)."""
+    if not bf16:
+        tiles = 2 * 64 * (d + 4) + 2 * 64 * (dv + 4)
+        return (tiles + 64 * 68) * 4, (tiles + 2 * 64 * 68 + 128) * 4
+
+    def width(w):
+        return w if w <= 32 else -(-w // 64) * 64
+
+    row = (width(d) + width(dv)) * 2  # one row of Q and dO, or of K and V
+    return (128 * row + 3 * 64 * row + 7 * 8 + 1024,
+            64 * row + 3 * 64 * row + 2 * 8192 + 1024 + 11 * 8 + 1024)
 
 
 # template arguments as the mangled names spell them
@@ -556,8 +590,10 @@ def ptxas_usage(log: str, needle: str):
                           r"((?:Li\d+E)*)", line)
             targs = [MANGLED_TYPES[m.group(1)]] if m and m.group(1) else []
             targs += re.findall(r"Li(\d+)E", m.group(2)) if m else []
+            # a longer name that starts with the needle is another kernel
             name = (f"{needle}<{', '.join(targs)}>" if targs
-                    else needle if needle in line else None)
+                    else needle if re.search(re.escape(needle) + "(?!_)",
+                                             line) else None)
         elif name and "spill" in line:
             spill = line
         elif name and "Used" in line and "registers" in line:
@@ -774,13 +810,24 @@ def main(argv=None) -> int:
                   f"entry (setmaxnreg: consumers 232, producer 40); {spill} "
                   "(with the lse write: one instance serves training, which "
                   "passes an lse pointer, and serving, which passes null)")
+        for kid, needle, nreg in (
+                ("K13", "flash_attention_bwd_dq_kernel_wgmma", "232 / 40"),
+                ("K12", "flash_attention_bwd_dkdv_kernel_wgmma", "240 / 24")):
+            for name, regs, spill in ptxas_usage(lib.log, needle):
+                print(f"  {kid} bf16 body {name}: {regs} registers per "
+                      f"thread at entry (setmaxnreg: consumers / producer "
+                      f"{nreg}); {spill}")
         for kid, needle in (("K13", "flash_attention_bwd_dq_kernel"),
                             ("K12", "flash_attention_bwd_dkdv_kernel")):
             for name, regs, spill in ptxas_usage(lib.log, needle):
-                print(f"  {kid} {name}: {regs} registers per thread; {spill}")
-        print("  dynamic shared memory per block of K13 / K12 at (D, Dv) "
-              + ", ".join(f"({d}, {dv}) {flash_bwd_smem_bytes(d, dv)[0]} / "
-                          f"{flash_bwd_smem_bytes(d, dv)[1]} B"
+                print(f"  {kid} f32 body {name}: {regs} registers per "
+                      f"thread; {spill}")
+        print("  dynamic shared memory per block of K13 / K12 at (D, Dv), "
+              "bf16 | f32: "
+              + ", ".join(f"({d}, {dv}) "
+                          + " | ".join(" / ".join(
+                              str(x) for x in flash_bwd_smem_bytes(d, dv, bf))
+                              for bf in (True, False)) + " B"
                           for d, dv in fa_ops.HEAD_DIMS))
         for kid, needle in (("K1", "gather_dequant_rows_q8_kernel"),
                             ("K4", "ffm_interaction_matrix_kernel"),
@@ -1723,16 +1770,20 @@ def main(argv=None) -> int:
                                            causal=causal, window=window)
         check(all(torch.equal(a, c) for a, c in zip(got, again)),
               f"{what}: two backward calls differ")
+        body = fa_ops.BWD_BODIES[dtype][0]
+        # bf16: each gradient's terms on absolute values (A), the scale of
+        # the roundings of P and dS
+        terms = (fa_ref.flash_attention_bwd_abs_ref(
+            q_, k_, v_, o_, lse_, do_, causal=causal, window=window)
+            if bf16 else (None,) * 3)
         shares = {}
-        for gname, g, w in zip(("dq", "dk", "dv"), got, want):
-            w = w.float()
-            e = (g.float() - w).abs()
-            top = float(w.abs().max())
+        for gname, g, w, a in zip(("dq", "dk", "dv"), got, want, terms):
             if bf16:
-                lim = 2 * BF16_U * w.abs() + BWD_REL * top
-                shares[gname] = float((e / lim.clamp_min(1e-30)).max())
+                shares[gname] = bwd_bf16_share(g, w, a)
             else:
-                shares[gname] = float(e.max()) / max(BWD_REL * top, 1e-30)
+                w = w.float()
+                shares[gname] = (float((g.float() - w).abs().max())
+                                 / max(BWD_REL * float(w.abs().max()), 1e-30))
             check(shares[gname] <= 1, f"{what}: {gname} at "
                   f"{shares[gname]:.3f} of its bound")
         # each kernel alone, on outputs allocated once (K13 first: it
@@ -1791,7 +1842,8 @@ def main(argv=None) -> int:
                 "library_ms": times["library"], "bytes": work[key][0],
                 "shape": [b_, sq, sk, h, kv_, d, dv, tname,
                           "causal" if causal else "unmasked", window],
-                "tolerance": ("2u|g| + " if bf16 else "") + f"{BWD_REL} max|g|",
+                "tolerance": ("2u(A + |g|) + " if bf16 else "")
+                + f"{BWD_REL} max|g|", "body": body,
                 "bound_shares": shares, "lse_share": lse_share})
         # the backward as a whole: q, k, v, o, dO and lse read once, dq, dk
         # and dv written once; 2 (3 D + 2 Dv) operations per kept pair
@@ -1811,8 +1863,8 @@ def main(argv=None) -> int:
                 f"scaled_dot_product_attention's backward {yard} | {smi}")
         else:
             timing = "not measured (no card)"
-        print(f"kernel {what}: K11 lse at {lse_share:.3f} of its bound; "
-              "dq / dk / dv at "
+        print(f"kernel {what}: {body} bodies; K11 lse at {lse_share:.3f} of "
+              "its bound; dq / dk / dv at "
               + " / ".join(f"{v:.3f}" for v in shares.values())
               + " of their bounds (" + recs[0]["tolerance"]
               + "), a repeat bit-identical | " + timing)

@@ -10,6 +10,8 @@ backward runs K13 (dQ) then K12 (dK, dV) in ``csrc/flash_attention_bwd.cu``,
 the port's own kernels (the JAX package differentiates its jnp flash by
 autodiff); on CPU tensors both directions take the plain versions. Any
 other call, serving's included, launches K11 without the log-sum-exp.
+K13 and K12 have two bodies each, picked by dtype as K11's are
+(:data:`BWD_BODIES`).
 
 Unlike the Pallas wrapper nothing is padded or transposed and no block size
 is chosen here: the kernel reads q, k and v in their (B, S, heads, D)
@@ -35,6 +37,10 @@ HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (112, 112), (128, 128), (48, 32),
 # pairs it is instantiated for (the C entry's switch)
 BODIES = {torch.bfloat16: ("wgmma", HEAD_DIMS),  # TMA + wgmma
           torch.float32: ("cuda-core", HEAD_DIMS)}  # f32 FMAs
+# the bodies of csrc/flash_attention_bwd.cu (K13 and K12) that serve each
+# dtype, and their (D, Dv) pairs (the C entries' switches)
+BWD_BODIES = {torch.bfloat16: ("wgmma", HEAD_DIMS),  # TMA + wgmma
+              torch.float32: ("cuda-core", HEAD_DIMS)}  # f32 FMAs
 TMA_ALIGN = 16  # bytes: a TMA tensor map's base address
 
 
@@ -56,6 +62,14 @@ def check_tma_alignment(**ptrs: int) -> None:
         if ptr % TMA_ALIGN:
             raise ValueError(f"{name} at {ptr:#x} is not {TMA_ALIGN}-byte "
                              "aligned, as the wgmma body's TMA loads need")
+
+
+def tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and on a TMA-aligned address: ``t`` itself where it
+    already is, else a fresh copy (autograd may hand the backward a strided
+    or offset cotangent)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % TMA_ALIGN == 0 else t.clone()
 
 
 def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -144,8 +158,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     at (q, k, v) for the output cotangent ``do`` (B, Sq, H, Dv), from the
     forward's output ``o`` and ``lse`` (:func:`flash_attention_fwd`). CUDA
     tensors: K13 (dQ, and each row's rowsum(dO o O) for K12) then K12 (dK,
-    dV); CPU tensors: ``ref.flash_attention_bwd_ref``."""
-    _check_args(q, k, v, window)
+    dV), by the body :data:`BWD_BODIES` names for the dtype (bf16 needs q,
+    k, v, o and do TMA-aligned); CPU tensors:
+    ``ref.flash_attention_bwd_ref``."""
+    _check_args(q, k, v, window)  # K11's dtypes and pairs, the backward's
+    body = BWD_BODIES[q.dtype][0]
     b, sq, h, d = q.shape
     sk, kv, dv = k.shape[1], k.shape[2], v.shape[3]
     if (tuple(o.shape) != (b, sq, h, dv) or tuple(do.shape) != tuple(o.shape)
@@ -165,6 +182,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         _build.check(t, name, q.dtype)
     _build.check(lse, "lse", torch.float32)
+    if body == "wgmma":
+        check_tma_alignment(q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
+                            o=o.data_ptr(), do=do.data_ptr())
     dq, dk, dvv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or sk == 0:
         return dq.zero_(), dk.zero_(), dvv.zero_()
@@ -195,7 +215,6 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        # autograd may hand over a non-contiguous cotangent
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, tma_ready(do),
                                          causal=ctx.causal, window=ctx.window)
         return dq, dk, dv, None, None

@@ -5,8 +5,10 @@
 each row's log-sum-exp of the masked, scaled scores, in natural-log units,
 as K11 writes it for the backward. :func:`flash_attention_bwd_ref` is the
 backward of K13 (dQ) and K12 (dK, dV), the port's own kernels: it recomputes
-``P = exp(S D^-1/2 - lse)`` from that log-sum-exp, as they do. Both serve the
-CPU and the tests, never a CUDA tensor on the main path.
+``P = exp(S D^-1/2 - lse)`` from that log-sum-exp, as they do.
+:func:`flash_attention_bwd_abs_ref` takes the backward's products on
+absolute values, the scale of the bf16 kernels' roundoff. They serve the CPU
+and the tests, never a CUDA tensor on the main path.
 """
 from __future__ import annotations
 
@@ -57,6 +59,25 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o, torch.logsumexp(s, dim=-1).reshape(b, h, sq)
 
 
+def _bwd_terms(q, k, v, o, lse, do, causal: bool, window: int):
+    """The backward's intermediates in f32: ``P`` and ``dS`` (B, Kv, G, Sq,
+    Sk), dO and q as (B, Sq, Kv, G, ·), and the scale D^-1/2."""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    s, scale = _scores(q, k)
+    keep = _mask(sq, sk, causal, window, q.device)
+    lse5 = lse.float().reshape(b, kv, g, sq)[..., None]
+    p = torch.exp(s - lse5).masked_fill(~keep, 0.0)  # (B, Kv, G, Sq, Sk)
+    dof = do.float().reshape(b, sq, kv, g, -1)
+    of = o.float().reshape(b, sq, kv, g, -1)
+    delta = (dof * of).sum(-1).permute(0, 2, 3, 1)[..., None]  # (B,Kv,G,Sq,1)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, v.float())
+    ds = p * (dp - delta)
+    qh = q.float().reshape(b, sq, kv, g, d)
+    return p, ds, dof, qh, scale
+
+
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
                             lse: torch.Tensor, do: torch.Tensor, *,
@@ -71,20 +92,30 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     kv head. Returns ``(dq, dk, dv)`` in the inputs' dtype. A row that the
     mask leaves wholly empty gets no gradient (no caller makes one)."""
     b, sq, h, d = q.shape
-    sk, kv = k.shape[1], k.shape[2]
-    g = h // kv
-    s, scale = _scores(q, k)
-    keep = _mask(sq, sk, causal, window, q.device)
-    lse5 = lse.float().reshape(b, kv, g, sq)[..., None]
-    p = torch.exp(s - lse5).masked_fill(~keep, 0.0)  # (B, Kv, G, Sq, Sk)
-    dof = do.float().reshape(b, sq, kv, g, -1)
-    of = o.float().reshape(b, sq, kv, g, -1)
-    delta = (dof * of).sum(-1).permute(0, 2, 3, 1)[..., None]  # (B,Kv,G,Sq,1)
+    p, ds, dof, qh, scale = _bwd_terms(q, k, v, o, lse, do, causal, window)
     dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
-    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, v.float())
-    ds = p * (dp - delta)
-    qh = q.float().reshape(b, sq, kv, g, d)
     dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) * scale
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qh) * scale
     return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def flash_attention_bwd_abs_ref(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, o: torch.Tensor,
+                                lse: torch.Tensor, do: torch.Tensor, *,
+                                causal: bool = True, window: int = 0):
+    """The products of :func:`flash_attention_bwd_ref` on absolute values,
+    in f32: ``A_dq = |dS| |K| D^-1/2``, ``A_dk = |dS|ᵀ |Q| D^-1/2``, ``A_dv
+    = Pᵀ |dO|`` (P >= 0), A_dk and A_dv summed over the G query heads as
+    their gradients are. They scale the roundoff of a bf16 backward that
+    rounds P and dS to bf16 before its products: rounding each term of a
+    sum by at most 2u moves the sum by at most 2u A (chip_smoke.py's bound
+    on K13 / K12). Returns ``(a_dq, a_dk, a_dv)``, shaped as the
+    gradients."""
+    b, sq, h, d = q.shape
+    p, ds, dof, qh, scale = _bwd_terms(q, k, v, o, lse, do, causal, window)
+    ads = ds.abs()
+    a_dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof.abs())
+    a_dq = torch.einsum("bkgqs,bskd->bqkgd", ads, k.float().abs()) * scale
+    a_dk = torch.einsum("bkgqs,bqkgd->bskd", ads, qh.abs()) * scale
+    return a_dq.reshape(b, sq, h, d), a_dk, a_dv
