@@ -28,7 +28,11 @@ Phases, each of which raises on failure (nothing is caught):
    their main-bucket outputs is printed, to compare builds run by run.
    The wire-quantization kernels K7-K9
    run over the whole DeepFFM weight space (~50.6 M weights) and must match
-   exactly (min/max, codes and floats bit for bit). K10, the §4.3 block-skip
+   exactly (min/max, codes and floats bit for bit); then again over
+   llama3.2-1b's weight space (1,237,387,264 weights: f32 byte offsets past
+   2^32, the codes' past 2^31; the grid's bounds and tie points at both
+   ends), bit for bit, timed in ``WIRE_BIG_ITERS`` eager calls, records
+   under the main records' ``"llama"``. K10, the §4.3 block-skip
    weight gradient, runs at the trainer's two hidden-layer shapes (one
    microbatch's pair of launches) and on ``test_kernels.py``'s sweep plus
    B = 129 / 1000 / 100 at both layer widths (rtol 1e-4, atol 1e-4), gives
@@ -244,6 +248,26 @@ Phases, each of which raises on failure (nothing is caught):
    - quickstart: ``repro_torch.quickstart.main()`` on the card (3 rounds of
      30 x 512, ``Sender`` patches into an engine, scoring); the weights
      version must reach 3 and the served model's AUC exceed 0.5.
+   - serve_llm: ``repro_torch.serve_llm.run`` on llama3.2-1b at full width
+     in bf16 (weights from the seed; B = 4 requests sharing a prefix of
+     128 tokens, 32 new each): one full frame (its exact length checked)
+     through a ``Sender`` and a ``Receiver`` on the card, K7 / K8 / K9 once
+     each and K11 never; the served tree the trainer's in structure, dtype
+     and shape, each weight within the wire grid's bound of the sent one
+     (plus the bf16 cast's 2u |w|); the prefix decoded once at batch 1,
+     fanned out and continued, against each request decoding the prefix
+     alone (tokens equal, or a flip at a top-2 gap within
+     ``serve_llm.GAP_TOL``); both routes' ms and new tokens/s, the smallest
+     gap, the host's peak RSS and the card's peak allocation.
+   - train_ctr_100m: ``repro_torch.train_ctr_100m.run`` at the example's
+     config (2^20 hashes x 24 fields x k = 4: 101,732,332 weights), 200
+     steps of 512 on the dense route, then on the Hogwild route at 4
+     threads, each with its checkpoint in a temporary directory: K10
+     exactly twice a step, K7 / K8 twice (two ``make_update``s), K9 never;
+     AUC above 0.5, the losses finite; ``store.load`` of the checkpoint
+     equal bit for bit; the drifted weights' patch frame smaller than the
+     raw f32 file. Examples/s, the GB a Hogwild step moves by its copies,
+     the frames' bytes and the steps' device memory peak.
    - local SGD: ``TrainingPipeline(..., "local_sgd", local_sgd_workers=W)``
      at W = 2, then 4: 2 rounds of W x 4 microbatches of 512 into an int8
      engine, with the training phase's frame checks (full, then delta);
@@ -322,6 +346,7 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BF16_TENSOR_FLOPS = 989e12
 
 TIMING_ITERS = 200
+WIRE_BIG_ITERS = 20  # eager calls a timing of K7-K9 at llama's 1.24 G weights
 # the card's spin (torch.cuda._sleep) that hides the launch path when
 # kernel_ms times short kernels back to back: ~25 ms at 1.98 GHz, far more
 # than queuing 20 calls takes
@@ -346,6 +371,15 @@ HOGWILD_MICRO = 16  # microbatches per Hogwild round
 GRAD_RTOL = 1e-4
 # the LLM phase: served batch, prompt length, new tokens; the f32 oracle's
 # batch and prompt length (llama32_1b.config(); the rehearsal's smoke())
+# the serve_llm example: B requests sharing a prefix, new tokens each
+SERVE_LLM_FULL = {"batch": 4, "prefix": 128, "gen": 32}
+SERVE_LLM_TINY = {"batch": 2, "prefix": 4, "gen": 3}
+# the train_ctr_100m example: its config (None: the example's 100.7 M-weight
+# FFMConfig), steps of batch on each route, Hogwild threads
+CTR_FULL = {"cfg": None, "steps": 200, "batch": 512, "threads": 4}
+CTR_TINY = {"cfg": {"n_fields": 24, "context_fields": 16, "hash_space": 2**14,
+                    "k": 4, "mlp_hidden": (64, 32)},
+            "steps": 100, "batch": 256, "threads": 4}
 LLM_FULL = {"batch": 4, "prompt": 1024, "gen": 32, "oracle": (2, 256)}
 LLM_TINY = {"batch": 2, "prompt": 16, "gen": 4, "oracle": (2, 12)}
 # K11 against its plain version (test_kernels.py's flash tolerances; bf16
@@ -756,6 +790,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.row_gather import ref as rg_ref
     from repro_torch.kernels.sparse_mlp import ops as sk_ops
     from repro_torch.kernels.sparse_mlp import ref as sk_ref
+    from repro_torch.models import registry as llm_registry
     from repro_torch.serving.engine import InferenceEngine
 
     # results are held to f32 references: no TF32 anywhere
@@ -971,12 +1006,15 @@ def main(argv=None) -> int:
 
     def kernel_case(name, source, replaces, fn, plain, tol, bytes_moved,
                     flops, shape, library=None, eager=False,
-                    peak_flops=PEAK_F32_FLOPS, into=None):
+                    peak_flops=PEAK_F32_FLOPS, into=None, iters=TIMING_ITERS):
         """Appends the kernel's record to ``into`` (``kernels`` by default)
         and returns it. ``eager``: time eager calls (for kernels long next
         to a launch, whose plain versions would fill a captured graph's
-        memory pool)."""
-        timed = call_ms if eager else device_ms
+        memory pool), ``iters`` of them a timing."""
+        def eager_ms(f):
+            return call_ms(f, n=iters)
+
+        timed = eager_ms if eager else device_ms
         got, want = fn(), plain()
         if on_card:
             torch.cuda.synchronize()
@@ -995,7 +1033,7 @@ def main(argv=None) -> int:
                "ms": timed(fn), "plain_ms": timed(plain),
                "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": timed(library) if library else None,
-               "call_ms": call_ms(fn), "plain_call_ms": call_ms(plain),
+               "call_ms": eager_ms(fn), "plain_call_ms": eager_ms(plain),
                "bytes": bytes_moved, "shape": shape, "tolerance": tol}
         (kernels if into is None else into).append(rec)
         rate = ("not measured" if rec["ms"] is None
@@ -1364,25 +1402,45 @@ def main(argv=None) -> int:
     # the rounded grid's bounds and on code tie points
     n_w = sum(math.prod(spec.shape) for _, spec in
               layout.leaves(deepffm.param_specs(cfg, "deepffm")))
-    w = randn(n_w, scale=0.1)
-    w_min, w_max, bucket = Q.compute_bounds(w)
-    ties = torch.arange(1, 9, device=dev, dtype=torch.float32) * 7001.0
-    w[:18] = torch.cat([torch.tensor([w_min, w_max], device=dev),
-                        w_min + ties * bucket, w_min + (ties + 0.5) * bucket])
-    qw = q_ops.quantize_codes(w, w_min, bucket)
     src = "src/repro_torch/csrc/quantize.cu"
     kq = "src/repro/kernels/quantize/quantize.py"
-    kernel_case("minmax", src, f"{kq}:57", lambda: q_ops.minmax(w),
-                lambda: q_ref.minmax_ref(w), "exact", 4 * n_w, 2 * n_w,
-                [n_w], library=lambda: torch.aminmax(w), eager=True)
-    kernel_case("quantize_codes", src, f"{kq}:83",
-                lambda: q_ops.quantize_codes(w, w_min, bucket),
-                lambda: q_ref.quantize_codes_ref(w, w_min, bucket), "exact",
-                6 * n_w, 4 * n_w, [n_w], eager=True)
-    kernel_case("dequantize_codes", src, f"{kq}:106",
-                lambda: q_ops.dequantize_codes(qw, w_min, bucket),
-                lambda: q_ref.dequantize_codes_ref(qw, w_min, bucket),
-                "exact", 6 * n_w, 2 * n_w, [n_w], eager=True)
+
+    def wire_weights(n, scale, tails):
+        """n seeded f32 weights, with the grid's bounds and code tie points
+        at the start (and, with ``tails``, at the end too)."""
+        w = randn(n, scale=scale)
+        w_min, w_max, bucket = Q.compute_bounds(w)
+        ties = torch.arange(1, 9, device=dev, dtype=torch.float32) * 7001.0
+        marks = torch.cat([torch.tensor([w_min, w_max], device=dev),
+                           w_min + ties * bucket,
+                           w_min + (ties + 0.5) * bucket])
+        w[:18] = marks
+        if tails:
+            w[-18:] = marks
+        return w, w_min, bucket
+
+    def wire_cases(w, w_min, bucket, into=None, iters=TIMING_ITERS):
+        n = w.numel()
+        qw = q_ops.quantize_codes(w, w_min, bucket)
+        recs = [
+            kernel_case("minmax", src, f"{kq}:57", lambda: q_ops.minmax(w),
+                        lambda: q_ref.minmax_ref(w), "exact", 4 * n, 2 * n,
+                        [n], library=lambda: torch.aminmax(w), eager=True,
+                        into=into, iters=iters),
+            kernel_case("quantize_codes", src, f"{kq}:83",
+                        lambda: q_ops.quantize_codes(w, w_min, bucket),
+                        lambda: q_ref.quantize_codes_ref(w, w_min, bucket),
+                        "exact", 6 * n, 4 * n, [n], eager=True, into=into,
+                        iters=iters),
+            kernel_case("dequantize_codes", src, f"{kq}:106",
+                        lambda: q_ops.dequantize_codes(qw, w_min, bucket),
+                        lambda: q_ref.dequantize_codes_ref(qw, w_min, bucket),
+                        "exact", 6 * n, 2 * n, [n], eager=True, into=into,
+                        iters=iters)]
+        return recs, qw
+
+    w, w_min, bucket = wire_weights(n_w, 0.1, tails=False)
+    wire_main, qw = wire_cases(w, w_min, bucket)
     # general paths: a length that is no multiple of 4 and unaligned views
     # (the scalar loops), and NaN propagating through the min/max
     odd = w[1:10_004]
@@ -1399,7 +1457,25 @@ def main(argv=None) -> int:
           "minmax does not propagate NaN")
     print("wire kernels' general paths (unaligned, ragged length, NaN): agree "
           "with plain versions")
+    del w, qw, nan_w, odd
+    # K7-K9 again over llama3.2-1b's whole weight space, as serve_llm ships
+    # it (~1.24 G weights: f32 byte offsets past 2^32, the codes' past 2^31),
+    # tie points at both ends; records under the main records' "llama"
+    n_l = sum(math.prod(spec.shape) for _, spec in
+              layout.leaves(llm_registry.param_specs(llm_cfg)))
+    w, w_min, bucket = wire_weights(n_l, 0.02, tails=True)
+    llama_recs = []
+    _, qw = wire_cases(w, w_min, bucket, into=llama_recs, iters=WIRE_BIG_ITERS)
+    for main, rec in zip(wire_main, llama_recs):
+        main["llama"] = rec
+    print(f"wire kernels at llama3.2-1b's n = {n_l:,} ({2 * n_l:,} code bytes,"
+          f" {4 * n_l:,} f32 bytes): min/max, codes and floats equal their "
+          "plain versions bit for bit | " + ", ".join(
+              f"{r['name']} {r['ms']} ms (bound {r['bound_ms']:.4f} ms, "
+              f"plain {r['plain_ms']} ms)" for r in llama_recs))
     del w, qw
+    if on_card:
+        torch.cuda.empty_cache()
 
     # K10: one training microbatch's pair of launches, the weight gradients
     # of the two hidden layers (x: MergeNorm output / first hidden layer's
@@ -2072,6 +2148,10 @@ def main(argv=None) -> int:
         cfg, args, dev, on_card, smi, batches, run_phase, phase_launches,
         params, engines, r_rows, n_cand)
     quickstart_path(on_card, smi, run_phase, phase_launches)
+    serve_llm_path(llm_cfg, SERVE_LLM_TINY if args.tiny else SERVE_LLM_FULL,
+                   args, dev, on_card, smi, run_phase, phase_launches)
+    train_ctr_path(CTR_TINY if args.tiny else CTR_FULL, args, dev, on_card,
+                   smi, run_phase, phase_launches)
     local_sgd_path(cfg, args, dev, on_card, smi, batches, run_phase,
                    phase_launches, r_rows, n_cand)
     hogwild_train = hogwild_path(cfg, args, dev, on_card, smi, batches,
@@ -3042,6 +3122,166 @@ def quickstart_path(on_card, smi, run_phase, phase_launches):
           f"{out['auc']:.4f}, update bytes "
           f"{[r['update_bytes'] for r in out['rounds']]}, p50 "
           f"{out['p50_ms']:.3f} ms p99 {out['p99_ms']:.3f} ms per call | {smi}")
+
+
+def serve_llm_path(cfg, sl, args, dev, on_card, smi, run_phase,
+                   phase_launches):
+    """Phase 3, the serve_llm example: ``repro_torch.serve_llm.run`` on
+    ``cfg`` (full-width llama3.2-1b in bf16 on the card) with the trainer's
+    weights from the seed; see the module docstring."""
+    import resource
+
+    import torch
+
+    from repro_torch import serve_llm
+    from repro_torch.checkpoint import layout
+    from repro_torch.core import quantization as Q
+    from repro_torch.models import registry
+
+    b, p, g = sl["batch"], sl["prefix"], sl["gen"]
+    trainer = registry.init_params(cfg, args.seed, dev)
+    n = sum(t.numel() for _, t in layout.flatten_with_paths(trainer))
+    gen = torch.Generator().manual_seed(args.seed)
+    prefix = torch.randint(0, cfg.vocab_size, (p,), generator=gen)
+    first = torch.randint(0, cfg.vocab_size, (b,), generator=gen)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    rss_before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    label = f"serve_llm {cfg.arch_id}"
+    out = run_phase(label, lambda: serve_llm.run(cfg, trainer, prefix, first,
+                                                 g, dev))
+    launches = phase_launches[label]
+    if on_card:
+        for name, want in (("minmax", 1), ("quantize_codes", 1),
+                           ("dequantize_codes", 1), ("flash_attention", 0)):
+            check(launches[name] == want, f"{label}: {name} launched "
+                  f"{launches[name]} times, want {want}")
+    # the full frame: its header (magic, kind, mode length, version, base
+    # version: 11 bytes), the mode, the CRC, the sidecar's length, the wire
+    # header and two bytes a weight
+    want_bytes = 11 + len("patch+quant") + 4 + 8 + Q.HEADER_SIZE + 2 * n
+    check(out["frame_bytes"] == want_bytes, f"{label}: frame of "
+          f"{out['frame_bytes']} bytes, want {want_bytes}")
+    # the served weights: the trainer's structure, dtypes and shapes, each
+    # within the wire grid's bound of the trainer's (half a bucket and the
+    # f32 roundings of encode and decode, under 8 ulps of the grid's largest
+    # magnitude) plus the cast back to a bf16 leaf (2u |w| covers its
+    # rounding, u = 2^-8)
+    sent = layout.flatten_with_paths(trainer)
+    got = dict(layout.flatten_with_paths(out["params"]))
+    check(sorted(got) == [k for k, _ in sent], f"{label}: served tree differs")
+    mn = min(float(t.min()) for _, t in sent)
+    mx = max(float(t.max()) for _, t in sent)
+    lo, hi, bucket = Q.compute_bounds(torch.tensor([mn, mx]))
+    w_tol = 0.5 * bucket + 8 * torch.finfo(torch.float32).eps * max(
+        abs(lo), abs(hi))
+    worst = 0.0
+    for path, w in sent:
+        m = got[path]
+        check(m.dtype == w.dtype and m.shape == w.shape and m.device == w.device,
+              f"{label}: {path} served as {m.dtype} {tuple(m.shape)}, sent "
+              f"{w.dtype} {tuple(w.shape)}")
+        u = BF16_U if w.dtype == torch.bfloat16 else 0.0
+        err = (m.float() - w.float()).abs()
+        share = float((err / (w_tol + 2 * u * m.float().abs())).max())
+        check(share <= 1, f"{label}: {path} served weights off by "
+              f"{float(err.max()):.3e}, {share:.3f} of the grid's bound")
+        worst = max(worst, share)
+    del got, sent
+    toks = out["tokens"]
+    check(toks.shape == (b, 1 + g) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.padded_vocab,
+          f"{label}: tokens {tuple(toks.shape)} out of range")
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+            if on_card else "not measured (no card)")
+    print(f"launches {label}: {launches}")
+    print(f"{label}: {n:,} weights ({cfg.param_dtype}) in a frame of "
+          f"{out['frame_bytes']:,} bytes ({out['frame_bytes'] / out['raw_bytes']:.2%} "
+          f"of the trainer tree's {out['raw_bytes']:,}), sent and decoded in "
+          f"{sum(out['transfer_s'].values()):.2f} s ("
+          + ", ".join(f"{k} {v:.2f} s" for k, v in out["transfer_s"].items())
+          + f"); served weights at "
+          f"most {worst:.3f} of the grid's bound (bucket {bucket:.3e}) | B={b}, "
+          f"prefix {p}, {g} new: shared route {out['shared_s'] * 1e3:.1f} ms "
+          f"(prefix once {out['prefix_s'] * 1e3:.1f} ms, continuation "
+          f"{out['continue_s'] * 1e3:.1f} ms; {out['shared_tok_s']:.1f} new "
+          f"tok/s), per-request route {out['alone_s'] * 1e3:.1f} ms "
+          f"({out['alone_tok_s']:.1f} new tok/s), "
+          f"{out['alone_s'] / out['shared_s']:.2f}x the shared route | smallest "
+          f"top-2 gap {out['min_gap']:.4e}, flips {out['flips'] or 'none'} | "
+          f"host peak RSS {rss:.2f} GiB ({rss_before:.2f} before the phase),"
+          f" card peak {peak} | {smi}")
+    del out, trainer
+    if on_card:
+        torch.cuda.empty_cache()
+
+
+def train_ctr_path(tc, args, dev, on_card, smi, run_phase, phase_launches):
+    """Phase 3, the train_ctr_100m example: ``repro_torch.train_ctr_100m.run``
+    on both routes (the dense loop, then Hogwild at 4 threads), the
+    checkpoint in a temporary directory; see the module docstring."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch import train_ctr_100m as TC
+    from repro_torch.checkpoint import store
+    from repro_torch.common.config import FFMConfig
+    from repro_torch.train.pipeline import _flat
+
+    cfg = FFMConfig(**tc["cfg"]) if tc["cfg"] else TC.CFG
+    steps, batch, threads = tc["steps"], tc["batch"], tc["threads"]
+    for route in ("dense", "hogwild"):
+        label = f"train_ctr_100m {route}"
+        with tempfile.TemporaryDirectory() as ckpt:
+            out = run_phase(label, lambda: TC.run(
+                cfg, steps, batch, hogwild=route == "hogwild",
+                threads=threads, ckpt=ckpt, device=dev))
+            launches = phase_launches[label]
+            if on_card:
+                for name, want in (("sparse_weight_grad", 2 * steps),
+                                   ("minmax", 2), ("quantize_codes", 2),
+                                   ("dequantize_codes", 0)):
+                    check(launches[name] == want, f"{label}: {name} launched "
+                          f"{launches[name]} times, want {want}")
+            check(out["examples"] == steps * batch and out["auc"] > 0.5
+                  and all(math.isfinite(x) for x in out["losses"]),
+                  f"{label}: {out['examples']} examples, AUC {out['auc']}")
+            back, _ = store.load(ckpt, like_params=out["params"], device=dev)
+            check(same_tree(back, out["params"]),
+                  f"{label}: the checkpoint does not read back bit for bit")
+            raw = os.path.getsize(os.path.join(ckpt, "weights.bin"))
+        full, patch = (len(f) for f in out["frames"])
+        check(patch < raw, f"{label}: patch frame {patch} bytes, raw f32 "
+              f"file {raw}")
+        # the Hogwild step's traffic (train/hogwild.py:104-131), P the f32
+        # weights: the snapshot, then _apply's copies of the buffers and
+        # the accumulator (read P, write P each); the two deltas (read 2P,
+        # write P each) and the two in-place adds (read 2P, write P each)
+        p_bytes = 4 * sum(t.numel() for t in _flat(out["params"]))
+        moved = 18 * p_bytes
+        hog = (f"; {moved / 1e9:.2f} GB moved a step per thread by the "
+               f"copies and the delta apply (18 x {p_bytes / 1e6:.1f} MB), "
+               f"{moved * steps / out['train_s'] / 1e9:.1f} GB/s over the "
+               f"run" if route == "hogwild" else "")
+        peak = ("not measured (no card)" if out["peak_bytes"] is None
+                else f"{out['peak_bytes'] / 2**30:.2f} GiB")
+        print(f"launches {label}: {launches}")
+        print(f"{label}: {out['n_params']:,} weights, {steps} steps of "
+              f"{batch}{f' on {threads} threads' if route == 'hogwild' else ''}"
+              f": {out['examples_per_s']:.0f} examples/s ({out['train_s']:.2f}"
+              f" s){hog} | loss {out['losses'][0]:.4f} -> "
+              f"{out['losses'][-1]:.4f}, test AUC {out['auc']:.4f} | "
+              f"checkpoint {raw:,} bytes read back bit for bit | frames: full "
+              f"{full:,}, patch {patch:,} bytes ({patch / raw:.3%} of the raw "
+              f"f32 file) in {out['patch_s'] * 1e3:.1f} ms | steps' device "
+              f"memory peak {peak} | {smi}")
+        del out, back
+        if on_card:
+            torch.cuda.empty_cache()
 
 
 def local_sgd_path(cfg, args, dev, on_card, smi, batches, run_phase,

@@ -27,6 +27,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for the card's queued work (a no-op on the CPU), so that a host
+    clock read after it times the work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def nvidia_smi_line() -> str:
     """``name, power.limit`` of the card as nvidia-smi reports it."""
     out = subprocess.run(
