@@ -86,7 +86,11 @@ Phases, each of which raises on failure (nothing is caught):
    each kernel timed alone beside its bound, the plain backward and the
    backward alone of autograd through ``scaled_dot_product_attention`` (the
    yardstick, never on the path). Phase 1 prints both bodies' ptxas
-   registers and spills per pair and their shared memory.
+   registers and spills per pair and their shared memory. K11's training
+   instance (the log-sum-exp written) is timed at llama's shape beside its
+   bound (the lse's bytes counted), the plain version with lse and
+   scaled_dot_product_attention's forward under grad (record "lse" on the
+   main K11 record).
 3. The LLM families first, while the card's memory is free, at full width
    with bf16 weights from the seed, one server at a time, each freed before
    the next:
@@ -158,6 +162,20 @@ Phases, each of which raises on failure (nothing is caught):
      every position within ``DECODE_REL``, the forward through K11 against
      the same forward with the plain flash within ``ORACLE_REL``, and the
      routers' flips printed and held to ``ROUTER_TIE`` as phi's are.
+   - The expert-parallel MoE, on a one-rank world (NCCL) and its 1 x 1
+     mesh, opened here and destroyed after the sharded train step: one
+     full-width phi3.5-moe MoE layer (bf16 weights from the seed) on 4 x
+     1024 tokens skewed toward expert 0. ``moe_expert_parallel`` at
+     capacity factor ``EP_NO_DROP_CF`` (no drop) against ``moe_dense``, and
+     at the config's 1.25 against a reference built apart: ``_expert_ffn``
+     on every token, combined with the router's weights, the dropped
+     copies' zeroed by the stable-sort rule run in numpy on the host; in
+     bf16 (per row within ``EP_BF16_ROW`` of its norm) and f32 (within
+     ``ORACLE_REL``); aux against the dense one; the dropped share, EP's
+     and the dense layer's ms. Then phi's forward at 16 of 32 layers
+     through ``transformer.forward`` with the mesh (``"auto"`` takes EP in
+     every layer, counted) and without, each timed after a warm-up, K11
+     once per layer.
    Every batched prefill prints its bf16 TFLOP/s as
    ``counting.model_flops(cfg, B·S, "forward")`` over its time.
    Then the FFM main paths at full width (``FFMConfig()``, V = 2^18, random
@@ -303,6 +321,13 @@ Phases, each of which raises on failure (nothing is caught):
      autograd through the plain flash (which launches nothing), rel <
      ``ORACLE_REL``. Then every other arch id's smoke config trains 3 steps
      on the card, the loss finite and falling.
+   - The sharded train step on the 1 x 1 mesh: ``make_train_step(cfg,
+     adam, rt)`` on the same full-width llama3.2-1b, seed and batch, 3
+     steps: each leaf sharded by ``param_shardings`` and gathered whole
+     before the forward, the gradients all-reduced and sliced back, Adam
+     shard-local. Losses and final params bit for bit the unsharded
+     phase's; K11 / K13 / K12 once per layer a step; ms per step beside
+     the unsharded phase's, the gather copies' bytes, the peak.
    Every kernel's launch counter must have risen during these runs.
 4. Where the time goes: one more microbatch per engine (and per staged
    ``"ffm"`` twin) and on the N = 4 fleet, one training microbatch, 8
@@ -326,6 +351,7 @@ reason.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import math
@@ -533,6 +559,21 @@ LLM_TRAIN_TINY = {"batch": 2, "seq": 16, "steps": 3, "lr": 1e-3,
                   "oracle": (2, 12), "oracle_layers": 2, "smoke": (2, 16)}
 FLASH_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkdv")
+# the expert-parallel MoE on a 1 x 1 mesh (a one-rank NCCL world): one
+# full-width phi3.5-moe MoE layer (bf16 weights from the seed, router f32)
+# on (batch, seq) tokens at capacity factor EP_NO_DROP_CF (no copy dropped)
+# and at the config's 1.25, then the forward of phi at `layers` layers with
+# and without the mesh. x has a mean along expert 0's router column (scaled
+# EP_SKEW), so that expert is over-subscribed as skewed traffic makes it
+# and copies drop at 1.25. EP is held per row against its reference within
+# EP_BF16_ROW of the row's norm in bf16 (the combine's roundings, about 3u,
+# and the experts' products in other GEMM shapes) and within ORACLE_REL in
+# f32
+EP_FULL = {"batch": 4, "seq": 1024, "layers": 16}
+EP_TINY = {"batch": 2, "seq": 16, "layers": 2}
+EP_NO_DROP_CF = 8.0
+EP_SKEW = 0.5
+EP_BF16_ROW = 8 * 2.0 ** -8
 # bf16's unit roundoff (8 significant bits)
 BF16_U = 2.0 ** -8
 
@@ -790,6 +831,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.row_gather import ref as rg_ref
     from repro_torch.kernels.sparse_mlp import ops as sk_ops
     from repro_torch.kernels.sparse_mlp import ref as sk_ref
+    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import registry as llm_registry
     from repro_torch.serving.engine import InferenceEngine
 
@@ -1818,6 +1860,66 @@ def main(argv=None) -> int:
                                        retain_graph=True)
         return library
 
+    def flash_lse_case(b_, s_, h, kv_, d):
+        """K11's training instance (each row's log-sum-exp written, f32 (B,
+        H, Sq)) in bf16 at one causal shape: held to the plain version with
+        its lse, timed beside its bound (the lse's bytes counted), the plain
+        version and scaled_dot_product_attention's forward under grad (which
+        saves its log-sum-exp too); the record goes under K11's main record
+        as "lse"."""
+        q_, k_, v_ = qkv(b_, s_, h, kv_, d, torch.bfloat16)
+
+        def fn():
+            return fa_ops.flash_attention_fwd(q_, k_, v_, causal=True)
+
+        def plain():
+            return fa_ref.flash_attention_ref(q_, k_, v_, causal=True,
+                                              return_lse=True)
+
+        lq, lk, lv = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q_, k_, v_))
+        if "enable_gqa" in (sdpa.__doc__ or ""):
+            def library():
+                with torch.enable_grad():
+                    return sdpa(lq, lk, lv, is_causal=True, enable_gqa=True)
+        else:
+            def library():
+                with torch.enable_grad():
+                    return sdpa(lq, lk.repeat_interleave(h // kv_, dim=1),
+                                lv.repeat_interleave(h // kv_, dim=1),
+                                is_causal=True)
+        (o_, lse_), (o_ref, lse_ref) = fn(), plain()
+        lse_share = float(((lse_ - lse_ref).abs() / (1 + lse_ref.abs()))
+                          .max()) / LSE_TOL["bfloat16"]
+        elem, row = check_flash_bf16(o_, o_ref, q_, k_, v_,
+                                     f"flash_attention with lse {[b_, s_]}")
+        check(lse_share <= 1, f"flash_attention with lse: lse at "
+              f"{lse_share:.3f} of its bound")
+        io = 2 * attention_elements(q_, k_, v_, True) + 4 * b_ * h * s_
+        flops = 2 * (2 * d) * b_ * h * attention_pairs(s_, s_, True, 0)
+        b_ms, b_by = bound(io, flops, PEAK_BF16_TENSOR_FLOPS)
+        rec = {"shape": [b_, s_, h, kv_, d, "bfloat16", "causal", "lse"],
+               "ms": call_ms(fn), "kernel_ms": kernel_ms(fn),
+               "plain_ms": call_ms(plain, 10, 1), "bound_ms": b_ms,
+               "bound_by": b_by, "bytes": io,
+               "library_ms": call_ms(library),
+               "library_kernel_ms": kernel_ms(library),
+               "max_abs_err": max_err(o_, o_ref), "lse_share": lse_share}
+        flash_rec["lse"] = rec
+        timing = "not measured (no card)"
+        if on_card:
+            timing = (f"{rec['ms']:.4f} ms per call, alone "
+                      f"{ms_text(rec['kernel_ms'], b_ms)} | bound {b_ms:.4f} "
+                      f"ms ({b_by}; {io} bytes, the lse's {4 * b_ * h * s_}) |"
+                      f" plain {rec['plain_ms']:.4f} ms | "
+                      "scaled_dot_product_attention's forward under grad "
+                      f"{rec['library_ms']:.4f} ms, alone "
+                      f"{ms_text(rec['library_kernel_ms'])} | {smi}")
+        print(f"kernel flash_attention with lse (the training instance) "
+              f"{rec['shape']}: out at {elem:.3f} / {row:.3f} of the element"
+              f" / row bounds, lse at {lse_share:.3f} of its bound | "
+              + timing)
+
     def flash_bwd_case(b_, sq, sk, h, kv_, d, dv, causal, window, n_timed,
                        dtype):
         """K11's log-sum-exp, then K13 and K12 against the plain backward at
@@ -1946,6 +2048,9 @@ def main(argv=None) -> int:
               + "), a repeat bit-identical | " + timing)
         return recs
 
+    b_, sq, _, h, kv_, d = FLASH_BWD[0][:6]
+    flash_lse_case(2 if args.tiny else b_, max(1, sq * fa_s // 1024)
+                   if args.tiny else sq, h, kv_, d)
     bwd_main = None
     for case in FLASH_BWD:
         b_, sq, sk, h, kv_, d, dv, causal, window, n_timed = case
@@ -1988,6 +2093,14 @@ def main(argv=None) -> int:
              run_phase, phase_launches)
     mla_path(MLA_TINY if args.tiny else MLA_FULL, args, dev, on_card, smi,
              run_phase, phase_launches)
+    # a one-rank world (NCCL on the card) and its 1 x 1 mesh for the
+    # expert-parallel MoE here, while the card's memory is free, and the
+    # sharded train step after the unsharded one; destroyed after both
+    world = contextlib.ExitStack()
+    world.enter_context(mesh_lib.world(dev))
+    rt = mesh_lib.make_runtime(mesh_lib.make_smoke_mesh(1, 1))
+    moe_ep_path(EP_TINY if args.tiny else EP_FULL, args, dev, on_card, smi,
+                run_phase, phase_launches, rt)
 
     # the FFM main path at full width
     t0 = time.perf_counter()
@@ -2158,10 +2271,14 @@ def main(argv=None) -> int:
                                  run_phase, phase_launches, r_rows, n_cand)
     llm_prefill, llm_decode = llm_path(llm_cfg, llm, args, dev, on_card, smi,
                                        run_phase, phase_launches)
-    llm_train = llm_train_path(llm_cfg,
-                               LLM_TRAIN_TINY if args.tiny else LLM_TRAIN_FULL,
-                               args, dev, on_card, smi, run_phase,
-                               phase_launches)
+    llm_tr = LLM_TRAIN_TINY if args.tiny else LLM_TRAIN_FULL
+    llm_train, unsharded = llm_train_path(llm_cfg, llm_tr, args, dev,
+                                          on_card, smi, run_phase,
+                                          phase_launches)
+    mesh_train_path(llm_cfg, llm_tr, args, dev, on_card, smi, run_phase,
+                    phase_launches, rt, unsharded)
+    del unsharded
+    world.close()
 
     if on_card:
         for name, c in main_launches.items():
@@ -3598,7 +3715,8 @@ def llm_train_path(cfg, tr, args, dev, on_card, smi, run_phase,
     kernel call swapped for autograd through ``flash_attention_ref``, which
     must launch nothing), per leaf rel < ``ORACLE_REL``. Then every other
     arch id's smoke config trains ``tr["steps"]`` steps, finite and falling.
-    Returns a callable that runs one more full-width step (phase 4)."""
+    Returns a callable that runs one more full-width step (phase 4), and
+    the unsharded run's losses, params after its steps and ms a step."""
     import torch
 
     from repro_torch.common import counting
@@ -3635,7 +3753,7 @@ def llm_train_path(cfg, tr, args, dev, on_card, smi, run_phase,
     print(f"llm train: {cfg.arch_id} ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.dtype}, Adam lr {tr['lr']}) weights and "
           f"state built in {time.perf_counter() - t0:.1f} s")
-    losses, secs = [], []
+    losses, secs, loss_tensors = [], [], []
     for i in range(tr["steps"]):
         if on_card and i == 1:
             torch.cuda.reset_peak_memory_stats(dev)
@@ -3644,6 +3762,7 @@ def llm_train_path(cfg, tr, args, dev, on_card, smi, run_phase,
         m = run_phase(label, one_step)
         secs.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
+        loss_tensors.append(m["loss"])
         counts = phase_launches[label]
         print(f"launches {label}: "
               + ", ".join(f"{k} {counts[k]}" for k in FLASH_KERNELS))
@@ -3655,6 +3774,9 @@ def llm_train_path(cfg, tr, args, dev, on_card, smi, run_phase,
     check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
           f"llm train: losses {losses} not finite and falling")
     ms = 1e3 * sum(secs[1:]) / len(secs[1:])
+    # for the 1 x 1 mesh phase: its steps must give these bits
+    unsharded = {"losses": loss_tensors, "params": clone_tree(run["params"]),
+                 "ms": ms, "step": one_step}
     attn = (2 * (cfg.resolved_head_dim * 2) + 2 * (5 * cfg.resolved_head_dim)
             ) * b * cfg.n_heads * attention_pairs(s, s, True, 0) * cfg.n_layers
     flops = counting.model_flops(cfg, b * s, "train") + attn
@@ -3752,7 +3874,307 @@ def llm_train_path(cfg, tr, args, dev, on_card, smi, run_phase,
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-    return one_step
+    return one_step, unsharded
+
+
+def moe_ep_path(ep, args, dev, on_card, smi, run_phase, phase_launches, rt):
+    """Phase 3, the expert-parallel MoE on a 1 x 1 mesh (``rt``, a one-rank
+    world): ``moe.moe_expert_parallel`` on one full-width phi3.5-moe MoE
+    layer (bf16, d 4096, 16 experts of 6400, top-2) and ``ep["batch"]`` x
+    ``ep["seq"]`` tokens. At ``EP_NO_DROP_CF`` no copy drops and EP is held
+    to ``moe_dense``; at the config's capacity factor it is held to a
+    reference built apart from it: ``moe_dense``'s per-expert outputs
+    (``_expert_ffn`` on every token) combined with the router's weights,
+    the dropped copies' zeroed, the drops found on the host in numpy by the
+    stable-sort rule. Each in bf16 (per row within ``EP_BF16_ROW``) and in
+    f32 (within ``ORACLE_REL``); aux against ``moe_dense``'s; the dropped
+    share, EP's and the dense layer's ms. Then phi's forward at
+    ``ep["layers"]`` layers through ``transformer.forward`` with ``rt``
+    (``"auto"`` takes EP in every layer, counted) and without (dense),
+    each timed after a warm-up; K11 once per layer in each."""
+    import numpy as np
+    import torch
+
+    from repro_torch.common import pspec
+    from repro_torch.models import moe, registry, transformer
+
+    full = registry.get_config(PHI, smoke=args.tiny).replace(moe_impl="auto")
+    b, s = ep["batch"], ep["seq"]
+    t, d = b * s, full.d_model
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 9)
+    p16 = pspec.materialize(moe.moe_specs(full), args.seed, dev)
+    col = p16["router"][:, 0]
+    x32 = (torch.randn((b, s, d), generator=gen, device=dev)
+           + EP_SKEW * col / col.norm() * math.sqrt(d) / 4)
+
+    def events_ms(fn, n=10):
+        if not on_card:
+            return None
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for _ in range(n):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / n
+
+    def kept(ids, cap):
+        """The copies within capacity, by the stable-sort rule, on the host:
+        a copy's position is its rank among same-expert copies in copy
+        order (one device: all tokens)."""
+        flat = ids.reshape(-1).cpu().numpy()
+        pos = np.empty_like(flat)
+        for e in np.unique(flat):
+            where = np.flatnonzero(flat == e)  # copy order
+            pos[where] = np.arange(where.size)
+        return torch.from_numpy(pos < cap).to(dev).reshape(ids.shape)
+
+    def row_rel(y, ref):
+        y, ref = y.reshape(-1, d).float(), ref.reshape(-1, d).float()
+        return float((torch.linalg.vector_norm(y - ref, dim=-1)
+                      / torch.linalg.vector_norm(ref, dim=-1).clamp_min(
+                          1e-30)).max())
+
+    n_copies = t * full.top_k
+    for cf in (EP_NO_DROP_CF, full.capacity_factor):
+        cfg = full.replace(capacity_factor=cf)
+        cap = moe._capacity(cfg, t)
+        for dtype in (torch.bfloat16, torch.float32):
+            p = {k: v.to(dtype) if k != "router" else v
+                 for k, v in p16.items()}
+            x = x32.to(dtype)
+            tname = str(dtype).removeprefix("torch.")
+            label = f"moe expert_parallel {PHI} 1x1 cf {cf} {tname}"
+            with torch.no_grad():
+                y, aux = run_phase(
+                    label, lambda: moe.moe_expert_parallel(cfg, p, x, rt))
+                xt = x.reshape(t, d)
+                w, ids, _ = moe._router(cfg, p["router"], xt)
+                keep = kept(ids, cap)
+                y_all = moe._expert_ffn(cfg, p, xt)  # (E, T, d)
+                picked = y_all[ids, torch.arange(t, device=dev)[:, None]]
+                ref = (picked.float() * (w * keep)[..., None]).sum(1)
+                dense, dense_aux = moe.moe_dense(cfg, p, x)
+                del y_all, picked
+            n_drop = n_copies - int(keep.sum())
+            if cf == EP_NO_DROP_CF:
+                check(n_drop == 0, f"{label}: {n_drop} copies dropped")
+            err = {"reference": row_rel(y, ref), "moe_dense": row_rel(y, dense)}
+            tol = EP_BF16_ROW if dtype == torch.bfloat16 else ORACLE_REL
+            held = "moe_dense" if cf == EP_NO_DROP_CF else "reference"
+            check(err[held] <= tol and math.isfinite(float(aux))
+                  and abs(float(aux) - float(dense_aux))
+                  <= 1e-5 * abs(float(dense_aux)),
+                  f"{label}: rows {err} of their norm against {held} (bound "
+                  f"{tol}); aux {float(aux)} vs dense {float(dense_aux)}")
+            times = ""
+            if dtype == torch.bfloat16:
+                ep_ms = events_ms(lambda: moe.moe_expert_parallel(
+                    cfg, p, x, rt))
+                dense_ms = events_ms(lambda: moe.moe_dense(cfg, p, x))
+                if on_card:
+                    times = (f" | EP {ep_ms:.3f} ms, moe_dense {dense_ms:.3f}"
+                             f" ms per layer ({dense_ms / ep_ms:.2f}x; expert "
+                             f"slots {full.n_experts * cap} against "
+                             f"{full.n_experts * t} token-expert pairs, "
+                             f"{full.n_experts * t / (full.n_experts * cap):.2f}"
+                             "x fewer)")
+            print(f"{label}: capacity {cap} a device and expert, dropped "
+                  f"{n_drop} of {n_copies} copies ({100 * n_drop / n_copies:.2f}"
+                  f"%) | rows against the reference {err['reference']:.3e}, "
+                  f"against moe_dense {err['moe_dense']:.3e} of their norm "
+                  f"(held: {held}, bound {tol:.3e}) | aux {float(aux):.6f}"
+                  f" (dense {float(dense_aux):.6f}){times} | {smi}")
+            del p, x, y, ref, dense
+    del p16
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # phi's forward at ep["layers"] layers: "auto" takes EP on the mesh
+    cfg = full.replace(n_layers=ep["layers"])
+    if on_card:
+        need = spec_bytes(registry.param_specs(cfg)) + FAMILY_MARGIN_BYTES
+        free_bytes = torch.cuda.mem_get_info(dev)[0]
+        check(need <= free_bytes, f"phi at {cfg.n_layers} layers needs {need}"
+              f" bytes, the card has {free_bytes} free")
+    params = registry.init_params(cfg, args.seed, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=dev, dtype=torch.int32)
+    calls = {"n": 0}
+    ep_call = moe.moe_expert_parallel
+
+    def counted(*a, **kw):
+        calls["n"] += 1
+        return ep_call(*a, **kw)
+
+    outs, ms = {}, {}
+    for name, r in (("expert_parallel", rt), ("dense", None)):
+        def fwd(r=r):
+            with torch.inference_mode():
+                return transformer.forward(cfg, params, tokens, r)
+
+        fwd()  # warm-up
+        label = (f"moe {PHI} forward {cfg.n_layers} of {full.n_layers} "
+                 f"layers B={b} S={s} {name}")
+        moe.moe_expert_parallel = counted
+        calls["n"] = 0
+        try:
+            outs[name] = run_phase(label, fwd)
+        finally:
+            moe.moe_expert_parallel = ep_call
+        lg, aux = outs[name]
+        want = cfg.n_layers if name == "expert_parallel" else 0
+        n_k11 = phase_launches[label]["flash_attention"]
+        check(calls["n"] == want and lg.shape == (b, s, cfg.padded_vocab)
+              and bool(torch.isfinite(lg).all()) and math.isfinite(float(aux)),
+              f"{label}: {calls['n']} expert-parallel layers (want {want}), "
+              f"logits {tuple(lg.shape)} finite or not, aux {float(aux)}")
+        if on_card:
+            check(n_k11 == cfg.n_layers, f"{label}: flash_attention launched "
+                  f"{n_k11} times, want {cfg.n_layers}")
+        ms[name] = events_ms(fwd, n=3)
+        timing = ("not measured (no card)" if ms[name] is None else
+                  f"{ms[name]:.2f} ms a call (CUDA events, 3 calls)")
+        print(f"{label}: {timing} | {calls['n']} layers through "
+              f"moe_expert_parallel, K11 {n_k11} | aux {float(aux):.6f} | "
+              f"{smi}")
+        if on_card:
+            where_the_time_goes(label, fwd, smi, top=8)
+    if on_card:
+        print(f"moe {PHI} forward: expert-parallel "
+              f"{ms['expert_parallel']:.2f} ms against dense "
+              f"{ms['dense']:.2f} ms ({ms['dense'] / ms['expert_parallel']:.2f}"
+              "x) | logits rel "
+              f"{rel(outs['expert_parallel'][0].float(), outs['dense'][0].float()):.3e}"
+              " (copies dropped at capacity factor 1.25: not held) | " + smi)
+    del params, outs
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def mesh_train_path(cfg, tr, args, dev, on_card, smi, run_phase,
+                    phase_launches, rt, unsharded):
+    """Phase 3, the sharded train step on a 1 x 1 mesh (``rt``, a one-rank
+    world): ``make_train_step(cfg, adam, rt)`` on full-width llama3.2-1b in
+    bf16 from the LLM training phase's seed, ``tr["steps"]`` steps on its
+    batch. Every leaf is sharded by ``param_shardings`` (on a 1 x 1 mesh
+    each rank's shard is the whole leaf) and gathered before the forward
+    (copies on a one-rank NCCL world), the gradients all-reduced and sliced
+    back, Adam shard-local. Losses and the final params must equal the
+    unsharded phase's bit for bit (``unsharded``: its losses, params after
+    its steps and ms a step); K11 / K13 / K12 exactly once per layer a
+    step. ms per step after the first, the gather copies' bytes a step, the
+    peak allocation."""
+    import torch
+
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.launch import sharding
+    from repro_torch.models import registry
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.steps import make_train_step
+
+    b, s = tr["batch"], tr["seq"]
+    full = registry.init_params(cfg, args.seed, dev)
+    specs = sharding.param_shardings(cfg, registry.param_axes(cfg), full,
+                                     rt.mesh)
+    gathered = 0
+
+    def count(t, spec):  # the leaves that shard over some axis
+        nonlocal gathered
+        if isinstance(t, dict):
+            for k in t:
+                count(t[k], spec[k])
+        elif any(e is not None for e in spec):
+            gathered += t.numel() * t.element_size()
+
+    count(full, specs)
+    params = sharding.local_tree(full, specs, rt)
+    del full
+    opt = make_optimizer("adam", lr=tr["lr"])
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt, rt)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             next(lm_batches(cfg.vocab_size, b, s, 1, seed=args.seed)).items()}
+    losses, secs = [], []
+    for i in range(tr["steps"]):
+        if on_card and i == 1:
+            torch.cuda.reset_peak_memory_stats(dev)
+        label = f"mesh train {cfg.arch_id} 1x1 step {i} B={b} S={s}"
+        t0 = time.perf_counter()
+        params, state, _, m = run_phase(
+            label, lambda: step_fn(params, state, i, batch))
+        secs.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+        counts = phase_launches[label]
+        print(f"launches {label}: "
+              + ", ".join(f"{k} {counts[k]}" for k in FLASH_KERNELS))
+        if on_card:
+            for name in FLASH_KERNELS:
+                check(counts[name] == cfg.n_layers,
+                      f"{label}: {name} launched {counts[name]} times, want "
+                      f"one per layer ({cfg.n_layers})")
+    check(all(torch.equal(a, w) for a, w in zip(losses, unsharded["losses"])),
+          f"mesh train: losses {[float(x) for x in losses]} differ from the "
+          f"unsharded {[float(x) for x in unsharded['losses']]}")
+    differ = []
+
+    def same(a, w, path=""):
+        if isinstance(a, dict):
+            for k in a:
+                same(a[k], w[k], f"{path}/{k}")
+        elif not torch.equal(a, w):
+            differ.append(path)
+
+    same(params, unsharded["params"])
+    check(not differ, f"mesh train: params differ from the unsharded "
+          f"phase's at {differ[:5]}")
+    ms = 1e3 * sum(secs[1:]) / len(secs[1:])
+    peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
+            if on_card else "not measured (no card)")
+    turns = ""
+    if on_card:
+        # more steps in turns, unsharded / sharded / sharded / unsharded
+        # twice (the sharded steps' results dropped), each on the host
+        # clock, then one sharded step under the profiler
+        def clocked(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0)
+
+        took = {"unsharded": [], "sharded": []}
+        for who in ("unsharded", "sharded", "sharded", "unsharded") * 2:
+            took[who].append(clocked(
+                unsharded["step"] if who == "unsharded" else
+                lambda: step_fn(params, state, tr["steps"], batch)))
+        med = {k: sorted(v)[len(v) // 2] for k, v in took.items()}
+        turns = (f" | in turns: unsharded "
+                 f"{', '.join(f'{x:.2f}' for x in took['unsharded'])} ms, "
+                 f"sharded {', '.join(f'{x:.2f}' for x in took['sharded'])}"
+                 f" ms (medians {med['unsharded']:.2f} / "
+                 f"{med['sharded']:.2f}, "
+                 f"{100 * (med['sharded'] / med['unsharded'] - 1):+.1f}%)")
+        where_the_time_goes(
+            f"mesh train step ({cfg.arch_id} 1x1, B={b}, S={s}, Adam)",
+            lambda: step_fn(params, state, tr["steps"], batch), smi, top=10,
+            share_of=("nccl", "Memcpy", "copy", "flash_attention"))
+    print(f"mesh train {cfg.arch_id} 1x1 (one-rank "
+          f"{'NCCL' if on_card else 'gloo'} world): losses "
+          f"{', '.join(f'{float(x):.4f}' for x in losses)} and every leaf "
+          f"after {tr['steps']} steps bit for bit the unsharded phase's | "
+          f"{ms:.2f} ms per step after the first (unsharded "
+          f"{unsharded['ms']:.2f} ms in this run; first {1e3 * secs[0]:.2f} "
+          f"ms){turns} | gather copies {gathered} bytes a step | peak "
+          f"allocated {peak} | {smi}")
+    del params, state
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
 
 
 def spec_bytes(specs) -> int:

@@ -80,6 +80,14 @@ def count(specs) -> int:
     return sum(count(v) for v in specs.values())
 
 
+def axes(specs):
+    """Logical-axes tree, same structure as the params (consumed by
+    ``repro_torch.launch.sharding``)."""
+    if is_spec(specs):
+        return specs.axes
+    return {k: axes(v) for k, v in specs.items()}
+
+
 def stack(specs, n: int, axis_name: str = "layers"):
     """Prepend a stacking dim (the layers' parameter stacks). ``fan_in`` is
     kept: a stacked spec's ``shape[-2]`` is no longer its fan-in where the

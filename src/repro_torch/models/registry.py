@@ -63,23 +63,36 @@ def param_specs(cfg: ModelConfig):
     return module_for(cfg).param_specs(cfg)
 
 
+def param_axes(cfg: ModelConfig):
+    return pspec.axes(param_specs(cfg))
+
+
 def init_params(cfg: ModelConfig, seed: int, device: DeviceLike = None):
     """Random weights from ``seed`` on ``device`` (the card by default)."""
     return pspec.materialize(param_specs(cfg), seed, device)
 
 
-def forward(cfg: ModelConfig, params, batch: Dict[str, Any], *, window=None):
+def forward(cfg: ModelConfig, params, batch: Dict[str, Any], rt=None, *,
+            window=None):
+    """``rt`` (a mesh's runtime, ``common/runtime.py``) reaches the
+    transformer families, whose MoE layers use it; the other families have
+    no layer that reads it, as in the JAX package."""
     mod = module_for(cfg)
     if cfg.family == "encdec":
         return mod.forward(cfg, params, batch, window=window)
+    if mod is transformer:
+        return mod.forward(cfg, params, batch["tokens"], rt, window=window)
     return mod.forward(cfg, params, batch["tokens"], window=window)
 
 
-def loss_fn(cfg: ModelConfig, params, batch: Dict[str, Any], *, window=None):
+def loss_fn(cfg: ModelConfig, params, batch: Dict[str, Any], rt=None, *,
+            window=None):
     """The training loss: mean cross-entropy of the forward's logits against
     ``batch["labels"]`` (< 0 masked) plus ``router_aux_coef`` times the
-    routers' aux loss. Returns ``(loss, {"ce", "aux"})``."""
-    logits, aux = forward(cfg, params, batch, window=window)
+    routers' aux loss. Returns ``(loss, {"ce", "aux"})``. Under a mesh
+    (``rt``) the batch is this rank's rows, and so is the cross-entropy's
+    mean; aux is the global value."""
+    logits, aux = forward(cfg, params, batch, rt, window=window)
     ce = layers.cross_entropy(logits, batch["labels"], cfg.padded_vocab)
     return ce + cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}
 

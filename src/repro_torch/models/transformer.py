@@ -69,16 +69,17 @@ def unstack(stacked):
 # Forward (prefill)
 # ---------------------------------------------------------------------------
 
-def _ffn(cfg, p, h: torch.Tensor, aux: bool):
+def _ffn(cfg, p, h: torch.Tensor, aux: bool, rt=None):
     """The layer's FFN: ``(y, aux)``, aux None without a router or when
-    ``aux`` is False (no kernel for a value that no caller reads)."""
+    ``aux`` is False (no kernel for a value that no caller reads). ``rt``
+    reaches the MoE (a mesh's runtime, or None)."""
     if cfg.is_moe:
-        return moe.moe_forward(cfg, p["moe"], h, aux=aux)
+        return moe.moe_forward(cfg, p["moe"], h, rt, aux=aux)
     return layers.apply_ffn(cfg, p["ffn"], h), None
 
 
 def _layer_fwd(cfg, p, x: torch.Tensor, positions: torch.Tensor,
-               window: int, aux: bool):
+               window: int, aux: bool, rt=None):
     """One layer over the whole sequence; returns (x, aux, k, v): aux as
     :func:`_ffn` gives it, k and v the layer's post-RoPE keys and values,
     which the prefill keeps (None for MLA, which has no prefill)."""
@@ -90,7 +91,7 @@ def _layer_fwd(cfg, p, x: torch.Tensor, positions: torch.Tensor,
         q, k, v = attention._project_qkv(cfg, p["attn"], h, positions)
         o = attention.flash_attention(q, k, v, window=window)
         x = x + attention._out_proj(o, p["attn"]["wo"])
-    h, a = _ffn(cfg, p, layers.apply_norm(cfg, p["ln2"], x), aux)
+    h, a = _ffn(cfg, p, layers.apply_norm(cfg, p["ln2"], x), aux, rt)
     return x + h, a, k, v
 
 
@@ -98,10 +99,12 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
     return torch.arange(tokens.shape[1], device=tokens.device)[None, :]
 
 
-def forward(cfg, params, tokens: torch.Tensor, *,
+def forward(cfg, params, tokens: torch.Tensor, rt=None, *,
             window: Optional[int] = None):
     """tokens: (B, S) ints -> logits (B, S, padded_vocab) and the routers'
-    aux loss summed over layers (0 without MoE)."""
+    aux loss summed over layers (0 without MoE). Under a mesh (``rt``,
+    ``common/runtime.py``) ``tokens`` are this rank's rows and the MoE
+    layers may run expert-parallel."""
     _check(cfg)
     w = cfg.sliding_window if window is None else window
     positions = _positions(tokens)
@@ -109,7 +112,9 @@ def forward(cfg, params, tokens: torch.Tensor, *,
         torch_dtype(cfg.dtype))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in unstack(params["layers"]):
-        x, a, _, _ = _layer_fwd(cfg, lp, x, positions, w, aux=True)
+        if rt is not None:
+            x = rt.seq_shard(x, cfg)
+        x, a, _, _ = _layer_fwd(cfg, lp, x, positions, w, aux=True, rt=rt)
         if a is not None:
             aux = aux + a
     x = layers.apply_norm(cfg, params["ln_f"], x)

@@ -262,11 +262,11 @@ def test_full_width_param_specs_match(arch):
 def test_unported_archs_and_families_raise(what):
     key, value = what.split("=")
     phi = registry.get_config("phi3.5-moe-42b-a6.6b", smoke=True)
-    if key == "moe_impl":  # raises by name where the FFN runs
+    if key == "moe_impl":  # needs a mesh: raises where the FFN runs
         cfg = phi.replace(moe_impl=value)
         params = registry.init_params(cfg, 0, "cpu")
-        with pytest.raises(NotImplementedError,
-                           match="expert_parallel.*ROADMAP.md Queue 1 item 9"):
+        with pytest.raises(ValueError,
+                           match="expert_parallel.*needs a device mesh"):
             registry.forward(cfg, params,
                              {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
         return
