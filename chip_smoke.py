@@ -328,6 +328,23 @@ Phases, each of which raises on failure (nothing is caught):
      shard-local. Losses and final params bit for bit the unsharded
      phase's; K11 / K13 / K12 once per layer a step; ms per step beside
      the unsharded phase's, the gather copies' bytes, the peak.
+   - The dry run, last in the one-rank world: (a) the same full-width
+     llama3.2-1b sharded step (ZeRO-1 state, 4 x 1024, bf16) under an
+     ``op_analysis.Counter``; (b) ``dryrun_lib.run_one`` at ``mesh_shape=
+     (1, 1)`` on the same shape in a subprocess (meta tensors, a fake
+     world): its FLOPs, collective bytes and kernel bookings must equal
+     (a)'s, and its bytes too or each differing op is printed; (c) the
+     step's measured time (median of ``DRYRUN_TIMED`` steps without the
+     counter) must be at least the report's ``step_time_bound`` (at H100
+     spec-sheet peaks): a card beating it would mean the count holds work
+     the card did not do. The bound's share of the time and the counted
+     peak beside ``max_memory_allocated`` are printed. (d) ``python -m
+     repro_torch.launch.dryrun --all`` and ``--all --multi-pod`` and
+     ``python -m repro_torch.launch.dryrun_ffm``, started as subprocesses
+     when phase 3 begins (they use the host's CPU only), must each exit 0
+     with every combination ``ok`` and only seamless at ``long_500k``
+     skipped; every summary line, each combination's peak per rank and
+     each command's seconds are printed.
    Every kernel's launch counter must have risen during these runs.
 4. Where the time goes: one more microbatch per engine (and per staged
    ``"ffm"`` twin) and on the N = 4 fleet, one training microbatch, 8
@@ -2070,6 +2087,8 @@ def main(argv=None) -> int:
                     main["shapes"].append(rec)
 
     # -- phase 3: the main paths -------------------------------------------
+    # the dry run's CPU-only commands run beside the phases on the card
+    dryruns = start_dryruns(args.tiny)
     main_launches = dict.fromkeys(_build.launches, 0)
     phase_launches = {}
 
@@ -2278,6 +2297,8 @@ def main(argv=None) -> int:
     mesh_train_path(llm_cfg, llm_tr, args, dev, on_card, smi, run_phase,
                     phase_launches, rt, unsharded)
     del unsharded
+    dryrun_path(llm_cfg, DRYRUN_TINY if args.tiny else DRYRUN_FULL, args,
+                dev, on_card, smi, run_phase, phase_launches, rt, dryruns)
     world.close()
 
     if on_card:
@@ -4175,6 +4196,244 @@ def mesh_train_path(cfg, tr, args, dev, on_card, smi, run_phase,
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+
+
+DRYRUN_FULL = {"batch": 4, "seq": 1024}
+DRYRUN_TINY = {"batch": 2, "seq": 16}
+DRYRUN_TIMED = 3
+# the dry run's step in a subprocess (a fake world of one rank cannot open
+# beside this process's NCCL world): the report and the per-op counts
+DRYRUN_CHILD = """
+import dataclasses, json, sys
+from repro_torch.common.config import InputShape
+from repro_torch.launch import dryrun_lib
+from repro_torch.models import registry
+arch, fields, smoke, out = json.loads(sys.argv[1])
+shape = InputShape(*fields)
+cfg = registry.get_config(arch, smoke=smoke)
+over = dataclasses.asdict(cfg) if smoke else None
+res = dryrun_lib.run_one(arch, shape, mesh_shape=(1, 1), out_dir=out,
+                         overrides=over)
+with dryrun_lib.fake_runtime(mesh_shape=(1, 1)) as rt:
+    fn, a, mine = dryrun_lib.build_step(cfg, shape, rt)
+    counter, _, _ = dryrun_lib.count_step(fn, a, mine)
+print("DRYRUN" + json.dumps({"report": res, "totals": counter.totals(),
+                             "ops": counter.ops, "kernels": counter.kernels},
+                            default=str))
+"""
+
+
+def _child_env():
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC) + (os.pathsep + env["PYTHONPATH"]
+                                    if env.get("PYTHONPATH") else "")
+    return env
+
+
+def start_dryruns(tiny: bool):
+    """Phase 3's dry-run commands (``launch/dryrun.py`` on both production
+    meshes, ``launch/dryrun_ffm.py``), started now as subprocesses writing
+    into a temporary directory: ``(label, process, log path, out dir)``
+    each. The CPU rehearsal runs one combination per mesh."""
+    import atexit
+    import subprocess
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    picks = (["--arch", "llama3.2-1b", "--shape", "long_500k"] if tiny
+             else ["--all"])
+    cmds = [("dryrun " + " ".join(picks), ["-m", "repro_torch.launch.dryrun",
+                                           *picks]),
+            ("dryrun " + " ".join(picks) + " --multi-pod",
+             ["-m", "repro_torch.launch.dryrun", *picks, "--multi-pod"]),
+            ("dryrun_ffm", ["-m", "repro_torch.launch.dryrun_ffm"])]
+    out = []
+    for i, (label, argv) in enumerate(cmds):
+        log = tmp / f"cmd{i}.log"
+        out_dir = tmp / f"out{i}"
+        if argv[1].endswith(".dryrun"):
+            argv = argv + ["--out", str(out_dir)]
+        with open(log, "w") as f:
+            proc = subprocess.Popen([sys.executable, *argv], stdout=f,
+                                    stderr=subprocess.STDOUT, env=_child_env(),
+                                    cwd=str(tmp))
+        out.append((label, proc, log, out_dir, time.time()))
+
+    def stop():  # a phase failed before finish_dryruns: end them all
+        for _, proc, _, _, _ in out:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    atexit.register(stop)
+    return out
+
+
+def finish_dryruns(dryruns, timeout_s: float):
+    """Wait for :func:`start_dryruns`' commands (killing any still running
+    at ``timeout_s``), print their summary lines, each combination's peak
+    per rank and each command's seconds; raise unless each exited 0 with
+    every combination ``ok`` and only seamless at ``long_500k`` skipped."""
+    import shutil
+
+    try:
+        end = time.perf_counter() + timeout_s
+        for label, proc, log, out_dir, t0 in dryruns:
+            try:
+                rc = proc.wait(timeout=max(1.0, end - time.perf_counter()))
+            except Exception:
+                proc.kill()
+                proc.wait()
+                raise
+            secs = log.stat().st_mtime - t0  # the log's last write
+            text = log.read_text()
+            lines = [ln for ln in text.splitlines() if ln.strip()]
+            for ln in lines:
+                print(f"{label}: {ln}")
+            check(rc == 0, f"{label} exited {rc}:\n{text[-4000:]}")
+            skips = [ln for ln in lines if "SKIP:" in ln]
+            check(all(ln.split()[:2] == ["seamless-m4t-large-v2",
+                                         "long_500k"] for ln in skips),
+                  f"{label}: unexpected skips {skips}")
+            check("FAILED" not in text, f"{label}: a combination failed")
+            for js in sorted(out_dir.glob("*.json")):
+                rep = json.loads(js.read_text())
+                mem = rep.get("memory_per_device") or {}
+                print(f"{label}: {js.stem}: peak per rank "
+                      f"{mem.get('peak_bytes', 0) / 1e9:.2f} GB (arguments "
+                      f"{mem.get('argument_bytes', 0) / 1e9:.2f} GB), bound "
+                      f"{rep['step_time_bound'] * 1e3:.3f} ms "
+                      f"{rep['bottleneck']}, useful "
+                      f"{rep['useful_flops_ratio']:.4f}")
+            print(f"{label}: exit 0 after {secs:.1f} s (meta-device dry run "
+                  "at H100 SXM5 spec-sheet peaks, not measured)")
+    finally:
+        for _, proc, log, _, _ in dryruns:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if dryruns:
+            shutil.rmtree(dryruns[0][2].parent, ignore_errors=True)
+
+
+def dryrun_path(cfg, dr, args, dev, on_card, smi, run_phase, phase_launches,
+                rt, dryruns):
+    """Phase 3, the dry run (see the module's docstring, (a)-(d)), on the
+    one-rank world ``rt``: full-width llama3.2-1b (its smoke config in the
+    rehearsal)."""
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from repro_torch.common.config import InputShape
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.launch import op_analysis, sharding
+    from repro_torch.models import registry
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train import steps
+
+    b, s = dr["batch"], dr["seq"]
+    fields = ("chip_smoke_train", s, b, "train")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dr_") as out:
+        child = subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_CHILD, json.dumps(
+                [cfg.arch_id, list(fields), bool(args.tiny), out])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=_child_env())
+        try:
+            full = registry.init_params(cfg, args.seed, dev)
+            specs = sharding.param_shardings(cfg, registry.param_axes(cfg),
+                                             full, rt.mesh)
+            params = sharding.local_tree(full, specs, rt)
+            del full
+            opt = make_optimizer("adam", lr=1e-3)
+            state = steps.init_opt_state(cfg, opt, params, rt)
+            step_fn = steps.make_train_step(cfg, opt, rt)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in next(
+                lm_batches(cfg.vocab_size, b, s, 1, seed=args.seed)).items()}
+            label = f"dryrun {cfg.arch_id} 1x1 counted step B={b} S={s}"
+            step_fn(params, state, 0, batch)  # warm-up
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+            with op_analysis.Counter() as counter:
+                run_phase(label, lambda: step_fn(params, state, 1, batch))
+            card_peak = (torch.cuda.max_memory_allocated(dev) if on_card
+                         else None)
+            took = []
+            for i in range(DRYRUN_TIMED):
+                if on_card:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step_fn(params, state, 2 + i, batch)
+                if on_card:
+                    torch.cuda.synchronize()
+                took.append(time.perf_counter() - t0)
+            stdout, _ = child.communicate(timeout=600)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    check(child.returncode == 0 and "DRYRUN" in stdout,
+          f"the dry run's subprocess failed:\n{stdout[-4000:]}")
+    meta = json.loads(stdout.split("DRYRUN", 1)[1])
+    rep, want = meta["report"], meta["totals"]
+    got = counter.totals()
+    counts = phase_launches[label]
+    print(f"launches {label}: " + ", ".join(f"{k} {counts[k]}"
+                                            for k in FLASH_KERNELS))
+    check(got["flops"] == want["flops"],
+          f"dry run: the card's step counts {got['flops']} FLOPs, the meta "
+          f"step {want['flops']}")
+    for key in want:
+        if key.endswith("_bytes") or key.endswith("_count"):
+            check(got[key] == want[key], f"dry run: {key} {got[key]} on the "
+                  f"card, {want[key]} on meta")
+    booked = {k: list(v) for k, v in counter.kernels.items()}
+    check(booked == meta["kernels"], f"dry run: bookings {booked} on the "
+          f"card, {meta['kernels']} on meta")
+    differ = {k: (counter.ops.get(k), meta["ops"].get(k))
+              for k in set(counter.ops) | set(meta["ops"])
+              if list(counter.ops.get(k, [0, 0, 0]))
+              != list(meta["ops"].get(k, [0, 0, 0]))}
+    if got["bytes"] != want["bytes"]:
+        print(f"dry run: bytes {got['bytes']} on the card against "
+              f"{want['bytes']} on meta ({got['bytes'] - want['bytes']:+d}); "
+              "the ops that differ ([calls, FLOPs, bytes] card / meta):")
+        for k, (c, m) in sorted(differ.items()):
+            print(f"  {k}: {c} / {m}")
+    else:
+        print("dry run: bytes equal on the card and on meta")
+    ms = 1e3 * sorted(took)[len(took) // 2]
+    bound_ms = 1e3 * rep["step_time_bound"]
+    if on_card:
+        check(ms >= bound_ms, f"dry run: the step took {ms:.3f} ms, under "
+              f"its bound {bound_ms:.3f} ms: the count holds work the card "
+              "did not do")
+    peak = rep["memory_per_device"]["peak_bytes"]
+    card = (f"{card_peak / 2**30:.2f} GiB" if card_peak is not None
+            else "not measured (no card)")
+    print(f"dry run {cfg.arch_id} 1x1 (B={b}, S={s}, ZeRO-1 Adam): counted "
+          f"{got['flops']} FLOPs, {got['bytes']} bytes, collective "
+          f"{got['total_bytes']} bytes (one-rank groups count 0), meta "
+          f"{want['flops']} / {want['bytes']} / {want['total_bytes']}; "
+          f"bound {bound_ms:.3f} ms ({rep['bottleneck']}: compute "
+          f"{1e3 * rep['t_compute']:.3f}, memory {1e3 * rep['t_memory']:.3f}"
+          f" ms at H100 SXM5 spec-sheet peaks) against "
+          f"{'measured' if on_card else 'CPU-clocked'} "
+          f"{', '.join(f'{1e3 * t:.3f}' for t in took)} ms (median "
+          f"{ms:.3f}: the bound is {100 * bound_ms / ms:.1f}% of it); "
+          f"useful {rep['useful_flops_ratio']:.4f}; counted peak "
+          f"{peak / 2**30:.2f} GiB against max_memory_allocated {card} | "
+          f"{smi}")
+    del params, state
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    finish_dryruns(dryruns, 900.0)
 
 
 def spec_bytes(specs) -> int:

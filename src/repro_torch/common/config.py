@@ -1,5 +1,5 @@
 """Configuration of the port (copies of ``repro/common/config.py``'s
-``ModelConfig`` and ``FFMConfig``).
+``ModelConfig``, ``InputShape`` with its four shapes, and ``FFMConfig``).
 
 Each copy is kept field for field equal to the JAX package's dataclass; a
 test holds them together. ``ModelConfig.param_count`` is the analytic
@@ -119,6 +119,25 @@ class ModelConfig:
     # analytic parameter count (model_flops' N)
     def param_count(self, active_only: bool = False) -> int:
         return counting.param_count(self, active_only=active_only)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """One of the assigned workload shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+TRAIN_4K = InputShape("train_4k", 4_096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32_768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524_288, 1, "decode")
+
+INPUT_SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                    LONG_500K)}
 
 
 @dataclass(frozen=True)

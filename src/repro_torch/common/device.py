@@ -2,7 +2,8 @@
 
 Every entry point of the port takes ``device=None``, which means the card.
 Without CUDA the caller has to ask for the CPU explicitly; nothing falls
-back to it quietly.
+back to it quietly. ``"meta"`` (shapes and dtypes, no memory: the dry run,
+``launch/dryrun_lib.py``) is taken only where a caller names it.
 """
 from __future__ import annotations
 
@@ -16,13 +17,14 @@ DeviceLike = Optional[Union[str, torch.device]]
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None`` -> ``cuda``. Raises when CUDA is asked for (or implied) and
-    absent, so no path goes on on the CPU without the caller saying so."""
+    absent, so no path goes on on the CPU without the caller saying so.
+    ``"meta"`` is taken when named, never implied."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch versions of the kernels")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

@@ -80,6 +80,15 @@ def count(specs) -> int:
     return sum(count(v) for v in specs.values())
 
 
+def abstract(specs):
+    """The spec tree as empty meta tensors: each leaf's shape and dtype, no
+    memory (the counterpart of the JAX package's ``ShapeDtypeStruct``
+    tree)."""
+    if is_spec(specs):
+        return torch.empty(specs.shape, dtype=specs.dtype, device="meta")
+    return {k: abstract(v) for k, v in specs.items()}
+
+
 def axes(specs):
     """Logical-axes tree, same structure as the params (consumed by
     ``repro_torch.launch.sharding``)."""

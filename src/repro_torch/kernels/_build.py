@@ -30,6 +30,8 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.launch import op_analysis
+
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
@@ -178,7 +180,9 @@ def load() -> Library:
 
 def launch(name: str, *args) -> None:
     """Call C entry point ``name`` on PyTorch's current stream (appended as
-    the last argument); raise on a CUDA error, else count the launch."""
+    the last argument); raise on a CUDA error, else count the launch. Under
+    an op counter the call must be booked (``op_analysis.check_launch``)."""
+    op_analysis.check_launch(name)
     lib = load().lib
     err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:

@@ -19,6 +19,12 @@ layouts, masks the ragged tail tiles and fixes its own tiling. K11 has two
 bodies, picked by dtype (:data:`BODIES`): bf16 runs on TMA and ``wgmma``
 (sm_90a), f32 on CUDA-core FMAs. v may be narrower than q and k (MLA: qk
 dim 192, v dim 128), and is taken at its own width, never padded.
+
+Every call books its kernels' work (:func:`k11_work`, :func:`k13_work`,
+:func:`k12_work`: the bound formulas of PERF.md §6) with an op counter
+(``launch/op_analysis.py``) on every device; a meta tensor gets its
+outputs allocated and nothing else (the dry run), before the CPU / CUDA
+branches, and moves no launch count.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch import op_analysis
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                       flash_attention_ref)
 
@@ -97,18 +104,89 @@ def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return body
 
 
+def attention_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """The (row, column) pairs attention's mask keeps: the causal mask
+    aligned at position 0 (column <= row), ``window`` > 0 keeping columns
+    past row - window."""
+    r = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(r, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(0, r - window + 1) if window > 0 else np.zeros(sq)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def _dims(q_shape, k_shape, v_shape):
+    (b, sq, h, d), (_, sk, kv, _), dv = q_shape, k_shape, v_shape[-1]
+    return b, sq, sk, h, kv, d, dv
+
+
+def k11_work(q_shape, k_shape, v_shape, esz: int, causal: bool,
+             window: int = 0, with_lse: bool = False):
+    """(operations, bytes) K11's function needs: 2 (D + Dv) operations per
+    kept pair; q read, the output (and the f32 lse) written, and the k / v
+    rows some query sees (under the causal mask none past key Sq - 1)."""
+    b, sq, sk, h, kv, d, dv = _dims(q_shape, k_shape, v_shape)
+    live = min(sk, sq) if causal else sk
+    flops = 2 * (d + dv) * b * h * attention_pairs(sq, sk, causal, window)
+    nbytes = (esz * (b * sq * h * (d + dv) + b * live * kv * (d + dv))
+              + (4 * b * h * sq if with_lse else 0))
+    return flops, nbytes
+
+
+def k13_work(q_shape, k_shape, v_shape, esz: int, causal: bool,
+             window: int = 0):
+    """(operations, bytes) of K13 (dQ and each row's Delta): 2 (2 D + Dv)
+    operations per kept pair; q, the live k / v rows, o, dO and lse read,
+    dq and Delta written."""
+    b, sq, sk, h, kv, d, dv = _dims(q_shape, k_shape, v_shape)
+    live = min(sk, sq) if causal else sk
+    n_pairs = b * h * attention_pairs(sq, sk, causal, window)
+    q_el, o_el = b * sq * h * d, b * sq * h * dv
+    return (2 * (2 * d + dv) * n_pairs,
+            esz * (2 * q_el + b * live * kv * (d + dv) + 2 * o_el)
+            + 8 * b * h * sq)
+
+
+def k12_work(q_shape, k_shape, v_shape, esz: int, causal: bool,
+             window: int = 0):
+    """(operations, bytes) of K12 (dK, dV): 2 (2 D + 2 Dv) operations per
+    kept pair; q, dO, k, v, lse and Delta read, dk and dv written."""
+    b, sq, sk, h, kv, d, dv = _dims(q_shape, k_shape, v_shape)
+    n_pairs = b * h * attention_pairs(sq, sk, causal, window)
+    q_el, o_el = b * sq * h * d, b * sq * h * dv
+    return (2 * (2 * d + 2 * dv) * n_pairs,
+            esz * (q_el + o_el + 2 * b * sk * kv * (d + dv)) + 8 * b * h * sq)
+
+
 def _scale(d: int) -> float:
     return float(np.float32(d ** -0.5))
 
 
 def _k11(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
          window: int, with_lse: bool):
-    """K11 on CUDA tensors, the plain version on CPU ones: the output, and
-    with ``with_lse`` also the (B, H, Sq) f32 log-sum-exp."""
+    """K11 on CUDA tensors, the plain version on CPU ones, the outputs
+    alone on meta ones: the output, and with ``with_lse`` also the (B, H,
+    Sq) f32 log-sum-exp. The work is booked (:func:`k11_work`)."""
     body = _check_args(q, k, v, window)
+    flops, nbytes = k11_work(q.shape, k.shape, v.shape, q.element_size(),
+                             causal, window, with_lse)
+    with op_analysis.kernel("flash_attention", flops, nbytes):
+        return _k11_call(q, k, v, causal, window, with_lse, body)
+
+
+def _k11_call(q, k, v, causal, window, with_lse, body):
+    if q.is_meta:
+        b, sq, h, _ = q.shape
+        out = q.new_empty((b, sq, h, v.shape[3]))
+        lse = (q.new_empty((b, h, sq), dtype=torch.float32) if with_lse
+               else None)
+        return (out, lse) if with_lse else out
     if not q.is_cuda:
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   return_lse=with_lse)
+        # contiguous, as K11's and the meta branch's outputs are, so that
+        # what follows runs the same ops on every device
+        res = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                  return_lse=with_lse)
+        return (tuple(t.contiguous() for t in res) if with_lse
+                else res.contiguous())
     b, sq, h, d = q.shape
     sk, kv, dv = k.shape[1], k.shape[2], v.shape[3]
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -176,9 +254,22 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.device == o.device == do.device == lse.device):
         raise ValueError(f"q on {q.device}, o on {o.device}, do on "
                          f"{do.device}, lse on {lse.device}")
-    if not q.is_cuda:
-        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
-                                       window=window)
+    esz = q.element_size()
+    with op_analysis.kernel("flash_attention_bwd_dq", *k13_work(
+            q.shape, k.shape, v.shape, esz, causal, window)), \
+            op_analysis.kernel("flash_attention_bwd_dkdv", *k12_work(
+                q.shape, k.shape, v.shape, esz, causal, window)):
+        return _bwd_call(q, k, v, o, lse, do, causal, window, body)
+
+
+def _bwd_call(q, k, v, o, lse, do, causal, window, body):
+    if q.is_meta:
+        return tuple(torch.empty_like(t) for t in (q, k, v))
+    b, sq, h, d = q.shape
+    sk, kv, dv = k.shape[1], k.shape[2], v.shape[3]
+    if not q.is_cuda:  # contiguous, as K13's / K12's outputs are
+        return tuple(t.contiguous() for t in flash_attention_bwd_ref(
+            q, k, v, o, lse, do, causal=causal, window=window))
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         _build.check(t, name, q.dtype)
     _build.check(lse, "lse", torch.float32)

@@ -1,5 +1,4 @@
-"""Meshes and the process world (port of ``repro/launch/mesh.py``'s
-``make_runtime`` and ``make_smoke_mesh``).
+"""Meshes and the process world (port of ``repro/launch/mesh.py``).
 
 A mesh is a ``torch.distributed`` ``DeviceMesh`` over an initialized world,
 row-major like the JAX package's ``np.asarray(devices[:n]).reshape(...)``:
@@ -7,11 +6,18 @@ rank r of an (n_data, n_model) mesh sits at (r // n_model, r % n_model).
 :func:`world` starts and ends the world (NCCL on the card, gloo on the
 CPU, a ``FileStore`` under a temporary directory, no TCP port);
 :func:`spawn` runs a function in n gloo ranks on the CPU, the counterpart
-of XLA's forced host device count. The production mesh and the dry run
-that uses it are ROADMAP.md Queue 1 item 9's second half.
+of XLA's forced host device count. :func:`fake_world` makes this process
+rank 0 of a world of any size whose collectives return at once (the fake
+backend): the dry run (``launch/dryrun_lib.py``) builds the production
+mesh (:func:`make_production_mesh`, 16 x 16 or 2 x 16 x 16) in it and runs
+a rank's step on meta tensors. One process holds one default group, so a
+fake world cannot open inside another world: the dry run runs in a
+process of its own, as the JAX package's does.
 
     with world("cpu"):                       # one rank
         rt = make_runtime(make_smoke_mesh(1, 1))
+    with fake_world(256):
+        rt = make_runtime(make_production_mesh())
 """
 from __future__ import annotations
 
@@ -79,18 +85,50 @@ def spawn(fn, n_ranks: int, *args) -> None:
             nprocs=n_ranks, start_method="spawn")
 
 
-def make_smoke_mesh(n_data: int = 2, n_model: int = 2):
-    """An (n_data, n_model) mesh with axes ("data", "model") over the
-    world's first n_data * n_model ranks (the world must hold as many)."""
+@contextlib.contextmanager
+def fake_world(n_ranks: int):
+    """This process as rank 0 of an ``n_ranks`` world on the fake backend
+    (``torch.testing._internal.distributed.fake_pg``: every collective
+    returns at once and leaves its output as it was, so on meta tensors it
+    costs nothing) for the body of the ``with``; destroyed after it."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=n_ranks)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def make_mesh(shape, names):
+    """A ``DeviceMesh`` of ``shape`` with axes ``names`` over the world's
+    first ranks, row-major (the world must hold as many)."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    n = n_data * n_model
+    n = math.prod(shape)
     have = dist.get_world_size() if dist.is_initialized() else 0
     if have < n:
         raise RuntimeError(f"need {n} ranks, have {have}")
     kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return DeviceMesh(kind, torch.arange(n).reshape(n_data, n_model),
-                      mesh_dim_names=("data", "model"))
+    return DeviceMesh(kind, torch.arange(n).reshape(shape),
+                      mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """One pod: a 16 x 16 ("data", "model") mesh of 256 ranks; two pods: 2
+    x 16 x 16 ("pod", "data", "model"), 512, the "pod" axis a data axis.
+    Raises when the world is smaller (:func:`fake_world` gives one of any
+    size)."""
+    if multi_pod:
+        return make_mesh((2, 16, 16), ("pod", "data", "model"))
+    return make_mesh((16, 16), ("data", "model"))
+
+
+def make_smoke_mesh(n_data: int = 2, n_model: int = 2):
+    """An (n_data, n_model) mesh with axes ("data", "model") over the
+    world's first n_data * n_model ranks (the world must hold as many)."""
+    return make_mesh((n_data, n_model), ("data", "model"))
 
 
 def _groups(mesh, axes_list):

@@ -1,5 +1,5 @@
-"""Logical-axis sharding rules, MaxText-style (port of
-``repro/launch/sharding.py``'s rules, parameter and batch shardings).
+"""Logical-axis sharding rules, MaxText-style, and ZeRO-1 optimizer
+sharding (port of ``repro/launch/sharding.py``).
 
 Every parameter carries logical axis names (from its ``ParamSpec``); a rule
 table maps logical axes to mesh axes, with replication where a dim does not
@@ -10,20 +10,22 @@ Param strategy:
   * ``fsdp=True`` configs additionally shard the ``embed`` axis over the
     data axes (weights gathered on use).
   * ``pure_dp`` configs replicate every parameter.
+  * optimizer state is ZeRO-1 (:func:`zero1_shardings`): each state leaf
+    additionally shards its largest still-unsharded dim over the data axes.
 
 A spec is what JAX's ``PartitionSpec`` holds: per dim None, one mesh-axis
 name, or a tuple of names. The rules read only the mesh's axis sizes, so
 ``mesh`` may be a ``DeviceMesh`` or a mapping of axis name to size (JAX's
 ``Mesh.shape``), which lets them run at a production mesh's shape without
-a world. :func:`shard_slices` turns a spec into a rank's slice of the full
-leaf (JAX's ``devices_indices_map``), :func:`gather` puts the leaf back
-together. ZeRO-1 optimizer shardings and the decode state's wait for the
-dry run (ROADMAP.md Queue 1 item 9).
+a world. :func:`abstract_mesh` gives that mapping. :func:`shard_slices` turns
+a spec into a rank's slice of the full leaf (JAX's ``devices_indices_map``),
+:func:`gather` puts the leaf back together.
 """
 from __future__ import annotations
 
 from typing import Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.common import runtime
@@ -71,6 +73,13 @@ def logical_rules(cfg, mesh) -> Dict[str, Optional[Tuple[str, ...]]]:
     }
 
 
+def abstract_mesh(axis_sizes: Tuple[int, ...],
+                  axis_names: Tuple[str, ...]) -> Dict[str, int]:
+    """A mesh by its axis sizes alone (JAX's ``AbstractMesh``): the mapping
+    of axis name to size that every rule here reads, with no world."""
+    return dict(zip(axis_names, axis_sizes))
+
+
 def _axis_size(sizes: Dict[str, int], axes: Tuple[str, ...]) -> int:
     n = 1
     for a in axes:
@@ -102,10 +111,10 @@ def spec_for(shape: Tuple[int, ...], logical: Tuple[str, ...], rules,
     return tuple(parts)
 
 
-def _map(fn, *trees):
+def map_tree(fn, *trees):
     """``fn`` over the leaves of nested dicts that share one structure."""
     if isinstance(trees[0], dict):
-        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
+        return {k: map_tree(fn, *(t[k] for t in trees)) for k in trees[0]}
     return fn(*trees)
 
 
@@ -114,8 +123,31 @@ def param_shardings(cfg, specs_axes, abstract, mesh):
     abstract: a tree like it whose leaves have a ``shape`` (parameters or
     their ``ParamSpec``s). Returns the tree of specs."""
     rules = logical_rules(cfg, mesh)
-    return _map(lambda axes, leaf: spec_for(tuple(leaf.shape), axes, rules,
+    return map_tree(lambda axes, leaf: spec_for(tuple(leaf.shape), axes, rules,
                                             mesh), specs_axes, abstract)
+
+
+def zero1_shardings(param_sharding_tree, abstract_tree, mesh):
+    """Optimizer-state specs: each leaf's parameter spec plus, where no
+    data axis is used yet, the data axes on its largest unsharded dim that
+    divides (the first of equal dims, in JAX's ``argsort`` order); a leaf
+    with none keeps its parameter spec."""
+    sizes = _axis_sizes(mesh)
+    data_axes = _data_axes(mesh)
+    dsize = _axis_size(sizes, data_axes)
+
+    def one(pspec, leaf):
+        shape = tuple(leaf.shape)
+        spec = list(pspec) + [None] * (len(shape) - len(pspec))
+        used = {a for e in spec for a in _entry_axes(e)}
+        if not (set(data_axes) & used):
+            for i in np.argsort([-d for d in shape]):
+                if spec[i] is None and shape[i] % dsize == 0:
+                    spec[i] = data_axes if len(data_axes) > 1 else data_axes[0]
+                    break
+        return tuple(spec)
+
+    return map_tree(one, param_sharding_tree, abstract_tree)
 
 
 def batch_spec(shape: Tuple[int, ...], mesh) -> Spec:
@@ -129,12 +161,84 @@ def batch_spec(shape: Tuple[int, ...], mesh) -> Spec:
 
 
 def batch_shardings(batch_abstract, mesh):
-    return _map(lambda leaf: batch_spec(tuple(leaf.shape), mesh),
+    return map_tree(lambda leaf: batch_spec(tuple(leaf.shape), mesh),
                 batch_abstract)
 
 
 def replicated(mesh) -> Spec:
     return ()
+
+
+def decode_state_shardings(cfg, state_abstract, mesh):
+    """Specs of the decode state, by leaf name, as the JAX package's rules.
+
+    The port's state has JAX's leaf names (``k``, ``v``, ``cross_k``,
+    ``cross_v``, ``k_scale``, ``v_scale``, ``ckv``, ``kr``, ``ssm``,
+    ``conv``, under the same parents); only ``pos`` differs, a Python int
+    where JAX holds a 0-d array, and its spec is ``()`` (replicated) as
+    there. KV rings (..., B, S, K, D): batch over the data axes when
+    divisible, else the sequence; kv-heads over "model" when divisible,
+    else the sequence (flash-decode style). MLA latents (..., B, S, R):
+    batch-else-sequence over data, then the sequence over "model". SSM
+    states (..., B, H, N, P): batch over data, heads over "model". Conv
+    states (..., B, K, C): batch over data, channels over "model"."""
+    sizes = _axis_sizes(mesh)
+    data_axes = _data_axes(mesh)
+    dsize = _axis_size(sizes, data_axes)
+    msize = sizes["model"]
+    d_ax = data_axes if len(data_axes) > 1 else data_axes[0]
+
+    def leaf(name, t):
+        if name == "pos" or not hasattr(t, "shape"):
+            return ()
+        shape = tuple(t.shape)
+        nd = len(shape)
+        spec = [None] * nd
+        if name in ("k", "v", "cross_k", "cross_v"):
+            b, s, kh = nd - 4, nd - 3, nd - 2
+            if shape[b] % dsize == 0:
+                spec[b] = d_ax
+            elif shape[s] % dsize == 0:
+                spec[s] = d_ax
+            if shape[kh] % msize == 0:
+                spec[kh] = "model"
+            elif spec[s] is None and shape[s] % msize == 0:
+                spec[s] = "model"
+        elif name in ("k_scale", "v_scale"):
+            b, sq, kh = nd - 3, nd - 2, nd - 1
+            if shape[b] % dsize == 0:
+                spec[b] = d_ax
+            if shape[kh] % msize == 0:
+                spec[kh] = "model"
+            elif shape[sq] % msize == 0:
+                spec[sq] = "model"
+        elif name in ("ckv", "kr"):
+            b, s = nd - 3, nd - 2
+            if shape[b] % dsize == 0:
+                spec[b] = d_ax
+            elif shape[s] % dsize == 0:
+                spec[s] = d_ax
+            if spec[s] is None and shape[s] % msize == 0:
+                spec[s] = "model"
+        elif name == "ssm":
+            b, h = nd - 4, nd - 3
+            if shape[b] % dsize == 0:
+                spec[b] = d_ax
+            if shape[h] % msize == 0:
+                spec[h] = "model"
+        elif name == "conv":
+            b, c = nd - 3, nd - 1
+            if shape[b] % dsize == 0:
+                spec[b] = d_ax
+            if shape[c] % msize == 0:
+                spec[c] = "model"
+        return tuple(spec)
+
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict) else leaf(k, v)
+                for k, v in tree.items()}
+
+    return walk(state_abstract)
 
 
 # ---------------------------------------------------------------------------
@@ -181,9 +285,9 @@ def gather(shard: torch.Tensor, spec: Spec, rt: runtime.Runtime,
 
 def local_tree(tree, specs, rt: runtime.Runtime):
     """Each leaf's slice for this rank, in fresh memory."""
-    return _map(lambda t, s: local_shard(t, s, rt).clone(), tree, specs)
+    return map_tree(lambda t, s: local_shard(t, s, rt).clone(), tree, specs)
 
 
 def gather_tree(tree, specs, rt: runtime.Runtime):
     """Each leaf gathered whole (a collective)."""
-    return _map(lambda t, s: gather(t, s, rt), tree, specs)
+    return map_tree(lambda t, s: gather(t, s, rt), tree, specs)

@@ -67,7 +67,8 @@ def _run(args) -> None:
     from repro_torch.launch import sharding
     from repro_torch.models import registry
     from repro_torch.optim.optimizers import make_optimizer
-    from repro_torch.train.steps import make_train_step
+    from repro_torch.train.steps import (init_opt_state, make_train_step,
+                                         zero1_specs)
 
     rank = dist.get_rank() if dist.is_initialized() else 0
     cfg = registry.get_config(args.arch, smoke=args.smoke)
@@ -83,7 +84,7 @@ def _run(args) -> None:
                                          params, rt.mesh)
         params = sharding.local_tree(params, specs, rt)
     opt = make_optimizer(args.optimizer, lr=1e-3)
-    opt_state = opt.init(params)
+    opt_state = init_opt_state(cfg, opt, params, rt)  # ZeRO-1 on a mesh
     step_fn = make_train_step(cfg, opt, rt)
     step = 0
     t0 = time.perf_counter()
@@ -105,7 +106,8 @@ def _run(args) -> None:
     if args.ckpt:
         if rt is not None:  # the whole leaves, gathered on every rank
             params = sharding.gather_tree(params, specs, rt)
-            opt_state = {k: sharding.gather_tree(v, specs, rt)
+            z1 = zero1_specs(cfg, rt)
+            opt_state = {k: sharding.gather_tree(v, z1, rt)
                          for k, v in opt_state.items()}
         if rank == 0:
             store.save(args.ckpt, params, opt_state)

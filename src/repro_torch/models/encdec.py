@@ -95,7 +95,7 @@ def encode(cfg, params, frames: torch.Tensor) -> torch.Tensor:
 
 
 def forward(cfg, params, batch: Dict[str, torch.Tensor], *,
-            window: Optional[int] = None):
+            window: Optional[int] = None, last_only: bool = False):
     """batch: ``frames`` (B, S_src, d) and ``tokens`` (B, S_tgt) -> decoder
     logits (B, S_tgt, padded_vocab) and a zero aux loss."""
     w = cfg.sliding_window if window is None else window
@@ -110,6 +110,8 @@ def forward(cfg, params, batch: Dict[str, torch.Tensor], *,
         x = x + _cross_attend(lp["cross"], h, k, v)
         x = x + layers.apply_ffn(cfg, lp["ffn"],
                                  layers.apply_norm(cfg, lp["ln2"], x))
+    if last_only:
+        x = x[:, -1:]
     x = layers.apply_norm(cfg, params["ln_f"], x)
     return (layers.logits(cfg, params["embed"], x),
             torch.zeros((), dtype=torch.float32, device=x.device))

@@ -19,8 +19,9 @@ stacked as in the JAX package: ``mamba`` (n_super, P-1, ...), ``lora``
 apart once with ``transformer.unstack``. The decode state is preallocated and
 written in place: mamba states (n_super, P-1, B, ...), one KV cache per
 super-block (n_super, B, size, Kv, D), the tail's states (n_tail, B, ...);
-``pos`` is a Python int. The JAX ``forward``'s ``remat``, ``last_only`` and
-``rt`` are not ported: no caller of the port sets them.
+``pos`` is a Python int. The JAX ``forward``'s ``remat`` and ``rt`` are
+not ported: no caller of the port sets them (``last_only`` is, for the
+sharded prefill step).
 """
 from __future__ import annotations
 
@@ -117,7 +118,7 @@ def _shared_block(cfg, sp, lora, x: torch.Tensor, x0: torch.Tensor,
 
 
 def forward(cfg, params, tokens: torch.Tensor, *,
-            window: Optional[int] = None):
+            window: Optional[int] = None, last_only: bool = False):
     """tokens: (B, S) ints -> logits (B, S, padded_vocab) and a zero aux
     loss."""
     w = cfg.sliding_window if window is None else window
@@ -136,6 +137,8 @@ def forward(cfg, params, tokens: torch.Tensor, *,
         x = _shared_block(cfg, shared, lora, x, x0, attn_fn)
     for lp in _tail(cfg, params):
         x = _mamba_block(cfg, lp, x)
+    if last_only:
+        x = x[:, -1:]
     x = layers.apply_norm(cfg, params["ln_f"], x)
     return (layers.logits(cfg, params["embed"], x),
             torch.zeros((), dtype=torch.float32, device=x.device))

@@ -63,6 +63,11 @@ def param_specs(cfg: ModelConfig):
     return module_for(cfg).param_specs(cfg)
 
 
+def abstract_params(cfg: ModelConfig):
+    """Every leaf as an empty meta tensor of its spec's shape and dtype."""
+    return pspec.abstract(param_specs(cfg))
+
+
 def param_axes(cfg: ModelConfig):
     return pspec.axes(param_specs(cfg))
 
@@ -73,16 +78,20 @@ def init_params(cfg: ModelConfig, seed: int, device: DeviceLike = None):
 
 
 def forward(cfg: ModelConfig, params, batch: Dict[str, Any], rt=None, *,
-            window=None):
+            window=None, last_only: bool = False):
     """``rt`` (a mesh's runtime, ``common/runtime.py``) reaches the
     transformer families, whose MoE layers use it; the other families have
-    no layer that reads it, as in the JAX package."""
+    no layer that reads it, as in the JAX package. ``last_only`` gives the
+    last position's logits (B, 1, V) only: the prefill step's."""
     mod = module_for(cfg)
     if cfg.family == "encdec":
-        return mod.forward(cfg, params, batch, window=window)
+        return mod.forward(cfg, params, batch, window=window,
+                           last_only=last_only)
     if mod is transformer:
-        return mod.forward(cfg, params, batch["tokens"], rt, window=window)
-    return mod.forward(cfg, params, batch["tokens"], window=window)
+        return mod.forward(cfg, params, batch["tokens"], rt, window=window,
+                           last_only=last_only)
+    return mod.forward(cfg, params, batch["tokens"], window=window,
+                       last_only=last_only)
 
 
 def loss_fn(cfg: ModelConfig, params, batch: Dict[str, Any], rt=None, *,
@@ -106,6 +115,14 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                                      device=device, **kw)
     return mod.init_decode_state(cfg, batch, max_len, window=window,
                                  device=device)
+
+
+def decode_state_specs(cfg: ModelConfig, batch: int, max_len: int, *,
+                       window: int = 0, **kw):
+    """:func:`init_decode_state` on the meta device: the state's shapes and
+    dtypes, no memory (``pos`` stays the Python int 0)."""
+    return init_decode_state(cfg, batch, max_len, window=window,
+                             device="meta", **kw)
 
 
 def decode_step(cfg: ModelConfig, params, state, tokens, *, window: int = 0):

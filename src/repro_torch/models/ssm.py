@@ -19,8 +19,8 @@ Parameters stay stacked over layers (``(L, ...)``; each loop over layers
 takes them apart once with ``transformer.unstack``); the decode state is
 preallocated (``conv`` (L, B, d_conv-1, conv_dim) in ``cfg.dtype``, ``ssm``
 (L, B, H, N, P) in f32) and written in place; ``pos`` is a Python int. The
-JAX ``forward``'s ``remat``, ``last_only`` and ``rt`` are not ported: no
-caller of the port sets them.
+JAX ``forward``'s ``remat`` and ``rt`` are not ported: no caller of the
+port sets them (``last_only`` is, for the sharded prefill step).
 """
 from __future__ import annotations
 
@@ -245,7 +245,7 @@ def param_specs(cfg) -> Dict[str, Any]:
 
 
 def forward(cfg, params, tokens: torch.Tensor, *,
-            window: Optional[int] = None):
+            window: Optional[int] = None, last_only: bool = False):
     """tokens: (B, S) ints -> logits (B, S, padded_vocab) and a zero aux
     loss; ``window`` is taken and unused, as in the JAX package."""
     x = layers.embed_tokens(cfg, params["embed"], tokens).to(
@@ -253,6 +253,8 @@ def forward(cfg, params, tokens: torch.Tensor, *,
     for lp in unstack(params["layers"]):
         x = x + mamba_forward(cfg, lp["mixer"],
                               layers.apply_norm(cfg, lp["ln"], x))
+    if last_only:
+        x = x[:, -1:]
     x = layers.apply_norm(cfg, params["ln_f"], x)
     return (layers.logits(cfg, params["embed"], x),
             torch.zeros((), dtype=torch.float32, device=x.device))

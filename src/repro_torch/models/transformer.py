@@ -100,11 +100,13 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
 
 
 def forward(cfg, params, tokens: torch.Tensor, rt=None, *,
-            window: Optional[int] = None):
+            window: Optional[int] = None, last_only: bool = False):
     """tokens: (B, S) ints -> logits (B, S, padded_vocab) and the routers'
     aux loss summed over layers (0 without MoE). Under a mesh (``rt``,
     ``common/runtime.py``) ``tokens`` are this rank's rows and the MoE
-    layers may run expert-parallel."""
+    layers may run expert-parallel. ``last_only`` cuts the final hidden
+    state to the last position before the unembedding: logits (B, 1,
+    padded_vocab), as the prefill step needs (no (B, S, V) logits)."""
     _check(cfg)
     w = cfg.sliding_window if window is None else window
     positions = _positions(tokens)
@@ -117,6 +119,8 @@ def forward(cfg, params, tokens: torch.Tensor, rt=None, *,
         x, a, _, _ = _layer_fwd(cfg, lp, x, positions, w, aux=True, rt=rt)
         if a is not None:
             aux = aux + a
+    if last_only:
+        x = x[:, -1:]
     x = layers.apply_norm(cfg, params["ln_f"], x)
     return layers.logits(cfg, params["embed"], x), aux
 

@@ -3,10 +3,14 @@
 ``train_step`` differentiates :func:`registry.loss_fn` with autograd: every
 attention call of the forward goes through the flash ``FlashAttention``
 function (K11 with its log-sum-exp, then K13 and K12 in the backward, on the
-card). With ``rt`` on a mesh (``common/runtime.py``) ``make_train_step``
-gives the sharded step, the port of what the JAX package gets from
-``jax.jit`` over sharded arguments. ``cfg.remat`` is not ported: it saves
-memory and changes no number.
+card). With ``rt`` on a mesh (``common/runtime.py``) each factory gives
+the sharded step, the port of what the JAX package gets from ``jax.jit``
+over sharded arguments: SPMD by hand, every weight gathered whole, each
+rank on its rows of the batch (``sharding.batch_spec``), the train step's
+optimizer state held in ZeRO-1 slices (:func:`init_opt_state`) and the
+decode state in ``decode_state_shardings``' slices. The dry run
+(``launch/dryrun_lib.py``) counts these steps at the production meshes.
+``cfg.remat`` is not ported: it saves memory and changes no number.
 """
 from __future__ import annotations
 
@@ -55,6 +59,54 @@ def loss_and_grads(cfg, params, batch, *, window: Optional[int] = None):
             _rebuild(params, iter(grads)))
 
 
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _param_specs(cfg, rt):
+    return sharding.param_shardings(cfg, registry.param_axes(cfg),
+                                    registry.param_specs(cfg), rt.mesh)
+
+
+def _leaf_specs(cfg, params, rt):
+    """The paths of ``params``' leaves and each leaf's ``param_shardings``
+    spec, in :func:`_leaves`' order."""
+    specs = _param_specs(cfg, rt)
+    paths = [path for path, _ in _leaves(params)]
+    return paths, [_at(specs, path) for path in paths]
+
+
+def zero1_specs(cfg, rt):
+    """The optimizer state's spec tree (each leaf's ``zero1_shardings``
+    spec), for ``sharding.gather_tree`` / ``local_tree`` of a state."""
+    return sharding.zero1_shardings(_param_specs(cfg, rt),
+                                    registry.param_specs(cfg), rt.mesh)
+
+
+def _zero1_extra(cfg, params, rt):
+    """Per leaf, the spec of the rank's ZeRO-1 slice within its parameter
+    shard: the data axes ``zero1_shardings`` adds, on the dim it adds them
+    to (a dim the parameter spec leaves whole), and None elsewhere."""
+    specs, z1 = _param_specs(cfg, rt), zero1_specs(cfg, rt)
+    return [tuple(z if p is None else None
+                  for p, z in zip(_at(specs, path), _at(z1, path)))
+            for path, _ in _leaves(params)]
+
+
+def init_opt_state(cfg, optimizer: Optimizer, params, rt=None):
+    """``optimizer.init`` for the step :func:`make_train_step` gives: on
+    ``params`` without a mesh; with one, on each leaf's ZeRO-1 slice of the
+    rank's parameter shards (``params``)."""
+    if rt is None or rt.mesh is None:
+        return optimizer.init(params)
+    extra = _zero1_extra(cfg, params, rt)
+    return optimizer.init(_rebuild(params, iter(
+        sharding.local_shard(t, ex, rt)
+        for (_, t), ex in zip(_leaves(params), extra))))
+
+
 def make_train_step(cfg, optimizer: Optimizer, rt=None, *,
                     window: Optional[int] = None):
     """``train_step(params, opt_state, step, batch) -> (params', opt',
@@ -62,24 +114,70 @@ def make_train_step(cfg, optimizer: Optimizer, rt=None, *,
     a Python int (Adam's bias correction counts from it); the metrics are
     detached 0-d f32 tensors. ``params`` and ``opt_state`` are left alone:
     the optimizer returns new trees. With ``rt`` on a mesh, the sharded
-    step: every rank calls it on its shards of ``params`` and ``opt_state``
-    and the global batch, gets :func:`sharded_loss_and_grads`' global
-    metrics and gradient shards, and runs the optimizer shard-local (Adam
-    is elementwise), as the JAX package's ``jit`` over sharded arguments
-    does."""
+    step: every rank calls it on its shards of ``params``, its ZeRO-1
+    slices of ``opt_state`` (:func:`init_opt_state`) and the global batch,
+    and gets :func:`sharded_loss_and_grads`' global metrics and gradient
+    shards. ZeRO-1: the rank runs the optimizer on its slice over the data
+    axes of its gradient and parameter shards (where ``zero1_shardings``
+    adds the data axes to a leaf), then all-gathers the updated slices over
+    the data axes into its new parameter shard. Adam is elementwise, so
+    the parameters equal those of the optimizer run on whole shards bit for
+    bit."""
     sharded = rt is not None and rt.mesh is not None
 
     def train_step(params, opt_state, step: int, batch):
         if sharded:
             loss, metrics, grads = sharded_loss_and_grads(
                 cfg, params, batch, rt, window=window)
+            extra = _zero1_extra(cfg, params, rt)
+
+            def sliced(tree):
+                return _rebuild(tree, iter(
+                    sharding.local_shard(t, ex, rt)
+                    for (_, t), ex in zip(_leaves(tree), extra)))
+
+            new_slices, new_opt = optimizer.update(
+                sliced(grads), opt_state, sliced(params), step)
+            new_params = _rebuild(params, iter(
+                sharding.gather(t, ex, rt)
+                for (_, t), ex in zip(_leaves(new_slices), extra)))
         else:
             loss, metrics, grads = loss_and_grads(cfg, params, batch,
                                                   window=window)
-        new_params, new_opt = optimizer.update(grads, opt_state, params, step)
+            new_params, new_opt = optimizer.update(grads, opt_state, params,
+                                                   step)
         return new_params, new_opt, step + 1, {"loss": loss, **metrics}
 
     return train_step
+
+
+def _rows(batch, rt):
+    """The rank's rows of a global batch (``batch_spec``: split over the
+    data axes, or whole where the batch does not divide), and the step's
+    runtime saying which."""
+    bspecs = sharding.batch_shardings(batch, rt.mesh)
+    split = bspecs["tokens"][0] is not None
+    rows = {k: sharding.local_shard(v, bspecs[k], rt)
+            for k, v in batch.items()}
+    return rows, dataclasses.replace(rt, batch_split=split)
+
+
+def _gathered(cfg, params, rt, step_rt, tokens: int):
+    """Every leaf of the rank's shards gathered whole (``sharding.gather``;
+    a collective), except that expert-parallel MoE layers keep their
+    expert leaves' model-axis slices, as the JAX package's ``shard_map``
+    does. Returns ``(full leaves, specs, keeps)`` in :func:`_leaves`'
+    order."""
+    paths, spec_list = _leaf_specs(cfg, params, rt)
+    ep = cfg.is_moe and moe.resolve_impl(
+        cfg, tokens, step_rt) == "expert_parallel"
+    keeps = [(rt.model_axis,) if ep and path[-2:-1] == ("moe",)
+             and path[-1] in moe.EXPERT_LEAVES and rt.model_axis in s
+             else () for path, s in zip(paths, spec_list)]
+    with torch.no_grad():
+        full = [sharding.gather(t, s, rt, keep)
+                for (_, t), s, keep in zip(_leaves(params), spec_list, keeps)]
+    return full, spec_list, keeps
 
 
 def sharded_loss_and_grads(cfg, params, batch, rt, *,
@@ -102,30 +200,12 @@ def sharded_loss_and_grads(cfg, params, batch, rt, *,
     count. Summing each leaf's gradient over the ranks that used it whole
     (every rank; the data axes for expert slices) gives the global
     gradient, of which the rank keeps its shard."""
-    specs = sharding.param_shardings(cfg, registry.param_axes(cfg),
-                                     registry.param_specs(cfg), rt.mesh)
-    paths = [path for path, _ in _leaves(params)]
-    spec_list = []
-    for path in paths:
-        node = specs
-        for key in path:
-            node = node[key]
-        spec_list.append(node)
     tokens = batch["tokens"].numel()
-    bspecs = sharding.batch_shardings(batch, rt.mesh)
-    split = bspecs["tokens"][0] is not None
-    step_rt = dataclasses.replace(rt, batch_split=split)
-    batch = {k: sharding.local_shard(v, bspecs[k], rt)
-             for k, v in batch.items()}
-    copies = rt.axis_size((rt.model_axis,)) if split else rt.n_devices
-    ep = cfg.is_moe and moe.resolve_impl(
-        cfg, tokens, step_rt) == "expert_parallel"
-    keeps = [(rt.model_axis,) if ep and path[-2:-1] == ("moe",)
-             and path[-1] in moe.EXPERT_LEAVES and rt.model_axis in s
-             else () for path, s in zip(paths, spec_list)]
-    with torch.no_grad():
-        full = [sharding.gather(t, s, rt, keep).detach().requires_grad_()
-                for (_, t), s, keep in zip(_leaves(params), spec_list, keeps)]
+    batch, step_rt = _rows(batch, rt)
+    copies = (rt.axis_size((rt.model_axis,)) if step_rt.batch_split
+              else rt.n_devices)
+    full, spec_list, keeps = _gathered(cfg, params, rt, step_rt, tokens)
+    full = [t.detach().requires_grad_() for t in full]
     with torch.enable_grad():
         _, metrics = registry.loss_fn(cfg, _rebuild(params, iter(full)),
                                       batch, step_rt, window=window)
@@ -146,26 +226,87 @@ def sharded_loss_and_grads(cfg, params, batch, rt, *,
             _rebuild(params, iter(local)))
 
 
-def make_prefill_step(cfg, *, window: Optional[int] = None):
-    """Inference prefill: the full forward's last-position logits (B, V).
-    The port's forward has no ``last_only``: the whole sequence's logits are
-    computed and the last position taken."""
+def make_prefill_step(cfg, rt=None, *, window: Optional[int] = None):
+    """Inference prefill: ``prefill_step(params, batch) -> (B, V)``, the
+    forward's last-position logits (``last_only``: no (B, S, V) logits).
+    With ``rt`` on a mesh, each rank calls it on its parameter shards and
+    the global batch: every weight is gathered whole (expert-parallel MoE
+    layers keep their expert slices), the rank takes its rows
+    (``batch_spec``) and gets their logits; the MoE layers see ``rt``."""
+    sharded = rt is not None and rt.mesh is not None
 
     def prefill_step(params, batch):
         with torch.no_grad():
-            logits, _ = registry.forward(cfg, params, batch, window=window)
+            if not sharded:
+                logits, _ = registry.forward(cfg, params, batch,
+                                             window=window, last_only=True)
+                return logits[:, -1]
+            tokens = batch["tokens"].numel()
+            rows, step_rt = _rows(batch, rt)
+            full, _, _ = _gathered(cfg, params, rt, step_rt, tokens)
+            logits, _ = registry.forward(
+                cfg, _rebuild(params, iter(full)), rows, step_rt,
+                window=window, last_only=True)
         return logits[:, -1]
 
     return prefill_step
 
 
-def make_serve_step(cfg, *, window: int = 0):
+def make_serve_step(cfg, rt=None, *, window: int = 0, state_specs=None):
     """One-token greedy decode step: ``(params, state, tokens (B,)) ->
-    (next tokens (B,) int32, new state)``."""
+    (next tokens (B,) int32, new state)``; the cache is written in place.
+
+    With ``rt`` on a mesh, each rank calls it on its parameter shards, its
+    slices of the decode state and the global tokens; ``state_specs`` is
+    the state's spec tree (``sharding.decode_state_shardings`` of the
+    global state). Every weight is gathered whole; the rank takes its rows
+    of the tokens (``batch_spec``); each state leaf is gathered along its
+    splits but the data axes holding those rows, the step runs on the
+    rank's rows, and the new state is written back into the rank's slices.
+    The rank gets its rows' next tokens. The decode step's MoE runs dense;
+    where the JAX package's "auto" rule would pick expert-parallel (B
+    divisible by the rank count) the sharded step raises, so that the two
+    never differ silently."""
+    sharded = rt is not None and rt.mesh is not None
+    if sharded and state_specs is None:
+        raise ValueError("a sharded serve step needs state_specs "
+                         "(sharding.decode_state_shardings)")
 
     def serve_step(params, state, tokens):
-        logits, new_state = registry.decode_step(cfg, params, state, tokens,
-                                                 window=window)
+        if not sharded:
+            logits, new_state = registry.decode_step(
+                cfg, params, state, tokens, window=window)
+            return torch.argmax(logits, dim=-1).to(torch.int32), new_state
+        if cfg.is_moe and moe.resolve_impl(
+                cfg, tokens.numel(), rt) == "expert_parallel":
+            raise NotImplementedError(
+                "the sharded decode step's MoE runs dense; the 'auto' rule "
+                f"picks expert-parallel for {tokens.numel()} tokens on "
+                f"{rt.n_devices} ranks")
+        tspec = sharding.batch_spec(tuple(tokens.shape), rt.mesh)
+        keep = rt.data_axes if tspec[0] is not None else ()
+        rows = sharding.local_shard(tokens, tspec, rt)
+        full, _, _ = _gathered(cfg, params, rt, rt, tokens.numel())
+
+        def gather(t, spec):
+            if not isinstance(t, torch.Tensor):  # pos, a Python int
+                return t
+            return sharding.gather(t, spec, rt, keep)
+
+        def back(shard, out, spec):
+            if not isinstance(shard, torch.Tensor):
+                return out
+            if out is not shard:
+                shard.copy_(sharding.local_shard(out, spec, rt, keep))
+            return shard
+
+        with torch.no_grad():
+            mine = sharding.map_tree(gather, state, state_specs)
+            logits, new = registry.decode_step(
+                cfg, _rebuild(params, iter(full)), mine, rows,
+                window=window)
+            new_state = sharding.map_tree(back, state, new, state_specs)
         return torch.argmax(logits, dim=-1).to(torch.int32), new_state
 
     return serve_step
+

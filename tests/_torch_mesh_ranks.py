@@ -23,7 +23,7 @@ from repro_torch.launch import sharding
 from repro_torch.models import moe, registry
 from repro_torch.optim.optimizers import make_optimizer
 from repro_torch.train.steps import (loss_and_grads, make_train_step,
-                                     sharded_loss_and_grads)
+                                     sharded_loss_and_grads, zero1_specs)
 
 
 def flatten(tree, prefix=""):
@@ -226,7 +226,8 @@ def train_cases(rt, in_dir, cases):
             n_steps = int(z["n_steps"])
         for i in range(n_steps):
             params, specs = _shard(cfg, load_tree(path, f"p{i}/"), rt)
-            state = {k: sharding.local_tree(v, specs, rt)
+            z1 = zero1_specs(cfg, rt)  # the state in ZeRO-1 slices
+            state = {k: sharding.local_tree(v, z1, rt)
                      for k, v in load_tree(path, f"s{i}/").items()}
             _, _, nxt, m = step_fn(params, state, i, batch)
             assert nxt == i + 1

@@ -307,15 +307,28 @@ def test_kill_shard_racing_flush_does_not_deadlock():
               for _ in range(4)]
     router.submit_updates(frames[0])
     router.flush_updates()
-    router.shards[0]._pipe.faults = FaultPlan(ingest_sleep_s=0.25)
+    victim = router.shards[0]._pipe
+    victim.faults = FaultPlan(ingest_sleep_s=0.25)
     for f in frames[1:]:
         router.submit_updates(f)
-    assert router.shards[0]._pipe.flush(timeout=0.05) is False
+    assert victim.flush(timeout=0.05) is False
+    # the other slice's frames land first, so that the flusher waits on the
+    # victim's backlog alone (under load their ingest took seconds, which
+    # the join below would have charged to the kill)
+    assert router.shards[1]._pipe.flush(timeout=30.0)
+    reached = threading.Event()  # the flusher is at the victim's flush
+    flush = victim.flush
+
+    def flush_and_signal(timeout=None):
+        reached.set()
+        return flush(timeout)
+
+    victim.flush = flush_and_signal
     results = []
     flusher = threading.Thread(
         target=lambda: results.append(router.flush_updates(timeout=30.0)))
     flusher.start()
-    time.sleep(0.1)
+    assert reached.wait(timeout=30.0)
     router.kill_shard(0)  # kills the victim's pipe; must wake the flusher
     flusher.join(timeout=5.0)
     assert not flusher.is_alive(), "flush deadlocked behind kill_shard"

@@ -3,8 +3,8 @@
 * ``src/repro_torch``, ``chip_smoke.py`` and ``ingest_pacing.py`` import
   neither ``jax`` nor the JAX package ``repro`` (nor ``ml_dtypes``, which
   the card's machine lacks);
-* the port's ``FFMConfig`` and ``ModelConfig`` equal
-  ``repro.common.config``'s field for field;
+* the port's ``FFMConfig``, ``ModelConfig`` and ``InputShape`` (with its
+  four shapes) equal ``repro.common.config``'s field for field;
 * the card is the default: an entry point without ``device`` raises when
   CUDA is absent;
 * every kernel wrapper sends CPU tensors to its plain version and counts no
@@ -21,11 +21,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.common.config import INPUT_SHAPES as J_INPUT_SHAPES
 from repro.common.config import FFMConfig as JFFMConfig
+from repro.common.config import InputShape as JInputShape
 from repro.common.config import ModelConfig as JModelConfig
 from repro.configs import llama32_1b as j_llama
 from repro_torch.checkpoint import transfer as T
-from repro_torch.common.config import FFMConfig, ModelConfig
+from repro_torch.common.config import (INPUT_SHAPES, FFMConfig, InputShape,
+                                       ModelConfig)
 from repro_torch.configs import llama32_1b
 from repro_torch.common.device import resolve_device
 from repro_torch.core import deepffm
@@ -130,7 +133,16 @@ def test_port_file_list_is_complete():
                 "repro_torch/analysis/lock_witness.py",
                 "repro_torch/launch/topology.py",
                 "repro_torch/serving/faults.py",
-                "repro_torch/serving/shard_router.py"):
+                "repro_torch/serving/shard_router.py",
+                "repro_torch/launch/mesh.py",
+                "repro_torch/launch/sharding.py",
+                "repro_torch/common/runtime.py",
+                "repro_torch/launch/specs.py",
+                "repro_torch/launch/op_analysis.py",
+                "repro_torch/launch/roofline.py",
+                "repro_torch/launch/dryrun.py",
+                "repro_torch/launch/dryrun_lib.py",
+                "repro_torch/launch/dryrun_ffm.py"):
         assert mod in names
     sources = {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu")}
     assert sources == {"row_gather.cu", "ffm_interaction.cu",
@@ -148,6 +160,17 @@ def test_ffm_config_matches_reference(kw):
     assert dataclasses.asdict(FFMConfig(**kw)) == \
         dataclasses.asdict(JFFMConfig(**kw))
     assert FFMConfig(**kw).n_pairs == JFFMConfig(**kw).n_pairs
+
+
+@pytest.mark.parametrize("name", ["train_4k", "prefill_32k", "decode_32k",
+                                  "long_500k"])
+def test_input_shape_matches_reference(name):
+    ours = dataclasses.fields(InputShape)
+    theirs = dataclasses.fields(JInputShape)
+    assert [(f.name, f.type, f.default) for f in ours] == \
+        [(f.name, f.type, f.default) for f in theirs]
+    assert dataclasses.asdict(INPUT_SHAPES[name]) == \
+        dataclasses.asdict(J_INPUT_SHAPES[name])
 
 
 CONFIG_PAIRS = [(llama32_1b.config, j_llama.config),
