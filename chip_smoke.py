@@ -330,22 +330,27 @@ Phases, each of which raises on failure (nothing is caught):
      the unsharded phase's, the gather copies' bytes, the peak.
    - The dry run, last in the one-rank world: (a) the same full-width
      llama3.2-1b sharded step (ZeRO-1 state, 4 x 1024, bf16) under an
-     ``op_analysis.Counter``; (b) ``dryrun_lib.run_one`` at ``mesh_shape=
-     (1, 1)`` on the same shape in a subprocess (meta tensors, a fake
-     world): its FLOPs, collective bytes and kernel bookings must equal
-     (a)'s, and its bytes too or each differing op is printed; (c) the
-     step's measured time (median of ``DRYRUN_TIMED`` steps without the
-     counter) must be at least the report's ``step_time_bound`` (at H100
-     spec-sheet peaks): a card beating it would mean the count holds work
-     the card did not do. The bound's share of the time and the counted
-     peak beside ``max_memory_allocated`` are printed. (d) ``python -m
-     repro_torch.launch.dryrun --all`` and ``--all --multi-pod`` and
-     ``python -m repro_torch.launch.dryrun_ffm``, started as subprocesses
-     when phase 3 begins (they use the host's CPU only), must each exit 0
-     with every combination ``ok`` and only seamless at ``long_500k``
-     skipped; every summary line, each combination's peak per rank and
-     each command's seconds are printed.
+     ``op_analysis.Counter``; (b) ``dryrun_lib.measure`` (what
+     ``run_one`` reports) at ``mesh_shape=(1, 1)`` on the same shape in a
+     subprocess (meta tensors, a fake world), after the card's steps: its
+     FLOPs, collective bytes and kernel bookings must equal (a)'s, and its
+     bytes too or each differing op is printed; (c) the step's measured
+     time (median of ``DRYRUN_TIMED`` steps without the counter) must be
+     at least the report's ``step_time_bound`` (at H100 spec-sheet peaks):
+     a card beating it would mean the count holds work the card did not
+     do; and what the counted step added to ``max_memory_allocated`` over
+     ``memory_allocated`` just before it must be within
+     ``DRYRUN_PEAK_RTOL`` of the meta count's peak less its argument bytes
+     (the storages the step creates while they live). The bound's share of
+     the time is printed.
    Every kernel's launch counter must have risen during these runs.
+   (d) of the dry run comes after phase 4, when nothing is timed any more:
+   ``python -m repro_torch.launch.dryrun --all`` and ``--all --multi-pod``
+   and ``python -m repro_torch.launch.dryrun_ffm``, run together as
+   subprocesses (the host's CPU only), must each exit 0 with every
+   combination ``ok`` and only seamless at ``long_500k`` skipped; every
+   summary line, each combination's peak per rank and each command's
+   seconds are printed.
 4. Where the time goes: one more microbatch per engine (and per staged
    ``"ffm"`` twin) and on the N = 4 fleet, one training microbatch, 8
    Hogwild microbatches at 1 and at 4 threads, one LLM prefill and one
@@ -2087,8 +2092,6 @@ def main(argv=None) -> int:
                     main["shapes"].append(rec)
 
     # -- phase 3: the main paths -------------------------------------------
-    # the dry run's CPU-only commands run beside the phases on the card
-    dryruns = start_dryruns(args.tiny)
     main_launches = dict.fromkeys(_build.launches, 0)
     phase_launches = {}
 
@@ -2298,7 +2301,7 @@ def main(argv=None) -> int:
                     phase_launches, rt, unsharded)
     del unsharded
     dryrun_path(llm_cfg, DRYRUN_TINY if args.tiny else DRYRUN_FULL, args,
-                dev, on_card, smi, run_phase, phase_launches, rt, dryruns)
+                dev, on_card, smi, run_phase, phase_launches, rt)
     world.close()
 
     if on_card:
@@ -2338,6 +2341,8 @@ def main(argv=None) -> int:
             share_of=("flash_attention_kernel", "flash_attention_bwd_dq",
                       "flash_attention_bwd_dkdv"))
     fleet_close()
+    # the dry run's (d): CPU-only commands, after every timed phase
+    finish_dryruns(start_dryruns(args.tiny), 900.0)
     for rec in kernels:
         rec["launches"] = main_launches[rec["name"]]
 
@@ -4201,6 +4206,10 @@ def mesh_train_path(cfg, tr, args, dev, on_card, smi, run_phase,
 DRYRUN_FULL = {"batch": 4, "seq": 1024}
 DRYRUN_TINY = {"batch": 2, "seq": 16}
 DRYRUN_TIMED = 3
+# what the counted step adds to the allocator's peak against the meta
+# count's peak: the allocator rounds each block up to 512 bytes and holds
+# what the counter cannot see (cuBLAS workspaces made at a first call)
+DRYRUN_PEAK_RTOL = 0.02
 # the dry run's step in a subprocess (a fake world of one rank cannot open
 # beside this process's NCCL world): the report and the per-op counts
 DRYRUN_CHILD = """
@@ -4208,15 +4217,11 @@ import dataclasses, json, sys
 from repro_torch.common.config import InputShape
 from repro_torch.launch import dryrun_lib
 from repro_torch.models import registry
-arch, fields, smoke, out = json.loads(sys.argv[1])
-shape = InputShape(*fields)
-cfg = registry.get_config(arch, smoke=smoke)
-over = dataclasses.asdict(cfg) if smoke else None
-res = dryrun_lib.run_one(arch, shape, mesh_shape=(1, 1), out_dir=out,
-                         overrides=over)
-with dryrun_lib.fake_runtime(mesh_shape=(1, 1)) as rt:
-    fn, a, mine = dryrun_lib.build_step(cfg, shape, rt)
-    counter, _, _ = dryrun_lib.count_step(fn, a, mine)
+arch, fields, smoke = json.loads(sys.argv[1])
+over = (dataclasses.asdict(registry.get_config(arch, smoke=True)) if smoke
+        else None)
+res, counter = dryrun_lib.measure(arch, InputShape(*fields),
+                                  mesh_shape=(1, 1), overrides=over)
 print("DRYRUN" + json.dumps({"report": res, "totals": counter.totals(),
                              "ops": counter.ops, "kernels": counter.kernels},
                             default=str))
@@ -4233,10 +4238,10 @@ def _child_env():
 
 
 def start_dryruns(tiny: bool):
-    """Phase 3's dry-run commands (``launch/dryrun.py`` on both production
-    meshes, ``launch/dryrun_ffm.py``), started now as subprocesses writing
-    into a temporary directory: ``(label, process, log path, out dir)``
-    each. The CPU rehearsal runs one combination per mesh."""
+    """The dry run's commands (``launch/dryrun.py`` on both production
+    meshes, ``launch/dryrun_ffm.py``), started together as subprocesses
+    writing into a temporary directory: ``(label, process, log path, out
+    dir, start)`` each. The CPU rehearsal runs one combination per mesh."""
     import atexit
     import subprocess
     import tempfile
@@ -4319,16 +4324,15 @@ def finish_dryruns(dryruns, timeout_s: float):
 
 
 def dryrun_path(cfg, dr, args, dev, on_card, smi, run_phase, phase_launches,
-                rt, dryruns):
-    """Phase 3, the dry run (see the module's docstring, (a)-(d)), on the
+                rt):
+    """Phase 3, the dry run (see the module's docstring, (a)-(c)), on the
     one-rank world ``rt``: full-width llama3.2-1b (its smoke config in the
-    rehearsal)."""
+    rehearsal). The meta count runs in a subprocess after the card's
+    steps, so that nothing else loads the host while they are timed."""
     import subprocess
-    import tempfile
 
     import torch
 
-    from repro_torch.common.config import InputShape
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.launch import op_analysis, sharding
     from repro_torch.models import registry
@@ -4337,46 +4341,41 @@ def dryrun_path(cfg, dr, args, dev, on_card, smi, run_phase, phase_launches,
 
     b, s = dr["batch"], dr["seq"]
     fields = ("chip_smoke_train", s, b, "train")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_dr_") as out:
-        child = subprocess.Popen(
-            [sys.executable, "-c", DRYRUN_CHILD, json.dumps(
-                [cfg.arch_id, list(fields), bool(args.tiny), out])],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            env=_child_env())
-        try:
-            full = registry.init_params(cfg, args.seed, dev)
-            specs = sharding.param_shardings(cfg, registry.param_axes(cfg),
-                                             full, rt.mesh)
-            params = sharding.local_tree(full, specs, rt)
-            del full
-            opt = make_optimizer("adam", lr=1e-3)
-            state = steps.init_opt_state(cfg, opt, params, rt)
-            step_fn = steps.make_train_step(cfg, opt, rt)
-            batch = {k: torch.from_numpy(v).to(dev) for k, v in next(
-                lm_batches(cfg.vocab_size, b, s, 1, seed=args.seed)).items()}
-            label = f"dryrun {cfg.arch_id} 1x1 counted step B={b} S={s}"
-            step_fn(params, state, 0, batch)  # warm-up
-            if on_card:
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats(dev)
-            with op_analysis.Counter() as counter:
-                run_phase(label, lambda: step_fn(params, state, 1, batch))
-            card_peak = (torch.cuda.max_memory_allocated(dev) if on_card
-                         else None)
-            took = []
-            for i in range(DRYRUN_TIMED):
-                if on_card:
-                    torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                step_fn(params, state, 2 + i, batch)
-                if on_card:
-                    torch.cuda.synchronize()
-                took.append(time.perf_counter() - t0)
-            stdout, _ = child.communicate(timeout=600)
-        finally:
-            if child.poll() is None:
-                child.kill()
-                child.wait()
+    full = registry.init_params(cfg, args.seed, dev)
+    specs = sharding.param_shardings(cfg, registry.param_axes(cfg), full,
+                                     rt.mesh)
+    params = sharding.local_tree(full, specs, rt)
+    del full
+    opt = make_optimizer("adam", lr=1e-3)
+    state = steps.init_opt_state(cfg, opt, params, rt)
+    step_fn = steps.make_train_step(cfg, opt, rt)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(
+        lm_batches(cfg.vocab_size, b, s, 1, seed=args.seed)).items()}
+    label = f"dryrun {cfg.arch_id} 1x1 counted step B={b} S={s}"
+    step_fn(params, state, 0, batch)  # warm-up
+    if on_card:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    with op_analysis.Counter() as counter:
+        run_phase(label, lambda: step_fn(params, state, 1, batch))
+    step_peak = (torch.cuda.max_memory_allocated(dev) - before if on_card
+                 else None)
+    took = []
+    for i in range(DRYRUN_TIMED):
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(params, state, 2 + i, batch)
+        if on_card:
+            torch.cuda.synchronize()
+        took.append(time.perf_counter() - t0)
+    child = subprocess.run(
+        [sys.executable, "-c", DRYRUN_CHILD, json.dumps(
+            [cfg.arch_id, list(fields), bool(args.tiny)])],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=_child_env(), timeout=600)
+    stdout = child.stdout
     check(child.returncode == 0 and "DRYRUN" in stdout,
           f"the dry run's subprocess failed:\n{stdout[-4000:]}")
     meta = json.loads(stdout.split("DRYRUN", 1)[1])
@@ -4413,9 +4412,19 @@ def dryrun_path(cfg, dr, args, dev, on_card, smi, run_phase, phase_launches,
         check(ms >= bound_ms, f"dry run: the step took {ms:.3f} ms, under "
               f"its bound {bound_ms:.3f} ms: the count holds work the card "
               "did not do")
-    peak = rep["memory_per_device"]["peak_bytes"]
-    card = (f"{card_peak / 2**30:.2f} GiB" if card_peak is not None
-            else "not measured (no card)")
+    mem = rep["memory_per_device"]
+    counted = int(mem["peak_bytes"] - mem["argument_bytes"])
+    if on_card:
+        check(abs(step_peak - counted) <= DRYRUN_PEAK_RTOL * counted,
+              f"dry run: the counted step added {step_peak} bytes to the "
+              f"allocator's peak, the meta count's peak less its arguments "
+              f"is {counted} (rtol {DRYRUN_PEAK_RTOL})")
+        card = (f"{step_peak} B ({step_peak / 2**30:.2f} GiB; "
+                f"{100 * (step_peak / counted - 1):+.2f}%, rtol "
+                f"{DRYRUN_PEAK_RTOL}) over memory_allocated "
+                f"{before / 2**30:.2f} GiB just before it")
+    else:
+        card = "not measured (no card)"
     print(f"dry run {cfg.arch_id} 1x1 (B={b}, S={s}, ZeRO-1 Adam): counted "
           f"{got['flops']} FLOPs, {got['bytes']} bytes, collective "
           f"{got['total_bytes']} bytes (one-rank groups count 0), meta "
@@ -4427,13 +4436,14 @@ def dryrun_path(cfg, dr, args, dev, on_card, smi, run_phase, phase_launches,
           f"{', '.join(f'{1e3 * t:.3f}' for t in took)} ms (median "
           f"{ms:.3f}: the bound is {100 * bound_ms / ms:.1f}% of it); "
           f"useful {rep['useful_flops_ratio']:.4f}; counted peak "
-          f"{peak / 2**30:.2f} GiB against max_memory_allocated {card} | "
-          f"{smi}")
+          f"{mem['peak_bytes'] / 2**30:.2f} GiB = arguments "
+          f"{mem['argument_bytes'] / 2**30:.2f} + the step's storages "
+          f"{counted} B ({counted / 2**30:.2f} GiB), against the step's "
+          f"rise of max_memory_allocated {card} | {smi}")
     del params, state
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-    finish_dryruns(dryruns, 900.0)
 
 
 def spec_bytes(specs) -> int:

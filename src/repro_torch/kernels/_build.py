@@ -14,9 +14,16 @@ stream), allocates nothing, and returns ``cudaGetLastError()``;
 :func:`launch` raises on a non-zero code and counts the launch in
 :data:`launches` — the counters a run reads to show that its main path went
 through the kernels.
+
+:func:`booking` is where a wrapper books its kernel's work with an op
+counter (``launch/op_analysis.py``, which registers itself here: this
+layer imports nothing above it). With no counter open in the process it
+costs one integer test: the work is not computed and :func:`launch` checks
+nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -26,11 +33,9 @@ import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Callable, ContextManager, Dict, Optional, Tuple
 
 import torch
-
-from repro_torch.launch import op_analysis
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -89,6 +94,39 @@ launches: Dict[str, int] = dict.fromkeys(SIGNATURES, 0)
 # a count's read-modify-write is not atomic across threads (Hogwild's
 # workers, the update pipe's thread and the scorers launch concurrently)
 _count_lock = threading.Lock()
+
+# op counters open in the process, and the two hooks the counter registers
+# (``launch/op_analysis.py``): ``_book(name, flops, nbytes)``, a context
+# booking one call with the counters active on this thread, and
+# ``_check_launch(name)``, raising on a launch outside a booking
+_open_counters = 0
+_book: Optional[Callable[[str, int, int], ContextManager]] = None
+_check_launch: Optional[Callable[[str], None]] = None
+_NO_BOOKING = contextlib.nullcontext()
+
+
+def register_counter(book, check_launch) -> None:
+    """Install the op counter's hooks (see :func:`booking`)."""
+    global _book, _check_launch
+    _book, _check_launch = book, check_launch
+
+
+def counter_opened(delta: int) -> None:
+    """An op counter was entered (+1) or left (-1)."""
+    global _open_counters
+    with _count_lock:
+        _open_counters += delta
+
+
+def booking(name: str, work: Callable[[], Tuple[int, int]]
+            ) -> ContextManager:
+    """A context that books one call of kernel ``name`` with every op
+    counter active on this thread: ``work()`` gives its (operations,
+    bytes), and is called only while a counter is open; the ops dispatched
+    in the body are not counted. With no counter open, nothing."""
+    if not _open_counters:
+        return _NO_BOOKING
+    return _book(name, *work())
 
 
 @dataclass
@@ -181,8 +219,9 @@ def load() -> Library:
 def launch(name: str, *args) -> None:
     """Call C entry point ``name`` on PyTorch's current stream (appended as
     the last argument); raise on a CUDA error, else count the launch. Under
-    an op counter the call must be booked (``op_analysis.check_launch``)."""
-    op_analysis.check_launch(name)
+    an open op counter the call must be booked (:func:`booking`)."""
+    if _open_counters:
+        _check_launch(name)
     lib = load().lib
     err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:

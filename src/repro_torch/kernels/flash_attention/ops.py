@@ -22,7 +22,8 @@ dim 192, v dim 128), and is taken at its own width, never padded.
 
 Every call books its kernels' work (:func:`k11_work`, :func:`k13_work`,
 :func:`k12_work`: the bound formulas of PERF.md §6) with an op counter
-(``launch/op_analysis.py``) on every device; a meta tensor gets its
+(``launch/op_analysis.py``) through ``_build.booking`` on every device;
+the work is computed only while a counter is open. A meta tensor gets its
 outputs allocated and nothing else (the dry run), before the CPU / CUDA
 branches, and moves no launch count.
 """
@@ -32,7 +33,6 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.launch import op_analysis
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                       flash_attention_ref)
 
@@ -104,14 +104,40 @@ def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return body
 
 
+def _clipped_sum(a: int, c: int, r0: int, r1: int) -> int:
+    """The sum of max(0, a + c r) over r in [r0, r1), c in {-1, 0, 1}."""
+    if c == 1:
+        r0 = max(r0, 1 - a)
+    elif c == -1:
+        r1 = min(r1, a)
+    elif a <= 0:
+        return 0
+    if r1 <= r0:
+        return 0
+    n = r1 - r0
+    return n * a + c * (r0 + r1 - 1) * n // 2
+
+
 def attention_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
     """The (row, column) pairs attention's mask keeps: the causal mask
     aligned at position 0 (column <= row), ``window`` > 0 keeping columns
-    past row - window."""
-    r = np.arange(sq, dtype=np.int64)
-    hi = np.minimum(r, sk - 1) if causal else np.full(sq, sk - 1)
-    lo = np.maximum(0, r - window + 1) if window > 0 else np.zeros(sq)
-    return int(np.maximum(0, hi - lo + 1).sum())
+    past row - window. Closed form: each row keeps hi - lo + 1 columns
+    (hi = min(row, Sk - 1) or Sk - 1, lo = max(0, row - window + 1) or 0),
+    linear in the row between the points where hi or lo change form."""
+    cuts = {0, sq}
+    if causal:
+        cuts.add(min(max(sk, 0), sq))
+    if window > 0:
+        cuts.add(min(window, sq))
+    cuts = sorted(cuts)
+    total = 0
+    for r0, r1 in zip(cuts, cuts[1:]):
+        # hi - lo + 1 = a + c r on [r0, r1)
+        a, c = (0, 1) if causal and r0 < sk else (sk - 1, 0)
+        if window > 0 and r0 >= window:
+            a, c = a + window - 1, c - 1
+        total += _clipped_sum(a + 1, c, r0, r1)
+    return total
 
 
 def _dims(q_shape, k_shape, v_shape):
@@ -167,9 +193,9 @@ def _k11(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     alone on meta ones: the output, and with ``with_lse`` also the (B, H,
     Sq) f32 log-sum-exp. The work is booked (:func:`k11_work`)."""
     body = _check_args(q, k, v, window)
-    flops, nbytes = k11_work(q.shape, k.shape, v.shape, q.element_size(),
-                             causal, window, with_lse)
-    with op_analysis.kernel("flash_attention", flops, nbytes):
+    with _build.booking("flash_attention", lambda: k11_work(
+            q.shape, k.shape, v.shape, q.element_size(), causal, window,
+            with_lse)):
         return _k11_call(q, k, v, causal, window, with_lse, body)
 
 
@@ -255,9 +281,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q on {q.device}, o on {o.device}, do on "
                          f"{do.device}, lse on {lse.device}")
     esz = q.element_size()
-    with op_analysis.kernel("flash_attention_bwd_dq", *k13_work(
+    with _build.booking("flash_attention_bwd_dq", lambda: k13_work(
             q.shape, k.shape, v.shape, esz, causal, window)), \
-            op_analysis.kernel("flash_attention_bwd_dkdv", *k12_work(
+            _build.booking("flash_attention_bwd_dkdv", lambda: k12_work(
                 q.shape, k.shape, v.shape, esz, causal, window)):
         return _bwd_call(q, k, v, o, lse, do, causal, window, body)
 

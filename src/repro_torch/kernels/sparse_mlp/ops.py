@@ -6,7 +6,8 @@ gets the plain version (``ref.py``); a CUDA tensor gets K10 in
 ``csrc/sparse_mlp.cu`` or an exception. Unlike the Pallas wrapper nothing is
 padded and no block size is chosen here: the kernel masks ragged tiles and
 fixes its own tiling. Every call books its work (:func:`k10_work`) with an
-op counter (``launch/op_analysis.py``); a meta tensor gets its output
+op counter (``launch/op_analysis.py``) through ``_build.booking``, which
+computes it only while a counter is open; a meta tensor gets its output
 allocated and nothing else (the dry run).
 """
 from __future__ import annotations
@@ -14,7 +15,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.launch import op_analysis
 from repro_torch.kernels.sparse_mlp.ref import sparse_weight_grad_ref
 
 
@@ -28,8 +28,8 @@ def sparse_weight_grad(x: torch.Tensor, g_masked: torch.Tensor
                          f"{tuple(x.shape)} and {tuple(g_masked.shape)}")
     if x.device != g_masked.device:
         raise ValueError(f"x on {x.device}, g_masked on {g_masked.device}")
-    with op_analysis.kernel("sparse_weight_grad",
-                            *k10_work(x.shape, g_masked.shape)):
+    with _build.booking("sparse_weight_grad",
+                        lambda: k10_work(x.shape, g_masked.shape)):
         return _call(x, g_masked)
 
 

@@ -171,7 +171,7 @@ def run_ffm(kind: str = "serve", batch: int = 65536, *,
             make_step(cfg, kind, rt, replicate=replicate), (params, b),
             (params, mine))
         mesh_name, n_ranks = dryrun_lib.mesh_label(rt), rt.n_devices
-        where = dryrun_lib.tag_of(rt, multi_pod, mesh_shape)
+        where = dryrun_lib.tag_of(mesh_name, multi_pod, mesh_shape)
     report = roofline.build_report(
         arch="deepffm-ctr", shape=f"{kind}_{batch}", mesh_name=mesh_name,
         chips=n_ranks, counter=counter, model_flops=0.0, dtype=cfg.dtype,

@@ -56,8 +56,7 @@ def _storage_bytes(tree) -> int:
     return sum(st.nbytes() for st in seen)
 
 
-def build_step(cfg: ModelConfig, shape: InputShape, rt, *,
-               optimizer_name: str = "adam"):
+def build_step(cfg: ModelConfig, shape: InputShape, rt):
     """The rank's step on the meta device: ``(fn, args, mine)`` with
     ``fn(*args)`` the step (``make_train_step`` / ``make_prefill_step`` /
     ``make_serve_step`` under ``rt``), ``args`` the rank's meta shards of
@@ -70,7 +69,7 @@ def build_step(cfg: ModelConfig, shape: InputShape, rt, *,
     window = specs.effective_window(cfg, shape)
 
     if shape.kind == "train":
-        opt = make_optimizer(optimizer_name)
+        opt = make_optimizer("adam")
         state = steps.init_opt_state(cfg, opt, params, rt)
         batch = specs.batch_specs(cfg, shape)
         fn = steps.make_train_step(cfg, opt, rt, window=window)
@@ -123,44 +122,41 @@ def fake_runtime(multi_pod: bool = False,
         yield mesh_lib.make_runtime(mesh)
 
 
-def tag_of(rt, multi_pod: bool, mesh_shape) -> str:
+def tag_of(mesh_name: str, multi_pod: bool, mesh_shape) -> str:
     """The report file's mesh tag: JAX's "1pod" / "2pod", or the mesh's
-    name for a mesh of its own."""
+    name (:func:`mesh_label`) for a mesh of its own."""
     if mesh_shape is None:
         return "2pod" if multi_pod else "1pod"
-    return mesh_label(rt)
+    return mesh_name
 
 
-def run_one(arch: str, shape_name: Union[str, InputShape], *,
-            multi_pod: bool = False, out_dir: str = "experiments/dryrun_torch",
-            optimizer_name: str = "adam",
+def measure(arch: str, shape: Union[str, InputShape], *,
+            multi_pod: bool = False,
             overrides: Optional[Dict[str, Any]] = None,
-            tag_suffix: str = "",
-            mesh_shape: Optional[Tuple[int, ...]] = None) -> Dict[str, Any]:
-    """Count rank 0's step of ``arch`` at ``shape_name`` (a name of
+            mesh_shape: Optional[Tuple[int, ...]] = None
+            ) -> Tuple[Dict[str, Any], Optional[op_analysis.Counter]]:
+    """Count rank 0's step of ``arch`` at ``shape`` (a name of
     ``INPUT_SHAPES`` or an ``InputShape``) on the production mesh (16 x 16,
     or 2 x 16 x 16 with ``multi_pod``) or on ``mesh_shape`` ((n_data,
     n_model) or (n_pod, n_data, n_model)), in a fake world of as many ranks
-    opened here; write the report as JSON under ``out_dir`` and return it
-    (JAX's keys, with ``counted_flops`` / ``counted_bytes``, ``t_trace_s``
-    for the lower and compile times, ``n_ops`` for the HLO text's length,
-    and ``dtype``)."""
+    opened here: ``(report, counter)``, the report with JAX's keys (with
+    ``counted_flops`` / ``counted_bytes``, ``t_trace_s`` for the lower and
+    compile times, ``n_ops`` for the HLO text's length, and ``dtype``) and
+    the counter its totals came from (per op and per booked kernel); the
+    counter is None for a skipped combination."""
     cfg = registry.get_config(arch)
     if overrides:
         cfg = cfg.replace(**overrides)
-    shape = (shape_name if isinstance(shape_name, InputShape)
-             else INPUT_SHAPES[shape_name])
+    shape = shape if isinstance(shape, InputShape) else INPUT_SHAPES[shape]
     ok, why = specs.shape_supported(cfg, shape)
     if not ok:
         return {"arch": arch, "shape": shape.name, "status": "skipped",
-                "reason": why}
+                "reason": why}, None
 
     with fake_runtime(multi_pod, mesh_shape) as rt:
-        fn, args, mine = build_step(cfg, shape, rt,
-                                    optimizer_name=optimizer_name)
+        fn, args, mine = build_step(cfg, shape, rt)
         counter, memory, t_trace = count_step(fn, args, mine)
         mesh_name, n_ranks = mesh_label(rt), rt.n_devices
-        where = tag_of(rt, multi_pod, mesh_shape)
 
     n_tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
                                      else 1)
@@ -176,9 +172,23 @@ def run_one(arch: str, shape_name: Union[str, InputShape], *,
             active_only=True),
         n_ops=counter.n_ops,
     )
+    return result, counter
 
+
+def run_one(arch: str, shape_name: Union[str, InputShape], *,
+            multi_pod: bool = False, out_dir: str = "experiments/dryrun_torch",
+            overrides: Optional[Dict[str, Any]] = None,
+            mesh_shape: Optional[Tuple[int, ...]] = None) -> Dict[str, Any]:
+    """:func:`measure`'s report, also written as JSON under ``out_dir``
+    (``<arch>_<shape>_<mesh tag>.json``: JAX's "1pod" / "2pod", or the
+    mesh's name for a mesh of its own)."""
+    result, _ = measure(arch, shape_name, multi_pod=multi_pod,
+                        overrides=overrides, mesh_shape=mesh_shape)
+    if result["status"] != "ok":
+        return result
     os.makedirs(out_dir, exist_ok=True)
-    tag = f"{arch}_{shape.name}_{where}{tag_suffix}"
+    tag = (f"{arch}_{result['shape']}_"
+           f"{tag_of(result['mesh'], multi_pod, mesh_shape)}")
     with open(os.path.join(out_dir, tag + ".json"), "w") as f:
         json.dump(result, f, indent=1, default=str)
     return result

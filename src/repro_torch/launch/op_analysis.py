@@ -25,7 +25,9 @@ this rank:
 * **Peak live bytes**: each storage an op creates, from its creation until
   it is freed, on top of what existed before the counter started.
 
-A hand kernel's cost is booked by its wrapper inside :func:`kernel`: the
+A hand kernel's cost is booked by its wrapper inside
+``kernels/_build.booking``, which calls :func:`kernel` here while a counter
+is open (the module registers its hooks with ``_build`` on import): the
 counter adds the booked FLOPs and bytes and ignores the ops dispatched in
 the body (the plain version on CPU tensors, the output allocation on
 meta ones). A launch through ``kernels/_build.launch`` while a counter is
@@ -50,6 +52,8 @@ from torch.utils._python_dispatch import (TorchDispatchMode,
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 from torch.utils.weak import WeakIdKeyDictionary
+
+from repro_torch.kernels import _build
 
 aten = torch.ops.aten
 
@@ -119,6 +123,20 @@ class Counter(TorchDispatchMode):
         self.peak_bytes = 0
         self._booking = 0
         self._storages = WeakIdKeyDictionary()
+
+    def __enter__(self):
+        _build.counter_opened(+1)
+        try:
+            return super().__enter__()
+        except BaseException:
+            _build.counter_opened(-1)
+            raise
+
+    def __exit__(self, *exc):
+        try:
+            return super().__exit__(*exc)
+        finally:
+            _build.counter_opened(-1)
 
     @property
     def collective_bytes(self) -> int:
@@ -243,4 +261,7 @@ def check_launch(name: str) -> None:
     for c in _active():
         if not c._booking:
             raise RuntimeError(f"kernel {name} launched under an op counter "
-                               "without a booking (op_analysis.kernel)")
+                               "without a booking (_build.booking)")
+
+
+_build.register_counter(kernel, check_launch)

@@ -70,14 +70,6 @@ def _param_specs(cfg, rt):
                                     registry.param_specs(cfg), rt.mesh)
 
 
-def _leaf_specs(cfg, params, rt):
-    """The paths of ``params``' leaves and each leaf's ``param_shardings``
-    spec, in :func:`_leaves`' order."""
-    specs = _param_specs(cfg, rt)
-    paths = [path for path, _ in _leaves(params)]
-    return paths, [_at(specs, path) for path in paths]
-
-
 def zero1_specs(cfg, rt):
     """The optimizer state's spec tree (each leaf's ``zero1_shardings``
     spec), for ``sharding.gather_tree`` / ``local_tree`` of a state."""
@@ -85,14 +77,34 @@ def zero1_specs(cfg, rt):
                                     registry.param_specs(cfg), rt.mesh)
 
 
-def _zero1_extra(cfg, params, rt):
-    """Per leaf, the spec of the rank's ZeRO-1 slice within its parameter
-    shard: the data axes ``zero1_shardings`` adds, on the dim it adds them
-    to (a dim the parameter spec leaves whole), and None elsewhere."""
-    specs, z1 = _param_specs(cfg, rt), zero1_specs(cfg, rt)
-    return [tuple(z if p is None else None
-                  for p, z in zip(_at(specs, path), _at(z1, path)))
-            for path, _ in _leaves(params)]
+class _Layout:
+    """What the sharded steps read of ``(cfg, rt)`` alone, computed once by
+    their factories, per parameter leaf by its path (a tree of parameters
+    may hold its leaves in another order than ``registry.param_specs``):
+    ``specs``, its ``param_shardings`` spec; ``zero1``, the spec of the
+    rank's ZeRO-1 slice within its parameter shard (the data axes
+    ``zero1_shardings`` adds, on the dim it adds them to, a dim the
+    parameter spec leaves whole; None elsewhere); ``keeps(ep)``, the axes a
+    gather leaves split: the model axis for an expert leaf of an
+    expert-parallel MoE layer, as the JAX package's ``shard_map`` keeps
+    it."""
+
+    def __init__(self, cfg, rt):
+        tree = _param_specs(cfg, rt)
+        z1 = sharding.zero1_shardings(tree, registry.param_specs(cfg),
+                                      rt.mesh)
+        self.specs = dict(_leaves(tree))
+        self.zero1 = {path: tuple(z if p is None else None
+                                  for p, z in zip(s, _at(z1, path)))
+                      for path, s in self.specs.items()}
+        self._ep_keeps = {
+            path: (rt.model_axis,) if path[-2:-1] == ("moe",)
+            and path[-1] in moe.EXPERT_LEAVES and rt.model_axis in s
+            else () for path, s in self.specs.items()}
+        self._no_keeps = dict.fromkeys(self.specs, ())
+
+    def keeps(self, ep: bool):
+        return self._ep_keeps if ep else self._no_keeps
 
 
 def init_opt_state(cfg, optimizer: Optimizer, params, rt=None):
@@ -101,10 +113,10 @@ def init_opt_state(cfg, optimizer: Optimizer, params, rt=None):
     rank's parameter shards (``params``)."""
     if rt is None or rt.mesh is None:
         return optimizer.init(params)
-    extra = _zero1_extra(cfg, params, rt)
+    zero1 = _Layout(cfg, rt).zero1
     return optimizer.init(_rebuild(params, iter(
-        sharding.local_shard(t, ex, rt)
-        for (_, t), ex in zip(_leaves(params), extra))))
+        sharding.local_shard(t, zero1[path], rt)
+        for path, t in _leaves(params))))
 
 
 def make_train_step(cfg, optimizer: Optimizer, rt=None, *,
@@ -124,23 +136,24 @@ def make_train_step(cfg, optimizer: Optimizer, rt=None, *,
     the parameters equal those of the optimizer run on whole shards bit for
     bit."""
     sharded = rt is not None and rt.mesh is not None
+    layout = _Layout(cfg, rt) if sharded else None
 
     def train_step(params, opt_state, step: int, batch):
         if sharded:
             loss, metrics, grads = sharded_loss_and_grads(
-                cfg, params, batch, rt, window=window)
-            extra = _zero1_extra(cfg, params, rt)
+                cfg, params, batch, rt, window=window, layout=layout)
+            extra = layout.zero1
 
             def sliced(tree):
                 return _rebuild(tree, iter(
-                    sharding.local_shard(t, ex, rt)
-                    for (_, t), ex in zip(_leaves(tree), extra)))
+                    sharding.local_shard(t, extra[path], rt)
+                    for path, t in _leaves(tree)))
 
             new_slices, new_opt = optimizer.update(
                 sliced(grads), opt_state, sliced(params), step)
             new_params = _rebuild(params, iter(
-                sharding.gather(t, ex, rt)
-                for (_, t), ex in zip(_leaves(new_slices), extra)))
+                sharding.gather(t, extra[path], rt)
+                for path, t in _leaves(new_slices)))
         else:
             loss, metrics, grads = loss_and_grads(cfg, params, batch,
                                                   window=window)
@@ -162,26 +175,26 @@ def _rows(batch, rt):
     return rows, dataclasses.replace(rt, batch_split=split)
 
 
-def _gathered(cfg, params, rt, step_rt, tokens: int):
+def _gathered(cfg, params, rt, step_rt, tokens: int, layout: _Layout):
     """Every leaf of the rank's shards gathered whole (``sharding.gather``;
     a collective), except that expert-parallel MoE layers keep their
     expert leaves' model-axis slices, as the JAX package's ``shard_map``
     does. Returns ``(full leaves, specs, keeps)`` in :func:`_leaves`'
     order."""
-    paths, spec_list = _leaf_specs(cfg, params, rt)
-    ep = cfg.is_moe and moe.resolve_impl(
-        cfg, tokens, step_rt) == "expert_parallel"
-    keeps = [(rt.model_axis,) if ep and path[-2:-1] == ("moe",)
-             and path[-1] in moe.EXPERT_LEAVES and rt.model_axis in s
-             else () for path, s in zip(paths, spec_list)]
+    keep_of = layout.keeps(cfg.is_moe and moe.resolve_impl(
+        cfg, tokens, step_rt) == "expert_parallel")
+    leaves = list(_leaves(params))
+    spec_list = [layout.specs[path] for path, _ in leaves]
+    keeps = [keep_of[path] for path, _ in leaves]
     with torch.no_grad():
         full = [sharding.gather(t, s, rt, keep)
-                for (_, t), s, keep in zip(_leaves(params), spec_list, keeps)]
+                for (_, t), s, keep in zip(leaves, spec_list, keeps)]
     return full, spec_list, keeps
 
 
 def sharded_loss_and_grads(cfg, params, batch, rt, *,
-                           window: Optional[int] = None):
+                           window: Optional[int] = None,
+                           layout: Optional[_Layout] = None):
     """:func:`loss_and_grads` on every rank of ``rt``'s mesh, called alike
     by all: ``(loss, {"ce", "aux"}, grads)``, the global loss and metrics on
     every rank and ``grads`` this rank's shard of each leaf's global
@@ -199,12 +212,15 @@ def sharded_loss_and_grads(cfg, params, batch, rt, *,
     hold the same rows, plus the (global) aux term divided by the rank
     count. Summing each leaf's gradient over the ranks that used it whole
     (every rank; the data axes for expert slices) gives the global
-    gradient, of which the rank keeps its shard."""
+    gradient, of which the rank keeps its shard. ``layout``: the specs
+    :func:`make_train_step` computed once (computed here if not given)."""
     tokens = batch["tokens"].numel()
     batch, step_rt = _rows(batch, rt)
     copies = (rt.axis_size((rt.model_axis,)) if step_rt.batch_split
               else rt.n_devices)
-    full, spec_list, keeps = _gathered(cfg, params, rt, step_rt, tokens)
+    layout = layout or _Layout(cfg, rt)
+    full, spec_list, keeps = _gathered(cfg, params, rt, step_rt, tokens,
+                                       layout)
     full = [t.detach().requires_grad_() for t in full]
     with torch.enable_grad():
         _, metrics = registry.loss_fn(cfg, _rebuild(params, iter(full)),
@@ -234,6 +250,7 @@ def make_prefill_step(cfg, rt=None, *, window: Optional[int] = None):
     layers keep their expert slices), the rank takes its rows
     (``batch_spec``) and gets their logits; the MoE layers see ``rt``."""
     sharded = rt is not None and rt.mesh is not None
+    layout = _Layout(cfg, rt) if sharded else None
 
     def prefill_step(params, batch):
         with torch.no_grad():
@@ -243,7 +260,8 @@ def make_prefill_step(cfg, rt=None, *, window: Optional[int] = None):
                 return logits[:, -1]
             tokens = batch["tokens"].numel()
             rows, step_rt = _rows(batch, rt)
-            full, _, _ = _gathered(cfg, params, rt, step_rt, tokens)
+            full, _, _ = _gathered(cfg, params, rt, step_rt, tokens,
+                                   layout)
             logits, _ = registry.forward(
                 cfg, _rebuild(params, iter(full)), rows, step_rt,
                 window=window, last_only=True)
@@ -271,6 +289,7 @@ def make_serve_step(cfg, rt=None, *, window: int = 0, state_specs=None):
     if sharded and state_specs is None:
         raise ValueError("a sharded serve step needs state_specs "
                          "(sharding.decode_state_shardings)")
+    layout = _Layout(cfg, rt) if sharded else None
 
     def serve_step(params, state, tokens):
         if not sharded:
@@ -286,7 +305,7 @@ def make_serve_step(cfg, rt=None, *, window: int = 0, state_specs=None):
         tspec = sharding.batch_spec(tuple(tokens.shape), rt.mesh)
         keep = rt.data_axes if tspec[0] is not None else ()
         rows = sharding.local_shard(tokens, tspec, rt)
-        full, _, _ = _gathered(cfg, params, rt, rt, tokens.numel())
+        full, _, _ = _gathered(cfg, params, rt, rt, tokens.numel(), layout)
 
         def gather(t, spec):
             if not isinstance(t, torch.Tensor):  # pos, a Python int

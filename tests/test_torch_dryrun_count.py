@@ -12,7 +12,9 @@ bookings, on the CPU.
   group of one rank at nothing.
 * K11, K13, K12 and K10 book the work of their bound formulas on meta and
   CPU tensors alike, the ops of their bodies uncounted; a launch under a
-  counter outside a booking raises; meta calls move no launch count.
+  counter outside a booking raises; meta calls move no launch count; with
+  no counter open a booking computes no work. The closed form of
+  ``attention_pairs`` equals a count over the mask's rows.
 * The dry run's steps (``dryrun_lib.build_step``: ZeRO-1 train, prefill,
   decode) of llama3.2-1b's smoke config on a fake 2 x 2 world, on the meta
   device, count exactly what rank 0 of a gloo 2 x 2 world counts running
@@ -22,6 +24,7 @@ bookings, on the CPU.
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
@@ -144,6 +147,47 @@ def test_attention_pairs_and_work_formulas():
     assert fa_ops.k12_work(q, k, k, 2, True)[0] == 2 * 64 * 2 * 8 * 10
     assert sk_ops.k10_work((512, 277), (512, 64)) == (
         2 * 512 * 277 * 64, 4 * (512 * 277 + 512 * 64 + 277 * 64))
+
+
+def _pairs_by_rows(sq, sk, causal, window):
+    """The mask's kept (row, column) pairs counted row by row."""
+    r = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(r, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(0, r - window + 1) if window > 0 else np.zeros(sq)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 3),
+                                           (False, 3), (True, 17)])
+def test_attention_pairs_closed_form_matches_the_mask(causal, window):
+    for sq in range(0, 21):
+        for sk in range(0, 21):
+            assert fa_ops.attention_pairs(sq, sk, causal, window) == \
+                _pairs_by_rows(sq, sk, causal, window), (sq, sk)
+    for sq, sk in ((4096, 4096), (1, 32768), (32768, 1024), (1000, 300)):
+        assert fa_ops.attention_pairs(sq, sk, causal, window) == \
+            _pairs_by_rows(sq, sk, causal, window), (sq, sk)
+
+
+def test_booking_computes_no_work_without_a_counter():
+    calls = []
+
+    def work():
+        calls.append(1)
+        return 3, 5
+
+    with _build.booking("flash_attention", work):
+        pass
+    assert calls == [] and _build._open_counters == 0
+    with Counter() as c:
+        assert _build._open_counters == 1
+        with _build.booking("flash_attention", work):
+            pass
+    assert calls == [1] and c.kernels["flash_attention"] == [1, 3, 5]
+    with pytest.raises(ValueError):
+        with Counter():
+            raise ValueError("left through an exception")
+    assert _build._open_counters == 0
 
 
 @pytest.mark.parametrize("device", DEVICES)

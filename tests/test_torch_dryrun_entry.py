@@ -9,9 +9,11 @@
   ``model_flops``, ``params`` and ``params_active`` equal JAX's
   ``counting`` values. ``model_flops`` equals JAX's for every arch id x
   input shape.
-* ``run_one`` on a 1 x 1 fake world with an ``InputShape`` of its own (what
-  ``chip_smoke.py``'s dry-run phase does): no collective bytes, K11 / K13
-  / K12 booked once per layer.
+* ``run_one`` on a 1 x 1 fake world with an ``InputShape`` of its own:
+  no collective bytes, its report written; ``measure`` (what
+  ``chip_smoke.py``'s dry-run phase calls) returns the counter its report
+  was built from, K11 booked once per layer, and no counter for a
+  skipped combination.
 * ``run_ffm`` serve, sharded and replicated, at a 2 x 2 fake mesh: the
   sharded lookup moves bytes over "model", the replicated one none.
 * The FFM dry run's sharded lookup on a 2 x 2 gloo world (rank body in
@@ -125,6 +127,19 @@ def test_run_one_on_a_1x1_world_with_its_own_shape(tmp_path):
     assert (tmp_path / "llama3.2-1b_chip_train_1datax1model.json").exists()
     line = dryrun_lib.summarize(res)
     assert "chip_train" in line and "trace=" in line
+
+
+def test_measure_returns_the_counter_of_its_report():
+    shape = InputShape("chip_train", 64, 2, "train")
+    over = dataclasses.asdict(registry.get_config("llama3.2-1b", smoke=True))
+    res, counter = dryrun_lib.measure("llama3.2-1b", shape, mesh_shape=(1, 1),
+                                      overrides=over)
+    assert res["status"] == "ok"
+    assert (res["counted_flops"], res["counted_bytes"]) == (
+        counter.flops, counter.bytes) and res["n_ops"] == counter.n_ops
+    assert counter.kernels["flash_attention"][0] == over["n_layers"]
+    res, counter = dryrun_lib.measure("seamless-m4t-large-v2", "long_500k")
+    assert res["status"] == "skipped" and counter is None
 
 
 def test_run_ffm_serve_sharded_and_replicated(tmp_path):
