@@ -224,7 +224,8 @@ Phases, each of which raises on failure (nothing is caught):
      the §4.3 backward and through autograd (cuBLAS) agree within 1e-4 of
      the gradient's largest magnitude. Per round it prints examples/s, the
      step / ``make_update`` split, mean loss, progressive AUC, skip stats,
-     touched rows and frame bytes.
+     touched rows and frame bytes, and the fetch-stall fraction of the
+     round's batches fed through a ``Prefetcher`` (``PrefetchStats``).
    - DCNv2 (paper §2.2) at ``FFMConfig()``'s width (F = 24, V = 2^18, 8
      wide embeddings, 3 cross layers, MLP (64, 32)), stock torch: its
      forward on the card within 1e-5 of the CPU's on the same weights,
@@ -241,6 +242,34 @@ Phases, each of which raises on failure (nothing is caught):
      staged DeepFFM engines on the main path's weights at ``parallel`` = 1,
      2 and 4 (spans prepared on ``ScoringPool`` threads) answer the
      microbatches, bit-identical for every worker count.
+   - host pre-gather, at ``FFMConfig()`` and the (8, 64) buckets: the
+     auto policy (``host_gather=None``, ``fused=None``) must pick the
+     device gather and the staged path on the card. Four
+     ``host_gather=True`` engines (int8 and f32 staged DeepFFM, int8 and
+     f32 fused ``"ffm"``) against their device-gather twins on the same
+     weights and microbatches: every uploaded block (codes or rows, and
+     the grids on real slots) equals the twin's device gather byte for
+     byte; scores within rtol 1e-6, atol 1e-7 (JAX's host vs in-trace
+     contract) and bit for bit (the LR terms are summed on the device by
+     the twin's reduction); launches equal the
+     twin's, K2 / K3 / K5 / K6 once per microbatch; no op of the host
+     engine's deployed forward reads a gather table (the twin's do). p50
+     and p99 per microbatch beside the twin's over ``HOST_TIMED_PASSES``
+     bare passes (nothing of the measuring code in them), with the host
+     gather + upload's share (timed in one pass before them) and the
+     upload's alone. Spans
+     at ``parallel`` 1 / 2 / 4 bit-identical (int8, f32, int8-fused, host
+     gathers into the pool's pinned buffers). A hot swap: an int8 host
+     engine takes a full frame, then a delta (1% of rows, the bias + 1)
+     through ``submit_update`` while scoring, the publish held until one
+     pass was scored: the host mirror is built once per publish (its ms
+     printed), every batch scored meanwhile matches one generation (the
+     new one: a device-gather engine fed the same frames), both seen.
+     Then ``serving_roofline`` on all eight engines at (8, 64): device
+     and host bytes and operations a prediction, the device copy's
+     bandwidth (below the sheet's 3.35 TB/s) and the host's, the bound
+     and its fraction (each <= 1.05); the card's count of each forward
+     equals the CPU count of the same forward.
    - fleet: an entry's partial terms (int8 and f32) bit-equal at buckets 8
      and 64; ``ShardRouter`` at N = 1, 2 and 4 shards (M = 2 replicas at 2
      and 4), int8 and f32, on the main path's weights, answers the
@@ -1132,7 +1161,7 @@ def main(argv=None) -> int:
         "src/repro/kernels/row_gather/row_gather.py:40",
         lambda: rg_ops.gather_dequant_rows_q8(*tbl, idx),
         lambda: rg_ref.gather_dequant_rows_q8_ref(*tbl, idx), "exact",
-        m * (rowlen + 4 + 8) + m * rowlen * 4, 2 * m * rowlen,
+        *reversed(rg_ops.k1_work(m, rowlen)),
         [list(tbl[0].shape), list(idx.shape)])
     # K1 bit for bit off the main shape: a ragged last block, the table's
     # first and last rows, 2-D indices, rows of 40 codes (8-code pieces
@@ -1169,9 +1198,10 @@ def main(argv=None) -> int:
     qc = codes(r_rows, n_cand, fcand, f, k)
     qs = uniform(1e-4, 1e-3, r_rows, n_cand, fcand)
     qz = randn(r_rows, n_cand, fcand, scale=0.01)
-    rnc = r_rows * n_cand * fcand
-    outs = r_rows * n_cand * (fc * fcand + fcand * fcand)
-    ctx_bytes = r_rows * (fc * fcand * k + fc) * 4 + rnc * 4
+    # bytes and operations of K2-K6 (and K1, K4): the wrappers' bookings
+    # (kernels/*/ops.py:k*_work), every input read once, every output
+    # written once
+    bucket = (r_rows, n_cand, fc, fcand, k)
     args_f32 = (emb_ctx[:, :, fc:], val_ctx, ec[..., :fc, :], ec[..., fc:, :],
                 vcand)
     kernel_case(
@@ -1179,8 +1209,7 @@ def main(argv=None) -> int:
         "src/repro/kernels/ffm_interaction/ffm_interaction.py:75",
         lambda: fi_ops.ffm_candidate_matrices(*args_f32),
         lambda: fi_ref.ffm_candidate_matrices_ref(*args_f32), (1e-5, 1e-6),
-        ctx_bytes + rnc * f * k * 4 + outs * 4, outs * (2 * k + 2),
-        [r_rows, n_cand, fc, fcand, k])
+        *reversed(fi_ops.k2_work(*bucket)), [r_rows, n_cand, fc, fcand, k])
     args_q8 = (emb_ctx[:, :, fc:], val_ctx, qc[..., :fc, :], qc[..., fc:, :],
                qs, qz, vcand)
     kernel_case(
@@ -1188,9 +1217,7 @@ def main(argv=None) -> int:
         "src/repro/kernels/ffm_interaction/ffm_interaction.py:339",
         lambda: fi_ops.ffm_candidate_matrices_q8(*args_q8),
         lambda: fi_ref.ffm_candidate_matrices_q8_ref(*args_q8), (1e-5, 1e-6),
-        ctx_bytes + rnc * (f * k + 8) + outs * 4,
-        outs * (2 * k + 2) + rnc * f * k * 2,
-        [r_rows, n_cand, fc, fcand, k])
+        *reversed(fi_ops.k3_work(*bucket)), [r_rows, n_cand, fc, fcand, k])
 
     # K4: score_uncached(use_backend=True) over one request's N candidates,
     # f32 as the engine runs it; bf16 checked as the JAX sweep exercises it
@@ -1208,8 +1235,7 @@ def main(argv=None) -> int:
         "src/repro/kernels/ffm_interaction/ffm_interaction.py:35",
         lambda: fi_ops.ffm_interaction_matrix(e4, v4),
         lambda: fi_ref.ffm_interaction_matrix_ref(e4, v4), (1e-5, 1e-4),
-        n_cand * (f * f * k + f + f * f) * 4, n_cand * f * f * (2 * k + 2),
-        [n_cand, f, k],
+        *reversed(fi_ops.k4_work(n_cand, f, k)), [n_cand, f, k],
         library=lambda: torch.einsum("bijk,bjik,bi,bj->bij", e4, e4, v4, v4))
     # K4 on test_kernels.py's sweep and at F = 64, K = 16, in f32 and bf16;
     # D symmetric bit for bit at the main shape (the CPU rehearsal's einsum
@@ -1237,22 +1263,14 @@ def main(argv=None) -> int:
     # K5/K6: one (rb=8, nb=64) bucket of the fused forward with mixed cached
     # prefix depths (0 and Fc among them); the context and candidate column
     # halves are views of one gathered block, as the engine passes them.
-    # Bytes: every input read once, logits and ctx_dots written once. Ops:
-    # the ctx pair matrix once per row, per candidate the ctx x cand and
-    # ic < jc cand x cand terms (int8 dot and code-sum ops counted as f32
-    # operations, so the bound is if anything high)
+    # Ops (k5_work / k6_work): the ctx pair matrix once per row, per
+    # candidate the ctx x cand and ic < jc cand x cand terms (int8 dot and
+    # code-sum ops counted as f32 operations, so the bound is if anything
+    # high)
     depth = torch.randint(0, fc + 1, (r_rows,), generator=gen, device=dev,
                           dtype=torch.int32)
     depth[0], depth[1] = 0, fc
     base = randn(r_rows, n_cand, scale=0.5)
-    n_aa = fcand * (fcand - 1) // 2
-    fused_io = (r_rows * (fc * f * k + fc + 1 + fc * fc) * 4
-                + r_rows * n_cand * 2 * 4 + rnc * 4)
-
-    def fused_flops(q8):
-        per_cand = (fc * fcand * (2 * k + 3 + (k + 3 if q8 else 0))
-                    + n_aa * (2 * k + 3 + (4 * k + 10 if q8 else 0)) + 3)
-        return r_rows * fc * fc * (2 * k + 3) + r_rows * n_cand * per_cand
 
     args_k5 = (emb_ctx, val_ctx, depth, base, qc[..., :fc, :],
                qc[..., fc:, :], qs, qz, vcand)
@@ -1261,8 +1279,7 @@ def main(argv=None) -> int:
         "src/repro/kernels/ffm_interaction/ffm_interaction.py:268",
         lambda: fi_ops.ffm_fused_logits_q8(*args_k5),
         lambda: fi_ref.ffm_fused_logits_q8_ref(*args_k5), (1e-5, 1e-5),
-        fused_io + rnc * (f * k + 8), fused_flops(True),
-        [r_rows, n_cand, fc, fcand, k])
+        *reversed(fi_ops.k5_work(*bucket)), [r_rows, n_cand, fc, fcand, k])
     args_k6 = (emb_ctx, val_ctx, depth, base, ec[..., :fc, :],
                ec[..., fc:, :], vcand)
     kernel_case(
@@ -1270,8 +1287,7 @@ def main(argv=None) -> int:
         "src/repro/kernels/ffm_interaction/ffm_interaction.py:307",
         lambda: fi_ops.ffm_fused_logits_rows(*args_k6),
         lambda: fi_ref.ffm_fused_logits_rows_ref(*args_k6), (1e-5, 1e-5),
-        fused_io + rnc * f * k * 4, fused_flops(False),
-        [r_rows, n_cand, fc, fcand, k])
+        *reversed(fi_ops.k6_work(*bucket)), [r_rows, n_cand, fc, fcand, k])
 
     def digest(*ts):
         h = hashlib.sha256()
@@ -2279,6 +2295,8 @@ def main(argv=None) -> int:
                 phase_launches, params, r_rows, n_cand)
     span_path(cfg, dev, on_card, smi, batches, run_phase, phase_launches,
               params, r_rows, n_cand)
+    host_gather_path(cfg, args, dev, on_card, smi, batches, run_phase,
+                     phase_launches, params, fparams, randn, r_rows, n_cand)
     fleet_score, fleet_close = fleet_path(
         cfg, args, dev, on_card, smi, batches, run_phase, phase_launches,
         params, engines, r_rows, n_cand)
@@ -2649,6 +2667,7 @@ def training_path(cfg, args, dev, on_card, smi, batches, run_phase,
     from repro_torch.checkpoint import layout
     from repro_torch.checkpoint import transfer as T
     from repro_torch.core import deepffm
+    from repro_torch.data.prefetch import Prefetcher, fetch_stall_fraction
     from repro_torch.data.synthetic import CTRStream
     from repro_torch.kernels import _build
     from repro_torch.serving.engine import InferenceEngine
@@ -2669,7 +2688,19 @@ def training_path(cfg, args, dev, on_card, smi, batches, run_phase,
     for r, round_batches in enumerate(rounds, 1):
         before = {t: x.clone() for t, x in row_tables(pipe).items()}
         label = f"train round {r}"
-        frame = run_phase(label, lambda: pipe.run_round(iter(round_batches)))
+        # the round's batches come through a prefetcher whose consumer is
+        # the pipeline's own: its wait is the round's fetch stall
+        source = Prefetcher(iter(round_batches), depth=4)
+        t0 = time.perf_counter()
+        frame = run_phase(label, lambda: pipe.run_round(source))
+        round_s = time.perf_counter() - t0
+        check(source.stats.batches == n_micro,
+              f"{label}: the prefetcher gave {source.stats.batches} batches")
+        stall = fetch_stall_fraction(round_s, source.stats)
+        print(f"{label}: fetch stall {stall:.4f} of {round_s * 1e3:.1f} ms (consumer wait "
+              f"{source.stats.consumer_wait_s * 1e3:.2f} ms, producer "
+              f"{source.stats.producer_time_s * 1e3:.2f} ms; batches made "
+              f"before the round)")
         rep = pipe.reports[-1]
         want_kind = T.KIND_FULL if r == 1 else T.KIND_DELTA
         check(T.unframe(frame).kind == want_kind and rep.round == r,
@@ -2962,6 +2993,389 @@ def span_path(cfg, dev, on_card, smi, batches, run_phase, phase_launches,
             print(f"launches {label}: {phase_launches[label]}")
     print(f"span pipeline: parallel 2 and 4 bit-identical to 1 on "
           f"{', '.join(a[0] for a in arms)} ({len(batches)} microbatches)")
+
+
+HOST_TIMED_PASSES = 5  # timed passes over the microbatches per engine pair
+
+
+def host_gather_path(cfg, args, dev, on_card, smi, batches, run_phase,
+                     phase_launches, params, fparams, randn, r_rows, n_cand):
+    """Phase 3, the host pre-gather: four ``host_gather=True`` engines
+    against their device-gather twins, spans, a hot swap and the serving
+    roofline of all eight; see the module docstring."""
+    import threading
+
+    import numpy as np
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    from repro_torch.checkpoint import transfer as T
+    from repro_torch.convert import to_device
+    from repro_torch.launch import op_analysis
+    from repro_torch.launch import roofline as RL
+    from repro_torch.serving.engine import InferenceEngine, ServeStats
+
+    rtol, atol = 1e-6, 1e-7  # JAX's host vs in-trace contract
+    # name: (model, params, quantized, fused, candidate kernel)
+    specs = {
+        "int8": ("deepffm", params, True, False, "ffm_candidate_matrices_q8"),
+        "f32": ("deepffm", params, False, False, "ffm_candidate_matrices"),
+        "int8-fused": ("ffm", fparams, True, True, "ffm_fused_logits_q8"),
+        "f32-fused": ("ffm", fparams, False, True, "ffm_fused_logits_rows"),
+    }
+
+    def make(name, host, **kw):
+        model, p, quant, fused, _ = specs[name]
+        eng = InferenceEngine(cfg, model, backend="cuda", params=p,
+                              device=dev, quantized=quant, fused=fused,
+                              host_gather=host, **kw)
+        eng.warmup(max_requests=r_rows, max_candidates=n_cand)
+        return eng
+
+    # the auto policy on this device: the card keeps the device gather, and
+    # a quantized "ffm" engine stays staged
+    auto = InferenceEngine(cfg, "ffm", params=fparams, device=dev,
+                           quantized=True)
+    if on_card:
+        check(not auto.host_gather and not auto.fused,
+              f"host gather: the auto policy picked host_gather "
+              f"{auto.host_gather}, fused {auto.fused} on the card")
+    print(f"host gather: InferenceEngine(host_gather=None, fused=None) on "
+          f"{dev.type} at V = {cfg.hash_space}: host_gather "
+          f"{auto.host_gather}, fused {auto.fused}")
+    del auto
+
+    t0 = time.perf_counter()
+    pairs = {name: (make(name, True), make(name, False)) for name in specs}
+    for name, (host, twin) in pairs.items():
+        check(host.host_gather and not twin.host_gather
+              and host.fused == twin.fused == specs[name][3],
+              f"host gather {name}: host_gather {host.host_gather} / "
+              f"{twin.host_gather}, fused {host.fused} / {twin.fused}")
+    print(f"host gather: 4 engines and their device-gather twins built and "
+          f"warmed in {time.perf_counter() - t0:.1f} s; host mirrors "
+          + ", ".join(f"{n} {h.host_mirror_ms:.1f} ms"
+                      for n, (h, _) in pairs.items()))
+
+    def spy(eng, blocks=None, seconds=None):
+        """Wrap the engine's argument builder: record each block's indices,
+        values and (copied) arguments, and its time."""
+        real = eng._forward_args
+
+        def wrapped(*a, **kw):
+            t = time.perf_counter()
+            fn, fargs = real(*a, **kw)
+            if seconds is not None:
+                seconds.append(time.perf_counter() - t)
+            if blocks is not None:
+                blocks.append((a[2].copy(), a[3].copy(), [
+                    x.clone() if isinstance(x, torch.Tensor) else x
+                    for x in fargs]))
+            return fn, fargs
+
+        eng._forward_args = wrapped
+
+    class TableWatch(TorchDispatchMode):
+        """Counts the ops that read the given tables' storage."""
+
+        def __init__(self, tables):
+            super().__init__()
+            self.ptrs = {t.untyped_storage().data_ptr() for t in tables}
+            self.reads = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if any(isinstance(x, torch.Tensor)
+                   and x.untyped_storage().data_ptr() in self.ptrs
+                   for x in tree_flatten((args, kwargs))[0]):
+                self.reads += 1
+            return func(*args, **kwargs)
+
+    def table_reads(eng):
+        """Ops of the deployed forward at (8, 64) that read the gather
+        tables (emb and LR) on the device."""
+        fn, fargs = eng.lower_candidates_forward(r_rows, n_cand)
+        tables = [t for leaf in (eng.params["ffm"]["emb"],
+                                 eng.params["lr"]["w"])
+                  for t in (leaf.values() if isinstance(leaf, dict)
+                            else (leaf,)) if isinstance(t, torch.Tensor)]
+        with TableWatch(tables) as w:
+            fn(*fargs)
+        return w.reads
+
+    # -- the twins agree: blocks byte for byte, scores, launches ----------
+    last_block = {}
+    for name, (host, twin) in pairs.items():
+        kname = specs[name][4]
+        blocks = []
+        spy(host, blocks)
+        host_label = f"host gather {name} score_batch x{len(batches)}"
+        twin_label = f"host gather {name} twin score_batch x{len(batches)}"
+        try:
+            got = run_phase(host_label,
+                            lambda: [host.score_batch(mb) for mb in batches])
+        finally:
+            del host._forward_args
+        want = run_phase(twin_label,
+                         lambda: [twin.score_batch(mb) for mb in batches])
+        last_block[name] = blocks[-1][2]
+        emb = twin.params["ffm"]["emb"]
+        q8 = isinstance(emb, dict)
+        for ki_b, kv_b, fargs in blocks:
+            ki = torch.from_numpy(ki_b).to(dev)
+            real = torch.from_numpy((kv_b != 0).any(-1)).to(dev)
+            tensors = [x for x in fargs if isinstance(x, torch.Tensor)]
+            i = next(j for j, x in enumerate(tensors) if x.dim() == 5)
+            block = tensors[i]
+            check(torch.equal(block, emb["codes"][ki] if q8 else emb[ki]),
+                  f"host gather {name}: an uploaded block differs from the "
+                  "twin's device gather")
+            if q8:
+                for g, key in zip(tensors[i + 1:i + 3], ("scale", "zero")):
+                    check(torch.equal(g[real], emb[key][ki][real]),
+                          f"host gather {name}: uploaded {key} grids differ "
+                          "from the twin's device gather on real slots")
+        n_req = n_bits = 0
+        worst = 0.0
+        for g_mb, w_mb in zip(got, want):
+            for g, w in zip(g_mb, w_mb):
+                check(g.shape == w.shape and np.isfinite(g).all(),
+                      f"host gather {name}: bad scores {g.shape}")
+                check(np.allclose(g, w, rtol=rtol, atol=atol),
+                      f"host gather {name}: host vs device gather max abs "
+                      f"err {np.abs(g - w).max():.3e} (rtol {rtol}, atol "
+                      f"{atol})")
+                n_req += 1
+                n_bits += g.tobytes() == w.tobytes()
+                if g.size:
+                    worst = max(worst, float(np.abs(g - w).max()))
+        # the LR terms are summed on the device by the twin's reduction: the
+        # kernels and the head get the same bits
+        check(n_bits == n_req, f"host gather {name}: {n_req - n_bits} of "
+              f"{n_req} requests differ in bits from the device twin")
+        hc, tc = phase_launches[host_label], phase_launches[twin_label]
+        if on_card:
+            check(hc == tc and hc[kname] == len(batches),
+                  f"host gather {name}: launches {hc}, twin {tc}, want equal "
+                  f"and {kname} once per microbatch")
+        reads = (table_reads(host), table_reads(twin))
+        check(reads[0] == 0 and reads[1] > 0,
+              f"host gather {name}: ops reading the gather tables in the "
+              f"forward: host {reads[0]}, twin {reads[1]}")
+        what = "codes, grids on real slots" if q8 else "rows"
+        print(f"host gather {name}: {len(blocks)} uploaded blocks equal the "
+              f"twin's device gather byte for byte ({what}); {n_bits} of "
+              f"{n_req} requests bit-identical, max abs err {worst:.3e} "
+              f"(rtol {rtol}, atol {atol}); {kname} {hc[kname]} launches, "
+              f"twin {tc[kname]}; ops reading the tables in the forward: "
+              f"host {reads[0]}, twin {reads[1]}")
+        print(f"launches {host_label}: {hc}")
+
+    # -- timed passes: p50 beside the twin's, the host gather's share ------
+    # One pass times the argument builder (host gather + upload) alone;
+    # then the stats are reset and the timed passes run bare.
+    shares = {}
+    for name, (host, twin) in pairs.items():
+        seconds = []
+        spy(host, seconds=seconds)
+        try:
+            for mb in batches:
+                host.score_batch(mb)
+        finally:
+            del host._forward_args
+        for e in (host, twin):
+            with e._lock:
+                e.stats = ServeStats()
+        for _ in range(HOST_TIMED_PASSES):
+            for e in (host, twin):
+                for mb in batches:
+                    e.score_batch(mb)
+        # the upload alone: one microbatch's host blocks (from the checked
+        # pass), pageable as the single-span path uploads them
+        host_blocks = [x.cpu().numpy() for x in last_block[name]
+                       if isinstance(x, torch.Tensor) and x.dim() >= 2]
+        up = []
+        for _ in range(20):
+            t = time.perf_counter()
+            for b in host_blocks:
+                torch.from_numpy(b).to(dev, non_blocking=True)
+            if on_card:
+                torch.cuda.synchronize()
+            up.append(time.perf_counter() - t)
+        fa_ms = float(np.median(seconds)) * 1e3
+        up_ms = float(np.median(up)) * 1e3
+        shares[name] = (fa_ms, up_ms, sum(b.nbytes for b in host_blocks))
+        if on_card:
+            p50, twin_p50 = host.stats.p50_ms, twin.stats.p50_ms
+            print(f"host gather {name}: p50 {p50:.3f} ms per microbatch, "
+                  f"twin {twin_p50:.3f} ms ({100 * (p50 / twin_p50 - 1):+.1f}"
+                  f"%); p99 {host.stats.latency_ms(99):.3f} ms, twin "
+                  f"{twin.stats.latency_ms(99):.3f} ms; "
+                  f"{host.stats.predictions_per_s:.0f} predictions/s, twin "
+                  f"{twin.stats.predictions_per_s:.0f} "
+                  f"({HOST_TIMED_PASSES} x {len(batches)} microbatches each, "
+                  f"bare); host gather + upload {fa_ms:.3f} ms a call "
+                  f"({100 * fa_ms / p50:.1f}% of p50), the upload alone "
+                  f"{up_ms:.3f} ms for {shares[name][2]} bytes "
+                  f"({100 * up_ms / p50:.1f}%) | {smi}")
+
+    # -- spans: parallel 1 / 2 / 4 with the host gather, bit for bit -------
+    for name in ("int8", "f32", "int8-fused"):
+        base = None
+        for workers in (1, 2, 4):
+            eng = make(name, True, parallel=workers)
+            label = f"host gather spans {name} parallel={workers}"
+            got = run_phase(label, lambda: [o for mb in batches
+                                            for o in eng.score_batch(mb)])
+            eng.close()
+            if base is None:
+                base = got
+            check(all(g.tobytes() == b.tobytes() for g, b in zip(got, base)),
+                  f"{label}: scores differ in bits from parallel=1")
+    print("host gather spans: parallel 2 and 4 bit-identical to 1 on int8, "
+          f"f32 and int8-fused ({len(batches)} microbatches, the host gathers "
+          "into the pool's buffers)")
+
+    # -- hot swap: the mirror rebuilt once per publish, no torn score ------
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 7)
+    p0 = {k: dict(v) if isinstance(v, dict) else v for k, v in params.items()}
+    sender = T.Sender(device=dev)
+    swap = InferenceEngine(cfg, "deepffm", backend="cuda", device=dev,
+                           quantized=True, host_gather=True)
+    ref = InferenceEngine(cfg, "deepffm", backend="cuda", device=dev,
+                          quantized=True)
+    frame = sender.make_update(p0)
+    for e in (swap, ref):
+        e.apply_update(frame, sender.manifest, p0)
+    full_ms = swap.host_mirror_ms
+    check(swap.host_mirror_builds == 1,
+          f"host gather swap: {swap.host_mirror_builds} mirror builds after "
+          "the full frame, want 1")
+    for e in (swap, ref):
+        e.warmup(max_requests=r_rows, max_candidates=n_cand)
+    before = [swap.score_batch(mb) for mb in batches]
+    # a delta: 1% of the rows, and the bias moved by 1, so every score moves
+    v = cfg.hash_space
+    rows = torch.randperm(v, generator=gen, device=dev)[:v // 100]
+    p1 = {k: dict(x) if isinstance(x, dict) else x for k, x in p0.items()}
+    p1["ffm"]["emb"] = p0["ffm"]["emb"].clone()
+    p1["lr"]["w"] = p0["lr"]["w"].clone()
+    p1["lr"]["b"] = p0["lr"]["b"] + 1.0
+    p1["ffm"]["emb"][rows] += 1e-3 * torch.randn(
+        p1["ffm"]["emb"][rows].shape, generator=gen, device=dev)
+    p1["lr"]["w"][rows] += 1e-3 * torch.randn(rows.shape, generator=gen,
+                                              device=dev)
+    frame = sender.make_update(p1, touched={"ffm/emb": rows, "lr/w": rows})
+    check(T.unframe(frame).kind == T.KIND_DELTA, "host gather swap: the "
+          f"frame is kind {T.unframe(frame).kind}, want a delta")
+    ref.apply_update(frame)
+    after = [ref.score_batch(mb) for mb in batches]
+    pipe = swap.update_pipe()
+    during = []
+    release = threading.Event()
+    publish = swap._publish
+
+    def held_publish(p, version, nbytes):
+        check(release.wait(600), "host gather swap: the publish was held")
+        return publish(p, version, nbytes)
+
+    swap._publish = held_publish
+    try:
+        check(swap.submit_update(frame), "host gather swap: not queued")
+        published, deadline = pipe.stats.published, time.perf_counter() + 600
+        n_after = 0
+        while n_after < len(batches):
+            check(time.perf_counter() < deadline, "host gather swap: the "
+                  "delta was not published")
+            if pipe.stats.published != published:
+                n_after += 1
+            during.append(swap.score_batch(batches[len(during)
+                                                   % len(batches)]))
+            if len(during) == len(batches):
+                release.set()
+    finally:
+        release.set()
+        del swap._publish
+    check(pipe.flush(timeout=600), "host gather swap: the pipe did not drain")
+    check(swap.host_mirror_builds == 2,
+          f"host gather swap: {swap.host_mirror_builds} mirror builds after "
+          "two publishes, want 2")
+
+    def matches(got_mb, want_mb):
+        return all(np.allclose(g, w, rtol=rtol, atol=atol)
+                   for g, w in zip(got_mb, want_mb))
+
+    n_old = n_new = 0
+    for i, got in enumerate(during):
+        old = matches(got, before[i % len(batches)])
+        new = matches(got, after[i % len(batches)])
+        check(old != new, f"host gather swap: microbatch {i} matches "
+              f"{'both' if old else 'neither'} generation")
+        n_old, n_new = n_old + old, n_new + new
+    check(n_old >= len(batches) and n_new >= len(batches),
+          f"host gather swap: {n_old} old and {n_new} new microbatches")
+    check(all(matches(swap.score_batch(mb), w) for mb, w in zip(batches,
+                                                                after)),
+          "host gather swap: after the publish the scores are not the new "
+          "generation's")
+    print(f"host gather swap: mirror built once per publish (full frame "
+          f"{full_ms:.1f} ms, delta {swap.host_mirror_ms:.1f} ms, "
+          f"{swap.resident_weight_bytes} resident bytes); {len(during)} "
+          f"microbatches across the ingest, {n_old} old and {n_new} new "
+          f"generation, none torn | {smi}")
+    pipe.close(timeout=60)
+    del swap, ref
+
+    # -- the serving roofline of all eight engines at (8, 64) --------------
+    host_bw = RL.measure_cpu_bandwidth()
+    dev_bw = RL.measure_device_bandwidth(dev) if on_card else host_bw
+    if on_card:
+        check(dev_bw < PEAK_BYTES_PER_S,
+              f"device copy bandwidth {dev_bw:.4e} B/s above the sheet's "
+              f"{PEAK_BYTES_PER_S:.4e}")
+    print(f"roofline bandwidths: device copy {dev_bw / 1e9:.1f} GB/s, host "
+          f"copy {host_bw / 1e9:.2f} GB/s | {smi}")
+    for name, pair in pairs.items():
+        model, p, quant, fused, _ = specs[name]
+        for label, e in ((name, pair[0]), (f"{name} twin", pair[1])):
+            roof = RL.serving_roofline(
+                e, rb=r_rows, nb=n_cand, scenario=label,
+                measured_preds_per_s=e.stats.predictions_per_s,
+                bandwidth_bytes_per_s=dev_bw,
+                host_bandwidth_bytes_per_s=host_bw if on_card else None)
+            check(roof.fraction_of_bound <= 1.05,
+                  f"roofline {label}: fraction of bound "
+                  f"{roof.fraction_of_bound:.4f} > 1.05")
+            n = roof.predictions_per_call
+            count = ""
+            if on_card:
+                # the same forward counted on the CPU
+                cpu = InferenceEngine(cfg, model, backend="cuda",
+                                      params=to_device(p, torch.device("cpu")),
+                                      device="cpu", quantized=quant,
+                                      fused=fused, host_gather=e.host_gather)
+                fn, fargs = cpu.lower_candidates_forward(r_rows, n_cand)
+                fn(*fargs)  # the index vectors' first upload
+                with op_analysis.Counter() as c:
+                    fn(*fargs)
+                check((c.flops, c.bytes) == (roof.counted_flops_per_call,
+                                             roof.counted_bytes_per_call),
+                      f"roofline {label}: card count "
+                      f"{roof.counted_flops_per_call}, "
+                      f"{roof.counted_bytes_per_call} vs CPU {c.flops}, "
+                      f"{c.bytes}")
+                count = "; the CPU count of the same forward equal"
+                del cpu
+            print(f"roofline {label}: {roof.counted_bytes_per_call / n:.1f} "
+                  f"device + {roof.host_bytes_per_call / n:.1f} host bytes "
+                  f"and {roof.counted_flops_per_call / n:.1f} operations a "
+                  f"prediction | measured {roof.measured_preds_per_s:.0f} "
+                  f"predictions/s, bound {roof.bound_preds_per_s:.4e}, "
+                  f"fraction {roof.fraction_of_bound:.3e}{count} | {smi}")
+    for host, twin in pairs.values():
+        host.close()
+        twin.close()
 
 
 def fleet_path(cfg, args, dev, on_card, smi, batches, run_phase,

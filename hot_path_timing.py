@@ -13,6 +13,8 @@ card synchronized before each clock read (host wall clock):
 * ``ffm_int8`` / ``ffm_f32``: one ``InferenceEngine.score_batch``
   microbatch of the DeepFFM engines at ``FFMConfig()``'s full width on
   chip_smoke.py's traffic (``make_traffic``), ms per microbatch;
+* ``ffm_int8_fused`` / ``ffm_f32_fused``: the same for the fused ``"ffm"``
+  engines (K5 / K6);
 * ``llm_prefill``: llama3.2-1b (bf16, full width), ``transformer.prefill``
   of 4 x 1024 prompt tokens (K11 once per layer);
 * ``llm_decode``: one greedy ``make_serve_step`` step after that prefill;
@@ -112,15 +114,21 @@ def main(argv=None) -> int:
     params["lr"]["w"] = torch.randn(cfg.hash_space, generator=gen,
                                     device=dev) * 0.1
     batches = chip_smoke.make_traffic(cfg, np.random.default_rng(args.seed))
-    for name, quant in (("ffm_int8", True), ("ffm_f32", False)):
-        eng = InferenceEngine(cfg, "deepffm", backend="cuda",
-                              params=params, device=dev, quantized=quant)
+    fparams = deepffm.init_params(cfg, args.seed + 1, "ffm", dev)
+    fparams["lr"]["w"] = params["lr"]["w"].clone()
+    for name, model, p, quant, fused in (
+            ("ffm_int8", "deepffm", params, True, False),
+            ("ffm_f32", "deepffm", params, False, False),
+            ("ffm_int8_fused", "ffm", fparams, True, True),
+            ("ffm_f32_fused", "ffm", fparams, False, True)):
+        eng = InferenceEngine(cfg, model, backend="cuda", params=p,
+                              device=dev, quantized=quant, fused=fused)
         eng.warmup(max_requests=8, max_candidates=64)
         it = iter(range(10**9))
         timed(name, lambda eng=eng, it=it: eng.score_batch(
             batches[next(it) % len(batches)]), args.reps)
         del eng
-    del params
+    del params, fparams
 
     # llama3.2-1b: prefill, then decode steps after it
     llm = llama32_1b.smoke() if small else llama32_1b.config()

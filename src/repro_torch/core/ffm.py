@@ -69,6 +69,29 @@ def gather_lr(lr_w, idx: torch.Tensor) -> torch.Tensor:
     return lr_w[idx]
 
 
+def gather_rows_np(emb, idx: np.ndarray) -> np.ndarray:
+    """Host-numpy :func:`gather_rows` over a host table: an f32 ``(V, F,
+    k)`` array or an int8 row-quantized dict of arrays, dequantized by the
+    packed host gather (``row_gather.ops.gather_dequant_np``)."""
+    if isinstance(emb, dict):
+        from repro_torch.kernels.row_gather import ops as rg_ops
+
+        return rg_ops.gather_dequant_np(emb, idx)
+    return np.asarray(emb)[idx]
+
+
+def gather_lr_np(lr_w, idx: np.ndarray) -> np.ndarray:
+    """Host-numpy :func:`gather_lr` over a host LR table (f32 ``(V,)`` or a
+    blocked-int8 dict of arrays): the engine's host pre-gather sums the
+    candidates' LR terms with it."""
+    if isinstance(lr_w, dict):
+        idx = np.asarray(idx)
+        c = np.asarray(lr_w["codes"])[idx].astype(np.float32)
+        b = idx // int(lr_w["block"])
+        return c * np.asarray(lr_w["scale"])[b] + np.asarray(lr_w["zero"])[b]
+    return np.asarray(lr_w)[idx]
+
+
 def table_dtype(emb) -> torch.dtype:
     """Dtype of the *dequantized* rows ``gather_rows`` yields."""
     return torch.float32 if isinstance(emb, dict) else emb.dtype

@@ -3,14 +3,25 @@
 "By implementing async learning cycles, multiple rounds of 'future' data can
 be downloaded upfront, making sure the learning engine has constant influx of
 data" — up to 4x faster warm-up. A background thread keeps a bounded queue of
-ready batches. The JAX package's stall timers and ``fetch_stall_fraction``
-wait for a port caller that reads them.
+ready batches; the consumer's blocking time is tracked
+(:class:`PrefetchStats`), so a caller can report the fetch-stall fraction
+(:func:`fetch_stall_fraction`; ``chip_smoke.py``'s training phase prints a
+round's).
 """
 from __future__ import annotations
 
 import queue
 import threading
+import time
+from dataclasses import dataclass
 from typing import Any, Iterable, Iterator, Optional
+
+
+@dataclass
+class PrefetchStats:
+    batches: int = 0
+    consumer_wait_s: float = 0.0
+    producer_time_s: float = 0.0
 
 
 class Prefetcher:
@@ -20,6 +31,7 @@ class Prefetcher:
 
     def __init__(self, it: Iterable[Any], depth: int = 4):
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self.stats = PrefetchStats()
         # producer-side failure, latched for the consumer: without it a
         # raising source iterator would kill the daemon thread silently and
         # leave __next__ blocked on an empty queue forever
@@ -29,8 +41,12 @@ class Prefetcher:
 
     def _run(self, it: Iterator[Any]) -> None:
         try:
-            for item in it:
+            while True:
+                t0 = time.perf_counter()
+                item = next(it)
+                self.stats.producer_time_s += time.perf_counter() - t0
                 self._q.put(item)
+        except StopIteration:
             self._q.put(self._SENTINEL)
         except Exception as e:
             self.error = e
@@ -40,11 +56,19 @@ class Prefetcher:
         return self
 
     def __next__(self):
+        t0 = time.perf_counter()
         item = self._q.get()
+        self.stats.consumer_wait_s += time.perf_counter() - t0
         if item is self._SENTINEL:
             self._q.put(self._SENTINEL)  # keep later callers unblocked too
             if self.error is not None:
                 raise RuntimeError(
                     "prefetch source iterator failed") from self.error
             raise StopIteration
+        self.stats.batches += 1
         return item
+
+
+def fetch_stall_fraction(total_time_s: float, stats: PrefetchStats) -> float:
+    """The share of ``total_time_s`` the consumer spent waiting for data."""
+    return stats.consumer_wait_s / max(total_time_s, 1e-9)

@@ -32,9 +32,73 @@ from repro_torch.kernels.ffm_interaction.ref import (
 _SMEM_MAX = 232_448  # bytes of shared memory one block may use on sm_90
 
 
+# -- the kernels' work: operations and bytes of the function, every input
+# read once and every output written once (the bounds of chip_smoke.py) --
+
+def k4_work(b: int, f: int, k: int, esz: int = 4):
+    """K4: the (B, F, F) dot matrix, 2K + 2 operations an entry (the dot
+    and the two value products); e, v read and D written in e's dtype."""
+    return b * f * f * (2 * k + 2), b * (f * f * k + f + f * f) * esz
+
+
+def _candidate_work(r, n, fc, fcand, k, q8: bool):
+    rnc = r * n * fcand
+    outs = r * n * (fc * fcand + fcand * fcand)
+    ctx = r * (fc * fcand * k + fc) * 4 + rnc * 4  # ectx, vctx, vcand
+    f = fc + fcand
+    if q8:  # codes and two f32 grid scalars a row; a dequant multiply-add
+        return outs * (2 * k + 2) + rnc * f * k * 2, \
+            ctx + rnc * (f * k + 8) + outs * 4
+    return outs * (2 * k + 2), ctx + rnc * f * k * 4 + outs * 4
+
+
+def k2_work(r: int, n: int, fc: int, fcand: int, k: int):
+    """K2: the (R, N, Fc, Fcand) and (R, N, Fcand, Fcand) f32 dot matrices
+    of R rows of N candidates, 2K + 2 operations an entry."""
+    return _candidate_work(r, n, fc, fcand, k, False)
+
+
+def k3_work(r: int, n: int, fc: int, fcand: int, k: int):
+    """K3: K2's function over int8 candidate codes, dequantized in
+    registers (one multiply-add a code)."""
+    return _candidate_work(r, n, fc, fcand, k, True)
+
+
+def _fused_work(r, n, fc, fcand, k, q8: bool):
+    f = fc + fcand
+    rnc = r * n * fcand
+    n_aa = fcand * (fcand - 1) // 2
+    # ectx, vctx, depth, ctx_dots; base in and logits out; vcand
+    io = (r * (fc * f * k + fc + 1 + fc * fc) * 4 + r * n * 2 * 4
+          + rnc * 4)
+    # the ctx pair matrix once a row; per candidate the ctx x cand and the
+    # ic < jc cand x cand terms (int8 dot and code-sum ops counted as f32
+    # operations, so the bound is if anything high)
+    per_cand = (fc * fcand * (2 * k + 3 + (k + 3 if q8 else 0))
+                + n_aa * (2 * k + 3 + (4 * k + 10 if q8 else 0)) + 3)
+    flops = r * fc * fc * (2 * k + 3) + r * n * per_cand
+    return flops, io + rnc * (f * k + 8 if q8 else f * k * 4)
+
+
+def k5_work(r: int, n: int, fc: int, fcand: int, k: int):
+    """K5: one fused bucket over int8 candidate codes and their grids."""
+    return _fused_work(r, n, fc, fcand, k, True)
+
+
+def k6_work(r: int, n: int, fc: int, fcand: int, k: int):
+    """K6: one fused bucket over f32 candidate rows."""
+    return _fused_work(r, n, fc, fcand, k, False)
+
+
 def ffm_interaction_matrix(e: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """e: (B, F, F, K) f32 or bf16 gathered embeddings; v: (B, F) ->
     (B, F, F) dot matrix in e.dtype (f32 accumulation)."""
+    with _build.booking("ffm_interaction_matrix", lambda: k4_work(
+            e.shape[0], e.shape[1], e.shape[-1], e.element_size())):
+        return _interaction_call(e, v)
+
+
+def _interaction_call(e, v):
     if not e.is_cuda:
         return ffm_interaction_matrix_ref(e, v)
     if e.dtype not in (torch.float32, torch.bfloat16):
@@ -51,6 +115,18 @@ def ffm_interaction_matrix(e: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         _build.launch("ffm_interaction_matrix", e.data_ptr(), v.data_ptr(),
                       out.data_ptr(), b, f, k, int(e.dtype == torch.bfloat16))
     return out
+
+
+def _candidate_dims(ectx, ecx):
+    """(R, N, Fc, Fcand, K) of a K2 / K3 call."""
+    r, fc, fcand, k = ectx.shape
+    return r, ecx.shape[1], fc, fcand, k
+
+
+def _fused_dims(ectx, vcand):
+    """(R, N, Fc, Fcand, K) of a K5 / K6 call."""
+    r, fc, f, k = ectx.shape
+    return r, vcand.shape[1], fc, f - fc, k
 
 
 def _check_k_contiguous(k, **blocks):
@@ -115,10 +191,12 @@ def ffm_candidate_matrices(ectx, vctx, ecx, ecc, vcand):
     vcand: (R, N, Fcand)        candidate values
     ->     xc (R, N, Fc, Fcand), aa (R, N, Fcand, Fcand) f32 dot matrices
     """
-    if not ectx.is_cuda:
-        return ffm_candidate_matrices_ref(ectx, vctx, ecx, ecc, vcand)
-    return _candidate_launch("ffm_candidate_matrices", ectx, vctx, ecx, ecc,
-                             None, vcand)
+    with _build.booking("ffm_candidate_matrices",
+                        lambda: k2_work(*_candidate_dims(ectx, ecx))):
+        if not ectx.is_cuda:
+            return ffm_candidate_matrices_ref(ectx, vctx, ecx, ecc, vcand)
+        return _candidate_launch("ffm_candidate_matrices", ectx, vctx, ecx,
+                                 ecc, None, vcand)
 
 
 def ffm_candidate_matrices_q8(ectx, vctx, qcx, qcc, scale, zero, vcand):
@@ -127,11 +205,13 @@ def ffm_candidate_matrices_q8(ectx, vctx, qcx, qcc, scale, zero, vcand):
     ``qcc`` (R, N, Fcand, Fcand, K) with one ``(scale, zero)`` f32 pair per
     candidate row (R, N, Fcand); the f32 candidate block never exists in
     device memory."""
-    if not ectx.is_cuda:
-        return ffm_candidate_matrices_q8_ref(ectx, vctx, qcx, qcc, scale,
-                                             zero, vcand)
-    return _candidate_launch("ffm_candidate_matrices_q8", ectx, vctx, qcx,
-                             qcc, (scale, zero), vcand)
+    with _build.booking("ffm_candidate_matrices_q8",
+                        lambda: k3_work(*_candidate_dims(ectx, qcx))):
+        if not ectx.is_cuda:
+            return ffm_candidate_matrices_q8_ref(ectx, vctx, qcx, qcc, scale,
+                                                 zero, vcand)
+        return _candidate_launch("ffm_candidate_matrices_q8", ectx, vctx,
+                                 qcx, qcc, (scale, zero), vcand)
 
 
 def _fused_launch(name, ectx, vctx, depth, base, ecx, ecc, grids, vcand):
@@ -198,22 +278,26 @@ def ffm_fused_logits_q8(ectx, vctx, depth, base, qcx, qcc, scale, zero,
            with value products applied, from which the engine rebuilds
            insertable prefix states)
     """
-    if not ectx.is_cuda:
-        return ffm_fused_logits_q8_ref(ectx, vctx, depth, base, qcx, qcc,
-                                       scale, zero, vcand)
-    return _fused_launch("ffm_fused_logits_q8", ectx, vctx, depth, base, qcx,
-                         qcc, (scale, zero), vcand)
+    with _build.booking("ffm_fused_logits_q8",
+                        lambda: k5_work(*_fused_dims(ectx, vcand))):
+        if not ectx.is_cuda:
+            return ffm_fused_logits_q8_ref(ectx, vctx, depth, base, qcx, qcc,
+                                           scale, zero, vcand)
+        return _fused_launch("ffm_fused_logits_q8", ectx, vctx, depth, base,
+                             qcx, qcc, (scale, zero), vcand)
 
 
 def ffm_fused_logits_rows(ectx, vctx, depth, base, ecx, ecc, vcand):
     """f32 twin of :func:`ffm_fused_logits_q8`: gathered f32 candidate rows
     ``ecx`` (R, N, Fcand, Fc, K) / ``ecc`` (R, N, Fcand, Fcand, K) instead
     of codes and grids. Returns (logits (R, N), ctx_dots (R, Fc, Fc))."""
-    if not ectx.is_cuda:
-        return ffm_fused_logits_rows_ref(ectx, vctx, depth, base, ecx, ecc,
-                                         vcand)
-    return _fused_launch("ffm_fused_logits_rows", ectx, vctx, depth, base,
-                         ecx, ecc, None, vcand)
+    with _build.booking("ffm_fused_logits_rows",
+                        lambda: k6_work(*_fused_dims(ectx, vcand))):
+        if not ectx.is_cuda:
+            return ffm_fused_logits_rows_ref(ectx, vctx, depth, base, ecx,
+                                             ecc, vcand)
+        return _fused_launch("ffm_fused_logits_rows", ectx, vctx, depth,
+                             base, ecx, ecc, None, vcand)
 
 
 def interactions(cfg, emb, idx, val):

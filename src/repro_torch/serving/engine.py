@@ -20,6 +20,22 @@ composes the paper's tricks in one scoring path:
   int8 rows with per-row ``(scale, zero)`` grids and the LR table as blocked
   int8; the candidate kernel dequantizes in registers, so the f32 candidate
   block never exists in device memory.
+* **§6 host pre-gather** — ``host_gather=True`` gathers each padded block's
+  candidate codes (or f32 rows), ``(scale, zero)`` grids and LR terms on
+  the host, with the packed numpy gather
+  (``kernels/row_gather/ops.py:gather_codes_np``) over a host mirror of the
+  tables, uploads the block and scores it through
+  :func:`batched_candidates_forward_q8` / ``_rows`` (or the fused forwards):
+  the kernels get the same bytes (the LR terms are summed on the device,
+  as the device gather sums them), so the scores equal the device-gather
+  path's bit for bit, and no device gather reads the candidate table. The
+  mirror is a zero-copy view on a CPU device and, on the card, pinned host
+  memory copied from the device once per published params object
+  (:meth:`InferenceEngine._host_weights`). Grids are gathered once per
+  unique deduped row (:meth:`InferenceEngine._compact_grids`). This is the
+  paper's CPU-deployment gather; ``host_gather=None`` takes it on a CPU
+  device past the gather cliff (``row_gather.ops.use_host_gather``) and
+  never on the card.
 * **Fused bucket scoring (§5 x §6)** — ``InferenceEngine(fused=True)``
   (``"ffm"`` model only) collapses the staged chain — context-tail pairs,
   candidate dot matrices, pair-vector scatter, additive head — into one
@@ -43,7 +59,8 @@ composes the paper's tricks in one scoring path:
 Candidate counts pad to power-of-two buckets and the requests of a
 microbatch stack into one forward. Host-side request bookkeeping (tokens,
 dedup, chunking, scatter-back) is numpy, exactly as in the JAX engine; the
-tables, cached states and all scoring arithmetic live on the device.
+tables, cached states and all scoring arithmetic live on the device (a
+host-gather engine also gathers the candidate blocks on the host).
 
 **Parallel scoring.** ``InferenceEngine(parallel=N)`` splits a
 microbatch's deduped candidate chunks into contiguous per-worker spans, each
@@ -54,8 +71,12 @@ launched and reassembled in fixed chunk order, every candidate forward's
 per-row output is invariant to the row bucket, and all spans score against
 the batch's one ``(params, generation)`` snapshot, so the scores are
 bit-identical for every worker count. Every span is enqueued on the
-caller's stream (the default stream), so the pipeline needs no
-cross-stream synchronization. A
+caller's stream, so the pipeline needs no cross-stream synchronization. On
+a host-gather engine the pool threads also run span *k+1*'s host gather,
+into pinned buffers from :meth:`ScoringPool.acquire`; each block uploads
+with ``non_blocking=True``, and its buffer goes back to the pool with the
+event recorded after the upload, so it is not reused while the copy is in
+flight. A
 :class:`~repro_torch.serving.shard_router.ShardRouter` threads one shared
 pool through all its shards (``scoring_pool=``); shards and the router pin
 ``parallel=1``, the router's parallelism being the shard fan-out.
@@ -67,12 +88,16 @@ rows, and the response is flagged (``ServeStats.last_degraded``,
 ``degraded_responses``, ``deadline_misses``), never raised. A single engine
 never degrades: its one forward always runs to completion.
 
-Not ported (ROADMAP.md Queue 1, "The host pre-gather" and "Measurement
-tooling"): the host pre-gather (the engine always gathers candidate rows on
-the device), ``lower_candidates_forward`` and ``host_gather_bytes``.
+**Roofline.** :meth:`InferenceEngine.lower_candidates_forward` returns the
+deployed candidate forward and its arguments at one bucket, built by the
+same :meth:`InferenceEngine._forward_args` that requests run, and
+:meth:`InferenceEngine.host_gather_bytes` the host pre-gather's analytic
+bytes; ``launch/roofline.py:serving_roofline`` counts the one and adds the
+other.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -206,11 +231,13 @@ class ScoringPool:
     * :meth:`run` pipelines a burst's spans: *prepare* callables run on
       pool threads while the caller thread runs each *dispatch* in fixed
       span order, with a look-ahead of ``workers + 1`` spans.
-    * :meth:`acquire` / :meth:`release` recycle device buffers, at most two
-      per worker per (shape, dtype, device). A buffer released with the
-      CUDA event recorded after the last device work that touches it is
-      handed out again only once that event has completed, so a kernel
-      still in flight (a hedge loser's) never sees its buffer reused.
+    * :meth:`acquire` / :meth:`release` recycle buffers (a fleet's device
+      buffers, a host-gather engine's pinned host blocks), at most two per
+      worker per (shape, dtype, device, pinned or not). A buffer released
+      with the CUDA event recorded after the last device work that touches
+      it is handed out again only once that event has completed, so a
+      kernel or an upload still in flight (a hedge loser's) never sees its
+      buffer reused.
     * :meth:`submit` is the raw executor, the router's fan-out.
     """
 
@@ -225,17 +252,24 @@ class ScoringPool:
         self.drain_errors = 0
         self.last_drain_error: Optional[BaseException] = None
 
+    @staticmethod
+    def _key(shape, dtype, device, pinned: bool) -> tuple:
+        # pinned host buffers are kept apart from pageable ones
+        return (shape, dtype, device) + (("pinned",) if pinned else ())
+
     def acquire(self, shape: tuple, dtype: torch.dtype,
-                device=None) -> torch.Tensor:
-        """A recycled buffer of this shape, dtype and device (fresh if none
-        is free). Waits on the event its last user released it with."""
+                device=None, pin_memory: bool = False) -> torch.Tensor:
+        """A recycled buffer of this shape, dtype and device, in pinned host
+        memory when ``pin_memory`` (fresh if none is free). Waits on the
+        event its last user released it with."""
         dev = torch.device("cpu" if device is None else device)
-        key = (tuple(shape), dtype, dev)
+        key = self._key(tuple(shape), dtype, dev, pin_memory)
         with self._buf_lock:
             free = self._buffers.get(key)
             entry = free.pop() if free else None
         if entry is None:
-            return torch.empty(shape, dtype=dtype, device=dev)
+            return torch.empty(shape, dtype=dtype, device=dev,
+                               pin_memory=pin_memory)
         buf, event = entry
         if event is not None:
             event.synchronize()
@@ -246,7 +280,8 @@ class ScoringPool:
         recorded after the last device work on ``buf`` (``None`` when no
         device work is pending on it). Extras beyond the double-buffer depth
         go back to the allocator."""
-        key = (tuple(buf.shape), buf.dtype, buf.device)
+        key = self._key(tuple(buf.shape), buf.dtype, buf.device,
+                        buf.device.type == "cpu" and buf.is_pinned())
         with self._buf_lock:
             free = self._buffers.setdefault(key, [])
             if len(free) < 2 * self.workers:
@@ -256,17 +291,16 @@ class ScoringPool:
         """Raw executor submit: the ShardRouter's scatter-gather fan-out."""
         return self._ex.submit(fn, *args)
 
-    def run(self, prepares: Sequence, dispatch) -> list:
+    def run(self, prepares: Sequence, dispatch, cleanup=None) -> list:
         """Pipeline ``prepares`` (pool threads, bounded look-ahead) against
         ``dispatch`` (caller thread, fixed order); returns the dispatch
         results in prepare order.
 
         If a prepare or dispatch raises, the prepares still in flight are
-        drained (waited for, their errors counted) and the first error
-        re-raises, so an aborted burst leaves no future running into the
-        next batch. (The JAX pool also hands each drained result to a
-        cleanup that returns its host-gather buffer; spans here hold
-        none.)"""
+        drained: each completed result goes to ``cleanup`` (which returns a
+        span's host-gather buffer to the pool), errors are counted, and the
+        first error re-raises, so an aborted burst leaves no future running
+        into the next batch and strands no buffer."""
         window = self.workers + 1
         pending: deque = deque()
         out = []
@@ -280,11 +314,18 @@ class ScoringPool:
         except BaseException:
             while pending:
                 try:
-                    pending.popleft().result()
+                    res = pending.popleft().result()
                 except Exception as e:
                     # the first error already propagates; count the rest
                     self.drain_errors += 1
                     self.last_drain_error = e
+                    continue
+                if cleanup is not None:
+                    try:
+                        cleanup(res)
+                    except Exception as e:
+                        self.drain_errors += 1
+                        self.last_drain_error = e
             raise
         return out
 
@@ -450,15 +491,64 @@ def batched_candidates_forward(cfg: FFMConfig, model: str, backend: str,
                               pairs_xc, pairs_aa, lr_cand)
 
 
-def _fused_base(cached, lr_cand, lr_b):
+def batched_candidates_forward_q8(cfg: FFMConfig, model: str, backend: str,
+                                  head_params, cached, qc, scale, zero,
+                                  cand_val, lr_terms) -> torch.Tensor:
+    """Candidate completion over *pre-gathered* int8 candidate codes (the
+    host pre-gather's forward): ``qc`` (R, N, Fcand, F, k) int8 codes,
+    ``scale``/``zero`` (R, N, Fcand) their grids, ``lr_terms`` (R, N,
+    Fcand) the candidates' LR weights times their values. The JAX forward
+    takes their host sum; here they are summed on the device by the same
+    reduction :func:`batched_candidates_forward` runs, so a host-gather
+    engine scores bit for bit as its device-gather twin. ``head_params``
+    holds only the head's leaves (LR bias, MergeNorm, MLP:
+    :meth:`InferenceEngine._head_params`); no table is read here. Returns
+    logits (R, N)."""
+    emb_ctx, val_ctx = cached["emb"], cached["val"]
+    if backend == "cuda":
+        from repro_torch.kernels.ffm_interaction import ops as ffm_ops
+
+        pairs_xc, pairs_aa = ffm_ops.candidate_interactions_q8(
+            cfg, emb_ctx, val_ctx, qc, scale, zero, cand_val)
+    else:
+        ec = (qc.to(torch.float32) * scale[..., None, None]
+              + zero[..., None, None])
+        pairs_xc, pairs_aa = _reference_candidate_pairs(
+            cfg, emb_ctx, val_ctx, ec, cand_val)
+    return _finish_candidates(cfg, model, head_params, cached,
+                              pairs_xc, pairs_aa,
+                              torch.sum(lr_terms, dim=-1))
+
+
+def batched_candidates_forward_rows(cfg: FFMConfig, model: str, backend: str,
+                                    head_params, cached, ec, cand_val,
+                                    lr_terms) -> torch.Tensor:
+    """f32 twin of :func:`batched_candidates_forward_q8`: pre-gathered f32
+    candidate rows ``ec`` (R, N, Fcand, F, k) instead of codes and grids."""
+    emb_ctx, val_ctx = cached["emb"], cached["val"]
+    if backend == "cuda":
+        from repro_torch.kernels.ffm_interaction import ops as ffm_ops
+
+        pairs_xc, pairs_aa = ffm_ops.candidate_interactions(
+            cfg, emb_ctx, val_ctx, ec, cand_val)
+    else:
+        pairs_xc, pairs_aa = _reference_candidate_pairs(
+            cfg, emb_ctx, val_ctx, ec, cand_val)
+    return _finish_candidates(cfg, model, head_params, cached,
+                              pairs_xc, pairs_aa,
+                              torch.sum(lr_terms, dim=-1))
+
+
+def _fused_base(cached, lr_terms, lr_b):
     """(R, N) logit terms the fused kernels add to the pairs they compute:
     context LR + the cached prefix's pair sum + candidate LR + bias."""
     return ((torch.sum(cached["lr_terms"], dim=-1)
-             + cached["pair_sum"])[:, None] + lr_cand + lr_b)
+             + cached["pair_sum"])[:, None] + torch.sum(lr_terms, dim=-1)
+            + lr_b)
 
 
 def fused_candidates_forward_q8(cfg: FFMConfig, lr_b, cached, qc, scale, zero,
-                                cand_val, lr_cand):
+                                cand_val, lr_terms):
     """One fused kernel launch per padding bucket over gathered int8
     candidate codes (``"ffm"`` model only: the head is the additive LR +
     pair sum).
@@ -467,25 +557,45 @@ def fused_candidates_forward_q8(cfg: FFMConfig, lr_b, cached, qc, scale, zero,
     full-depth embeddings, ``val`` (R, Fc), ``depth`` (R,) cached prefix
     depths, ``pair_sum`` (R,) summed cached ctx pairs, ``lr_terms`` (R, Fc).
     ``qc`` (R, N, Fcand, F, k) codes with grids ``scale``/``zero``
-    (R, N, Fcand), ``lr_cand`` (R, N) summed candidate LR terms. Returns
+    (R, N, Fcand), ``lr_terms`` (R, N, Fcand) the candidates' LR weights
+    times their values (summed here, as :func:`batched_candidates_forward_q8`
+    sums them). Returns
     ``(logits (R, N), ctx_dots (R, Fc, Fc))``; the second output rebuilds
     insertable prefix states (``ffm.prefix_state_from_dots``)."""
     from repro_torch.kernels.ffm_interaction import ops as ffm_ops
 
     return ffm_ops.fused_candidate_logits_q8(
         cfg, cached["emb"], cached["val"], cached["depth"],
-        _fused_base(cached, lr_cand, lr_b), qc, scale, zero, cand_val)
+        _fused_base(cached, lr_terms, lr_b), qc, scale, zero, cand_val)
 
 
 def fused_candidates_forward_rows(cfg: FFMConfig, lr_b, cached, ec, cand_val,
-                                  lr_cand):
+                                  lr_terms):
     """f32 twin of :func:`fused_candidates_forward_q8` (gathered f32 rows
     ``ec`` (R, N, Fcand, F, k) instead of codes and grids)."""
     from repro_torch.kernels.ffm_interaction import ops as ffm_ops
 
     return ffm_ops.fused_candidate_logits_rows(
         cfg, cached["emb"], cached["val"], cached["depth"],
-        _fused_base(cached, lr_cand, lr_b), ec, cand_val)
+        _fused_base(cached, lr_terms, lr_b), ec, cand_val)
+
+
+def fused_candidates_forward(cfg: FFMConfig, params, cached,
+                             cand_idx: torch.Tensor, cand_val: torch.Tensor):
+    """The fused forward of an engine that gathers on the device: the
+    candidate codes and grids (int8) or rows (f32) and the LR terms are
+    gathered by indexing, then one fused kernel launch scores the bucket
+    (:func:`fused_candidates_forward_q8` / ``_rows``). Returns ``(logits
+    (R, N), ctx_dots (R, Fc, Fc))``."""
+    emb = params["ffm"]["emb"]
+    lr_terms = ffm.gather_lr(params["lr"]["w"], cand_idx) * cand_val
+    lr_b = params["lr"]["b"]
+    if isinstance(emb, dict):  # int8 rows: codes + grids, no dequant
+        return fused_candidates_forward_q8(
+            cfg, lr_b, cached, emb["codes"][cand_idx], emb["scale"][cand_idx],
+            emb["zero"][cand_idx], cand_val, lr_terms)
+    return fused_candidates_forward_rows(cfg, lr_b, cached, emb[cand_idx],
+                                         cand_val, lr_terms)
 
 
 # ---------------------------------------------------------------------------
@@ -510,16 +620,26 @@ class InferenceEngine:
     * ``quantized`` — serve from int8 tables: installed f32 params are
       quantized on the host (bit-identical to the JAX package's tables) and
       moved to the device.
+    * ``host_gather`` — gather candidate codes / rows, grids and LR terms
+      on the host and score the uploaded blocks
+      (:func:`batched_candidates_forward_q8` / ``_rows``, or the fused
+      forwards); see the module docstring. ``None`` (default) takes it where
+      ``row_gather.ops.use_host_gather`` says: on a CPU device past the
+      gather cliff (calibrated once per process, ``REPRO_CLIFF_CALIBRATE=0``
+      pins the constant), never on the card.
     * ``fused`` — score each padding bucket in one fused kernel launch
       (:func:`fused_candidates_forward_q8` / ``_rows``; ``"ffm"`` model
-      only, whatever ``backend``). ``None`` (default) means staged: the JAX
-      engine fuses automatically only where it pre-gathers candidate rows on
-      the host, and this engine always gathers them on the device.
+      only, whatever ``backend``). ``None`` (default) fuses exactly where the
+      JAX engine does: a quantized ``"ffm"`` engine whose ``host_gather``
+      was *auto*-picked true; so on the card it means staged. Unlike the
+      JAX engine's, ``fused=True`` does not force ``host_gather`` on: fused
+      engines gather on the device unless asked (ROADMAP.md Queue 3).
     * ``parallel`` — worker count of the span pipeline (module docstring);
       ``None`` resolves through :func:`auto_parallel_workers`. The default
-      is 1: the JAX engine's auto default overlaps its host pre-gather,
-      which this engine does not have. ``scoring_pool`` injects a shared
-      :class:`ScoringPool` (the ShardRouter's).
+      is 1 (the JAX engine's auto default overlaps a host pre-gather that
+      this engine takes only when asked or on a CPU device past the cliff).
+      ``scoring_pool`` injects a shared :class:`ScoringPool` (the
+      ShardRouter's).
     """
 
     def __init__(self, cfg: FFMConfig, model: str = "deepffm", *,
@@ -530,15 +650,29 @@ class InferenceEngine:
                  warmup_buckets: Optional[Tuple[int, int]] = None,
                  quantized: bool = False,
                  prefix_depths: Optional[Sequence[int]] = None,
+                 host_gather: Optional[bool] = None,
                  fused: Optional[bool] = None,
                  parallel: Optional[int] = 1,
                  scoring_pool: Optional[ScoringPool] = None):
+        from repro_torch.kernels.row_gather import ops as rg_ops
+
         self.device = resolve_device(device)
+        host_auto = host_gather is None
+        resolved_host = (rg_ops.use_host_gather(cfg.hash_space, self.device)
+                         if host_auto else bool(host_gather))
+        if fused is None:
+            fused = (model == "ffm" and quantized and resolved_host
+                     and host_auto)
         self.plan = ScoringPlan(cfg, model, backend=backend,
                                 min_bucket=min_bucket, fused=bool(fused))
         self.cache_entries = cache_entries
         self.dedup = dedup
         self.quantized = quantized
+        self.host_gather = resolved_host
+        # the host mirror's builds and the last build's milliseconds
+        # (:meth:`_host_weights`)
+        self.host_mirror_builds = 0
+        self.host_mirror_ms = 0.0
         self._weights: Tuple[Optional[Dict], int] = (  # guarded-by: _lock
             self._maybe_quantize(params), 0)
         self._cache = PrefixCache(  # guarded-by(calls): _lock
@@ -657,8 +791,11 @@ class InferenceEngine:
         """Atomically install a fully materialized params tree (the update
         pipe's publish step — the only weight work under the request lock).
         The quantize fallback runs *before* the lock and is a no-op for the
-        update pipe, which ships already-quantized tables."""
+        update pipe, which ships already-quantized tables; a host-gather
+        engine builds the new tables' host mirror there too."""
         params = self._maybe_quantize(params)
+        if self.host_gather:
+            self._host_weights(params)
         with self._lock:
             self._weights = (params, self._weights[1] + 1)
             self.weights_version = version
@@ -738,6 +875,45 @@ class InferenceEngine:
             if pause_s:
                 time.sleep(pause_s)
         return len(ctxs)
+
+    # -- host mirror of the gather tables (the host pre-gather) --------------
+    _host_tables: Tuple = ()  # up to 2 of (params, emb_view, lr_view)
+
+    def _host_weights(self, params):
+        """Host numpy views of the gather tables (emb, LR) for the host
+        pre-gather, cached per params object. On a CPU device they are
+        zero-copy views; on the card, a device-to-host copy into pinned host
+        memory, timed (:attr:`host_mirror_ms`, :attr:`host_mirror_builds`).
+        Two slots, as in the JAX engine: the published generation and the
+        standby one. A benign race: concurrent fills build the same views."""
+        for entry in self._host_tables:
+            if entry[0] is params:
+                return entry[1], entry[2]
+
+        def host_view(t):
+            if isinstance(t, dict):
+                return {k: host_view(v) for k, v in t.items()}
+            if not isinstance(t, torch.Tensor):  # the LR block size
+                return t
+            if t.device.type == "cpu":
+                return t.numpy()
+            return torch.empty(t.shape, dtype=t.dtype,
+                               pin_memory=True).copy_(t).numpy()
+
+        t0 = time.perf_counter()
+        emb = host_view(params["ffm"]["emb"])
+        lr = host_view(params["lr"]["w"])
+        self.host_mirror_ms = (time.perf_counter() - t0) * 1e3
+        self.host_mirror_builds += 1
+        self._host_tables = ((params, emb, lr),) + self._host_tables[:1]
+        return emb, lr
+
+    def _head_params(self, params):
+        """``params`` without the gather tables: what the pre-gathered
+        forwards read (LR bias, MergeNorm, MLP)."""
+        out = {k: v for k, v in params.items() if k != "ffm"}
+        out["lr"] = {"b": params["lr"]["b"]}
+        return out
 
     # -- context cache (§5, prefix tree) ------------------------------------
     def _context_tensors(self, ctxs) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -1078,10 +1254,12 @@ class InferenceEngine:
         kv_c = np.zeros((n_chunks, nb, fcand), np.float32)
         ki_c[row_of_u, slot_of_u] = ki_all[first]
         kv_c[row_of_u, slot_of_u] = kv_all[first]
+        grids_c = self._compact_grids(params, ki_all[first], row_of_u,
+                                      slot_of_u, n_chunks, nb, fcand)
         chunk_group = np.repeat(np.arange(n_groups), chunks_per_g)
         chunk_state = [group_state[g] for g in chunk_group]
         out, ctx_dots = self._score_spans(params, chunk_state, ki_c, kv_c,
-                                          self._plan_spans(n_chunks))
+                                          grids_c, self._plan_spans(n_chunks))
         if self.fused:
             self._insert_fused_misses(u_ctxs, states, insert_info,
                                       chunk_group, u_of, ctx_dots, generation)
@@ -1131,15 +1309,44 @@ class InferenceEngine:
             lo = hi
         return spans
 
-    def _score_spans(self, params, chunk_state, ki_c, kv_c, spans):
+    def _compact_grids(self, params, ki_u, row_of_u, slot_of_u,
+                       n_chunks: int, nb: int, fcand: int):
+        """(scale, zero) grids of the padded block for the host pre-gather,
+        gathered **once per unique deduped candidate row** from the host
+        mirror and scattered by the same ``(row, slot)`` the codes use.
+        Padded slots keep grid zeros (their rows dequantize to exact zeros;
+        their outputs are never read). ``None`` on engines whose forward
+        takes no host-side grids."""
+        emb = params["ffm"]["emb"]
+        if not self.host_gather or not Q.is_row_quantized(emb):
+            return None
+        emb_h, _ = self._host_weights(params)
+        s_c = np.zeros((n_chunks, nb, fcand), np.float32)
+        z_c = np.zeros((n_chunks, nb, fcand), np.float32)
+        s_c[row_of_u, slot_of_u] = emb_h["scale"][ki_u]
+        z_c[row_of_u, slot_of_u] = emb_h["zero"][ki_u]
+        return s_c, z_c
+
+    def _score_spans(self, params, chunk_state, ki_c, kv_c, grids_c, spans):
         """Score contiguous chunk spans and reassemble ``(logits (n_chunks,
         nb) on the host, ctx_dots (n_chunks, Fc, Fc) on the device | None)``
         in fixed chunk order. One span runs inline; several run through the
-        :class:`ScoringPool` (prepare of span *k+1* on a pool thread while
-        this thread launches span *k*). Every span pads to its own bucket
-        and is sliced back, and the forwards' per-row outputs are invariant
-        to the row bucket, so the result is bit-identical for every worker
-        count."""
+        :class:`ScoringPool`: a pool thread prepares span *k+1* (padding,
+        stacking the context states and, on a host-gather engine, the host
+        gather into a pooled pinned buffer and its upload, on the caller's
+        stream) while this thread uploads the indices of span *k* (on an
+        engine that gathers on the device) and launches it. Every span
+        pads to its own bucket and is sliced back, and the forwards' per-row
+        outputs are invariant to the row bucket, so the result is
+        bit-identical for every worker count."""
+        pool = self._get_pool() if len(spans) > 1 else None
+        codes_tbl = None
+        if pool is not None and self.host_gather:
+            emb_h, _ = self._host_weights(params)
+            codes_tbl = emb_h["codes"] if isinstance(emb_h, dict) else emb_h
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
+
         def pad_rows(x, rb_s, m):
             if rb_s == m:
                 return x
@@ -1149,22 +1356,61 @@ class InferenceEngine:
         def prepare(lo, hi):
             m = hi - lo
             rb_s = self.plan.bucket(m, minimum=1)
-            return (self._stack_states(chunk_state[lo:hi], rb_s),
-                    pad_rows(ki_c[lo:hi], rb_s, m),
-                    pad_rows(kv_c[lo:hi], rb_s, m), m)
+            ki_b = pad_rows(ki_c[lo:hi], rb_s, m)
+            kv_b = pad_rows(kv_c[lo:hi], rb_s, m)
+            if not self.host_gather:
+                # the upload and the device gather run at dispatch, on the
+                # caller's thread
+                return ((self._stack_states(chunk_state[lo:hi], rb_s), ki_b,
+                         kv_b), m, None, None)
+            with (torch.cuda.stream(stream) if stream is not None
+                  else contextlib.nullcontext()):
+                grids = None
+                if grids_c is not None:
+                    grids = (pad_rows(grids_c[0][lo:hi], rb_s, m),
+                             pad_rows(grids_c[1][lo:hi], rb_s, m))
+                buf = None
+                if codes_tbl is not None:
+                    buf = pool.acquire(
+                        ki_b.shape + codes_tbl.shape[1:],
+                        torch.from_numpy(codes_tbl[:0]).dtype,
+                        pin_memory=stream is not None)
+                fn_args = self._forward_args(
+                    params, self._stack_states(chunk_state[lo:hi], rb_s),
+                    ki_b, kv_b, grids=grids, out=buf)
+                event = None
+                if buf is not None and stream is not None:
+                    # after the upload: the buffer is free once it completes
+                    event = torch.cuda.Event()
+                    event.record(stream)
+                return fn_args, m, buf, event
 
         def dispatch(prepared):
-            stacked, ki_b, kv_b, m = prepared
-            fwd = self._candidates_forward(params, stacked, ki_b, kv_b)
+            head, m, buf, event = prepared
+            try:
+                fn, args = (head if self.host_gather
+                            else self._forward_args(params, *head))
+                fwd = fn(*args)
+            finally:
+                if buf is not None:
+                    # on the card the block was uploaded (the event covers
+                    # the copy); on the CPU the forward has read it
+                    pool.release(buf, event)
             if self.fused:
                 return fwd[0][:m], fwd[1][:m]
             return fwd[:m], None
 
-        if len(spans) == 1:
+        def span_cleanup(prepared):
+            # a span prepared but never dispatched still holds its buffer
+            _, _, buf, event = prepared
+            if buf is not None:
+                pool.release(buf, event)
+
+        if pool is None:
             parts = [dispatch(prepare(*spans[0]))]
         else:
-            parts = self._get_pool().run(
-                [partial(prepare, lo, hi) for lo, hi in spans], dispatch)
+            parts = pool.run([partial(prepare, lo, hi) for lo, hi in spans],
+                             dispatch, cleanup=span_cleanup)
         out = torch.cat([p[0] for p in parts]) if len(parts) > 1 \
             else parts[0][0]
         dots = None
@@ -1192,26 +1438,76 @@ class InferenceEngine:
             out[key] = x
         return out
 
-    def _candidates_forward(self, params, stacked, ki_b: np.ndarray,
-                            kv_b: np.ndarray):
-        """One padded candidate block through the engine's forward: the
-        fused kernels (``(logits, ctx_dots)``) or
-        :func:`batched_candidates_forward` (logits). Candidate codes, grids,
-        rows and LR terms are gathered on the device by indexing."""
-        ki = torch.from_numpy(ki_b).to(self.device)
-        kv = torch.from_numpy(kv_b).to(self.device)
-        if not self.fused:
-            return batched_candidates_forward(
+    def _upload(self, x) -> torch.Tensor:
+        """A host block (numpy, or a pooled torch buffer) on the engine's
+        device: ``non_blocking`` on the current stream (asynchronous from a
+        pinned buffer); the CPU keeps the block itself."""
+        t = torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+        return t.to(self.device, non_blocking=True)
+
+    def _forward_args(self, params, stacked, ki_b: np.ndarray,
+                      kv_b: np.ndarray, grids=None, out=None):
+        """The forward for one padded candidate block and its arguments, on
+        the device: the one argument builder that :meth:`_candidates_forward`,
+        the span pipeline's prepare and :meth:`lower_candidates_forward`
+        share, so what the roofline counts is what requests run.
+
+        An engine that gathers on the device uploads the indices and values
+        and gets :func:`batched_candidates_forward` (or
+        :func:`fused_candidates_forward`), which gather by indexing. A
+        host-gather engine gathers the candidate codes (or f32 rows) with
+        the packed numpy gather from the host mirror, the grids (``grids``:
+        the compact-gathered padded ``(scale, zero)`` of
+        :meth:`_compact_grids`; ``None`` gathers one per padded slot) and
+        the LR terms (summed in the forward, on the device), uploads them
+        and gets the pre-gathered forwards.
+        ``out``: a pooled host buffer (pinned on the card) the codes or rows
+        are gathered into."""
+        if not self.host_gather:
+            ki = torch.from_numpy(ki_b).to(self.device)
+            kv = torch.from_numpy(kv_b).to(self.device)
+            if self.fused:
+                return fused_candidates_forward, (self.cfg, params, stacked,
+                                                  ki, kv)
+            return batched_candidates_forward, (
                 self.cfg, self.model, self.backend, params, stacked, ki, kv)
-        emb = params["ffm"]["emb"]
-        lr_cand = torch.sum(ffm.gather_lr(params["lr"]["w"], ki) * kv, dim=-1)
-        lr_b = params["lr"]["b"]
-        if isinstance(emb, dict):  # int8 rows: codes + grids, no dequant
-            return fused_candidates_forward_q8(
-                self.cfg, lr_b, stacked, emb["codes"][ki], emb["scale"][ki],
-                emb["zero"][ki], kv, lr_cand)
-        return fused_candidates_forward_rows(
-            self.cfg, lr_b, stacked, emb[ki], kv, lr_cand)
+        from repro_torch.kernels.row_gather import ops as rg_ops
+
+        emb_h, lr_h = self._host_weights(params)
+        kv = self._upload(kv_b)
+        lr_terms = self._upload(ffm.gather_lr_np(lr_h, ki_b) * kv_b)
+        table = emb_h["codes"] if isinstance(emb_h, dict) else emb_h
+        if out is None:
+            block = self._upload(rg_ops.gather_codes_np(table, ki_b))
+        else:
+            rg_ops.gather_codes_np(table, ki_b, out=out.numpy())
+            block = self._upload(out)
+        if isinstance(emb_h, dict):  # int8 rows: codes + grids
+            if grids is None:
+                grids = (emb_h["scale"][ki_b], emb_h["zero"][ki_b])
+            s, z = self._upload(grids[0]), self._upload(grids[1])
+            if self.fused:
+                return fused_candidates_forward_q8, (
+                    self.cfg, params["lr"]["b"], stacked, block, s, z, kv,
+                    lr_terms)
+            return batched_candidates_forward_q8, (
+                self.cfg, self.model, self.backend, self._head_params(params),
+                stacked, block, s, z, kv, lr_terms)
+        if self.fused:
+            return fused_candidates_forward_rows, (
+                self.cfg, params["lr"]["b"], stacked, block, kv, lr_terms)
+        return batched_candidates_forward_rows, (
+            self.cfg, self.model, self.backend, self._head_params(params),
+            stacked, block, kv, lr_terms)
+
+    def _candidates_forward(self, params, stacked, ki_b: np.ndarray,
+                            kv_b: np.ndarray, grids=None):
+        """One padded candidate block through the engine's forward (see
+        :meth:`_forward_args`): ``(logits, ctx_dots)`` on a fused engine,
+        logits on a staged one."""
+        fn, args = self._forward_args(params, stacked, ki_b, kv_b,
+                                      grids=grids)
+        return fn(*args)
 
     def _warmup_dummies(self, rb: int, nb: int):
         """Dummy (cached-state, cand-idx, cand-val) arguments for one
@@ -1236,11 +1532,59 @@ class InferenceEngine:
         return (cached, np.zeros((rb, nb, fcand), np.int32),
                 np.zeros((rb, nb, fcand), np.float32))
 
+    def lower_candidates_forward(self, rb: int, nb: int):
+        """The deployed candidate forward at one (row-bucket,
+        candidate-bucket) shape and its arguments, ``(fn, args)``: built by
+        :meth:`_forward_args` on :meth:`_warmup_dummies`, so ``fn(*args)``
+        is the forward requests run (the host pre-gather and the upload,
+        when the engine has them, are done). The name is the JAX engine's,
+        whose method lowers the jitted forward for its HLO analysis; the
+        port has no lowered program, and the roofline counts the ops
+        ``fn(*args)`` dispatches (``launch/roofline.py:serving_roofline``)."""
+        self._require_params()
+        params, _ = self._weights
+        return self._forward_args(params, *self._warmup_dummies(rb, nb))
+
+    def host_gather_bytes(self, rb: int, nb: int,
+                          unique_rows: Optional[int] = None) -> int:
+        """Analytic bytes the *host* pre-gather moves per forward call at one
+        (rb, nb) bucket (0 on an engine that gathers on the device), the
+        JAX engine's count formula for formula: read + write of every
+        gathered block (candidate rows: int8 codes, else f32 rows; LR
+        weights) and the index reads; on a quantized engine the f32
+        ``(scale, zero)`` grids read and written once per **unique** deduped
+        candidate row (``unique_rows``; the padded count by default) plus
+        one write per padded slot. An estimate of the dominant streams, not
+        a hardware counter; the upload to the card is not in it."""
+        self._require_params()
+        cfg = self.cfg
+        fcand = cfg.n_fields - cfg.context_fields
+        rows = rb * nb * fcand
+        if not self.host_gather:
+            return 0
+        emb = self.params["ffm"]["emb"]
+        lr_w = self.params["lr"]["w"]
+        lr_bytes = 1 + 2 * 4 if Q.is_block_quantized(lr_w) else 4
+        idx_bytes = 4
+        if Q.is_row_quantized(emb):
+            row_bytes = cfg.n_fields * cfg.k            # codes only
+            grid_bytes = 2 * 4                          # f32 (scale, zero)
+            u_rows = (rows if unique_rows is None
+                      else int(unique_rows) * fcand)
+            total = rows * (2 * (row_bytes + lr_bytes) + idx_bytes)
+            total += grid_bytes * (2 * u_rows + rows)   # compact R+W + scatter
+        else:
+            row_bytes = cfg.n_fields * cfg.k * 4
+            total = rows * (2 * (row_bytes + lr_bytes) + idx_bytes)
+        return int(total)
+
     def warmup(self, *, max_requests: int = 8, max_candidates: int = 64) -> int:
         """Run every (row-bucket, candidate-bucket) shape the engine can
         emit for microbatches of up to ``max_requests`` requests with up to
         ``max_candidates`` candidates each, so the kernel build and every
-        first launch happen before traffic. Returns the number of calls."""
+        first launch happen before traffic (on a host-gather engine, with
+        the host mirror built and each shape's host gather and upload run).
+        Returns the number of calls."""
         self._require_params()
         self._warmed_buckets = (max_requests, max_candidates)
         params, _ = self._weights
@@ -1274,7 +1618,8 @@ class InferenceEngine:
             cache_entries=self.cache_entries,
             min_bucket=self.plan.min_bucket, dedup=self.dedup,
             quantized=self.quantized, prefix_depths=depths,
-            fused=self.fused, parallel=self.parallel)
+            host_gather=self.host_gather, fused=self.fused,
+            parallel=self.parallel)
         succ.weights_version = self.weights_version
         # adopt the published tree by reference and keep the generation
         # monotonic across the swap; written under the successor's lock so

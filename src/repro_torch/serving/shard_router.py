@@ -316,7 +316,8 @@ class ShardRouter(InferenceEngine):
             [InferenceEngine(self.topology.shard_cfg(s), model,
                              device=device, quantized=quantized,
                              cache_entries=64, prefix_stride=None,
-                             parallel=1, scoring_pool=self._pool)
+                             host_gather=False, parallel=1,
+                             scoring_pool=self._pool)
              for _ in range(replicas)]
             for s in range(n_shards)]
         self._active: List[int] = [0] * n_shards  # guarded-by: _fleet_lock
@@ -344,7 +345,7 @@ class ShardRouter(InferenceEngine):
         # the router's own surface runs on the assembled view: it never
         # quantizes (the shards own their tables)
         super().__init__(cfg, model, params=None, device=device,
-                         quantized=False, parallel=1,
+                         quantized=False, host_gather=False, parallel=1,
                          scoring_pool=self._pool)
         if params is not None:
             self.install_params(params)
@@ -610,11 +611,13 @@ class ShardRouter(InferenceEngine):
                 for row in self._fleet]
 
     # -- scoring: scatter partials / gather the reduction --------------------
-    def _candidates_forward(self, params, stacked, ki_b: np.ndarray,
-                            kv_b: np.ndarray):
-        """The router's candidate forward *is* the scatter-gather fan-out
-        (the engine hook the JAX router replaces as ``_forward_args``)."""
-        return self._scatter_gather_forward(params, stacked, ki_b, kv_b)
+    def _forward_args(self, params, stacked, ki_b: np.ndarray,
+                      kv_b: np.ndarray, grids=None, out=None):
+        """The router's candidate forward *is* the scatter-gather fan-out,
+        so the engine's argument builder returns it whole. ``grids`` /
+        ``out`` are unused: the router never gathers on the host (its
+        shards hold the tables and gather on the device)."""
+        return self._scatter_gather_forward, (params, stacked, ki_b, kv_b)
 
     def _tl_flags(self):
         """This thread's per-batch fault-outcome flags (warmup drives the

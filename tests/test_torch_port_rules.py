@@ -9,6 +9,7 @@
   CUDA is absent;
 * every kernel wrapper sends CPU tensors to its plain version and counts no
   launch (K13 and K12 through the backward's one wrapper);
+* the host pre-gather and the serving roofline keep the card default;
 * the training launcher, like the other entry points, trains on the card
   unless told otherwise.
 """
@@ -350,6 +351,28 @@ def test_cpu_tensors_take_the_plain_version(name, monkeypatch):
                     want if isinstance(want, tuple) else (want,)):
         assert torch.equal(g, w)
     assert _build.launches == before
+
+
+def test_host_gather_and_serving_roofline_hold_the_card_default():
+    """The host pre-gather and the serving roofline:
+    an engine asking for the host gather still goes to the card unless told
+    otherwise; the auto policy never picks the host gather for the card;
+    the device bandwidth is measured only on a card."""
+    from repro_torch.launch import roofline
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves")
+    cfg = FFMConfig(n_fields=8, context_fields=5, hash_space=2**10, k=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceEngine(cfg, host_gather=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceEngine(cfg, "ffm", quantized=True, fused=True)
+    for n in (2**10, 2**18, 2**24):
+        assert not rg_ops.use_host_gather(n, torch.device("cuda"))
+    with pytest.raises(ValueError, match="CUDA"):
+        roofline.measure_device_bandwidth("cpu")
+    eng = InferenceEngine(cfg, device="cpu", host_gather=True)
+    assert eng.host_gather and not eng.fused
 
 
 def test_trainer_defaults_to_the_card(tmp_path):

@@ -280,19 +280,23 @@ def test_engine_span_error_leaves_the_engine_serving(monkeypatch):
     rng = np.random.default_rng(5)
     reqs = [_req(rng, 9) for _ in range(6)]
     want = eng.score_batch(reqs)
-    real = eng._candidates_forward
+    real = eng._forward_args
     calls = []
 
-    def flaky(*a):
-        calls.append(1)
-        if len(calls) == 2:
-            raise RuntimeError("span failed")
-        return real(*a)
+    def fail(*_):
+        raise RuntimeError("span failed")
 
-    monkeypatch.setattr(eng, "_candidates_forward", flaky)
+    def flaky(*a, **kw):
+        # a span's forward is built in its prepare and run in its dispatch:
+        # the second span's dispatch fails
+        fn, args = real(*a, **kw)
+        calls.append(1)
+        return (fail if len(calls) == 2 else fn), args
+
+    monkeypatch.setattr(eng, "_forward_args", flaky)
     with pytest.raises(RuntimeError, match="span failed"):
         eng.score_batch(reqs)
-    monkeypatch.setattr(eng, "_candidates_forward", real)
+    monkeypatch.setattr(eng, "_forward_args", real)
     for got, w in zip(eng.score_batch(reqs), want):
         np.testing.assert_array_equal(got, w)
     eng.close()
