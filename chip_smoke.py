@@ -163,7 +163,7 @@ Phases, each of which raises on failure (nothing is caught):
      the same forward with the plain flash within ``ORACLE_REL``, and the
      routers' flips printed and held to ``ROUTER_TIE`` as phi's are.
    - The expert-parallel MoE, on a one-rank world (NCCL) and its 1 x 1
-     mesh, opened here and destroyed after the sharded train step: one
+     mesh, opened here and destroyed after the dry run: one
      full-width phi3.5-moe MoE layer (bf16 weights from the seed) on 4 x
      1024 tokens skewed toward expert 0. ``moe_expert_parallel`` at
      capacity factor ``EP_NO_DROP_CF`` (no drop) against ``moe_dense``, and
@@ -176,6 +176,17 @@ Phases, each of which raises on failure (nothing is caught):
      through ``transformer.forward`` with the mesh (``"auto"`` takes EP in
      every layer, counted) and without, each timed after a warm-up, K11
      once per layer.
+   - qwen2.5-3b's train step in the same world, while the card's memory is
+     still free (its step peaks at 69 GiB): full width and full depth (36
+     layers, 3.09 G weights, bf16, its config's remat under ``"dots"``),
+     the sharded ZeRO-1 Adam step on the 1 x 1 mesh, 3 steps on one 4 x
+     1024 batch: the loss finite and falling, K11 72 and K13 / K12 36 a
+     step; ms per step, tokens/s, TFLOP/s and the peak; each step's rise
+     of ``max_memory_allocated`` after the first within
+     ``DRYRUN_PEAK_RTOL`` of ``dryrun_lib.measure``'s meta count of the
+     same step at (1, 1) (the dry run's subprocess, after the card's
+     steps), and the count with ``remat=False`` printed beside it, reckoned
+     and not run.
    Every batched prefill prints its bf16 TFLOP/s as
    ``counting.model_flops(cfg, B·S, "forward")`` over its time.
    Then the FFM main paths at full width (``FFMConfig()``, V = 2^18, random
@@ -339,12 +350,17 @@ Phases, each of which raises on failure (nothing is caught):
      stepwise ``decode_step``s over the prompt (never through K11), rel <
      1e-4 (``ORACLE_REL``).
    - LLM training: ``make_train_step`` (Adam, lr 1e-3) on full-width
-     llama3.2-1b in bf16 (weights from the seed, uncut), 3 steps on one
+     llama3.2-1b in bf16 (weights from the seed, uncut) with its config's
+     activation rematerialization (``remat``, ``"dots"``), 3 steps on one
      batch of 4 x 1024 ``lm_batches`` tokens: the loss finite and falling,
-     K11 (with its log-sum-exp), K13 and K12 exactly once per layer (16)
-     each step; ms per step after the first, tokens/s, TFLOP/s
-     (``model_flops``' 6 N T plus attention), peak allocation. Its f32
-     oracle at full width and 2 layers (B=2, S=256): every leaf's gradient
+     K11 (with its log-sum-exp) exactly twice per layer (32: the forward
+     and the backward's recompute), K13 and K12 once per layer (16) each
+     step; ms per step after the first, tokens/s, TFLOP/s
+     (``model_flops``' 6 N T plus attention), peak allocation. Then its
+     ``remat=False`` twin on the same seed and batch: losses and final
+     params bit for bit the remat run's, K11 16 a step, both routes' ms,
+     tokens/s and peaks printed. The f32 oracle at full width and 2
+     layers (B=2, S=256, remat): every leaf's gradient
      of ``loss_fn`` through K11 / K13 / K12 against the same loss's
      gradients with ``attention.flash_attention``'s kernel call swapped for
      autograd through the plain flash (which launches nothing), rel <
@@ -355,10 +371,10 @@ Phases, each of which raises on failure (nothing is caught):
      steps: each leaf sharded by ``param_shardings`` and gathered whole
      before the forward, the gradients all-reduced and sliced back, Adam
      shard-local. Losses and final params bit for bit the unsharded
-     phase's; K11 / K13 / K12 once per layer a step; ms per step beside
-     the unsharded phase's, the gather copies' bytes, the peak.
+     phase's; K11 twice and K13 / K12 once per layer a step; ms per step
+     beside the unsharded phase's, the gather copies' bytes, the peak.
    - The dry run, last in the one-rank world: (a) the same full-width
-     llama3.2-1b sharded step (ZeRO-1 state, 4 x 1024, bf16) under an
+     llama3.2-1b sharded step (ZeRO-1 state, 4 x 1024, bf16, remat) under an
      ``op_analysis.Counter``; (b) ``dryrun_lib.measure`` (what
      ``run_one`` reports) at ``mesh_shape=(1, 1)`` on the same shape in a
      subprocess (meta tensors, a fake world), after the card's steps: its
@@ -610,6 +626,12 @@ LLM_TRAIN_TINY = {"batch": 2, "seq": 16, "steps": 3, "lr": 1e-3,
                   "oracle": (2, 12), "oracle_layers": 2, "smoke": (2, 16)}
 FLASH_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkdv")
+# qwen2.5-3b's train step at full width and depth (36 layers, bf16, its
+# config's remat under "dots"): Adam at lr, steps on one (batch, seq) batch
+# of lm_batches, sharded on the 1 x 1 mesh as the dry run counts it; the
+# rehearsal trains the smoke config with remat on
+QWEN_TRAIN_FULL = {"batch": 4, "seq": 1024, "steps": 3, "lr": 1e-3}
+QWEN_TRAIN_TINY = {"batch": 2, "seq": 16, "steps": 3, "lr": 1e-3}
 # the expert-parallel MoE on a 1 x 1 mesh (a one-rank NCCL world): one
 # full-width phi3.5-moe MoE layer (bf16 weights from the seed, router f32)
 # on (batch, seq) tokens at capacity factor EP_NO_DROP_CF (no copy dropped)
@@ -732,6 +754,28 @@ def rel(a, ref) -> float:
     """Largest |a - ref| as a share of the largest |ref| (the oracles'
     measure)."""
     return float((a - ref).abs().max()) / (float(ref.abs().max()) + 1e-9)
+
+
+def train_launches(cfg) -> dict:
+    """K11, K13 and K12 launches in one train step of ``cfg`` on the card:
+    K11 once per layer in the forward and, with ``cfg.remat``, once more in
+    the backward's recompute; K13 and K12 once per layer."""
+    n = cfg.n_layers
+    return {"flash_attention": 2 * n if cfg.remat else n,
+            "flash_attention_bwd_dq": n, "flash_attention_bwd_dkdv": n}
+
+
+def train_step_flops(cfg, b: int, s: int) -> tuple:
+    """(FLOPs, attention's share) of one causal LM train step on (b, s)
+    tokens: ``model_flops``' 6 N T plus attention's forward (scores and PV,
+    2 x 2 D per pair) and backward (5 x 2 D per pair). The recompute of a
+    remat step is not counted: the rate is of the model's work."""
+    from repro_torch.common import counting
+
+    hd = cfg.resolved_head_dim
+    attn = ((2 * (hd * 2) + 2 * (5 * hd)) * b * cfg.n_heads
+            * attention_pairs(s, s, True, 0) * cfg.n_layers)
+    return counting.model_flops(cfg, b * s, "train") + attn, attn
 
 
 def attention_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
@@ -2132,13 +2176,16 @@ def main(argv=None) -> int:
     mla_path(MLA_TINY if args.tiny else MLA_FULL, args, dev, on_card, smi,
              run_phase, phase_launches)
     # a one-rank world (NCCL on the card) and its 1 x 1 mesh for the
-    # expert-parallel MoE here, while the card's memory is free, and the
-    # sharded train step after the unsharded one; destroyed after both
+    # expert-parallel MoE and qwen2.5-3b's train step here, while the
+    # card's memory is free, and the sharded llama train step after the
+    # unsharded one; destroyed after them
     world = contextlib.ExitStack()
     world.enter_context(mesh_lib.world(dev))
     rt = mesh_lib.make_runtime(mesh_lib.make_smoke_mesh(1, 1))
     moe_ep_path(EP_TINY if args.tiny else EP_FULL, args, dev, on_card, smi,
                 run_phase, phase_launches, rt)
+    qwen_train_path(QWEN_TRAIN_TINY if args.tiny else QWEN_TRAIN_FULL, args,
+                    dev, on_card, smi, run_phase, phase_launches, rt)
 
     # the FFM main path at full width
     t0 = time.perf_counter()
@@ -2312,13 +2359,16 @@ def main(argv=None) -> int:
     llm_prefill, llm_decode = llm_path(llm_cfg, llm, args, dev, on_card, smi,
                                        run_phase, phase_launches)
     llm_tr = LLM_TRAIN_TINY if args.tiny else LLM_TRAIN_FULL
-    llm_train, unsharded = llm_train_path(llm_cfg, llm_tr, args, dev,
+    # the training phases take the config's remat (the smoke config, in
+    # the rehearsal, turns it off: set it there too)
+    train_cfg = llm_cfg.replace(remat=True)
+    llm_train, unsharded = llm_train_path(train_cfg, llm_tr, args, dev,
                                           on_card, smi, run_phase,
                                           phase_launches)
-    mesh_train_path(llm_cfg, llm_tr, args, dev, on_card, smi, run_phase,
+    mesh_train_path(train_cfg, llm_tr, args, dev, on_card, smi, run_phase,
                     phase_launches, rt, unsharded)
     del unsharded
-    dryrun_path(llm_cfg, DRYRUN_TINY if args.tiny else DRYRUN_FULL, args,
+    dryrun_path(train_cfg, DRYRUN_TINY if args.tiny else DRYRUN_FULL, args,
                 dev, on_card, smi, run_phase, phase_launches, rt)
     world.close()
 
@@ -2355,7 +2405,7 @@ def main(argv=None) -> int:
             "prefill)", llm_decode, smi, top=8)
         where_the_time_goes(
             f"LLM train step ({llm_cfg.arch_id}, B={LLM_TRAIN_FULL['batch']}, "
-            f"S={LLM_TRAIN_FULL['seq']}, Adam)", llm_train, smi, top=8,
+            f"S={LLM_TRAIN_FULL['seq']}, Adam, remat)", llm_train, smi, top=8,
             share_of=("flash_attention_kernel", "flash_attention_bwd_dq",
                       "flash_attention_bwd_dkdv"))
     fleet_close()
@@ -4145,11 +4195,15 @@ def llm_path(cfg, llm, args, dev, on_card, smi, run_phase, phase_launches):
 def llm_train_path(cfg, tr, args, dev, on_card, smi, run_phase,
                    phase_launches):
     """Phase 3, LLM training: ``make_train_step`` (Adam) on full-width
-    llama3.2-1b in bf16, ``tr["steps"]`` steps on one batch of
-    ``lm_batches``: the loss finite and falling, K11, K13 and K12 exactly
-    once per layer a step; ms per step after the first, tokens/s, TFLOP/s
-    (``model_flops``' 6 N T plus attention's forward and backward), peak
-    allocation. Then the f32 oracle at full width and reduced depth: the
+    llama3.2-1b in bf16 with its config's remat (``"dots"``),
+    ``tr["steps"]`` steps on one batch of ``lm_batches``: the loss finite
+    and falling, K11 twice per layer a step (:func:`train_launches`: the
+    forward and the backward's recompute), K13 and K12 once; ms per step
+    after the first, tokens/s, TFLOP/s (:func:`train_step_flops`), peak
+    allocation. Then its ``remat=False`` twin from the same seed on the same
+    batch: its losses and final params bit for bit the remat run's, K11 once
+    per layer, both routes' ms, tokens/s and peaks printed. Then the f32
+    oracle at full width and reduced depth (remat as the config): the
     gradients of ``loss_fn`` through K11 / K13 / K12 against the same
     gradients through the plain versions (``attention.flash_attention``'s
     kernel call swapped for autograd through ``flash_attention_ref``, which
@@ -4159,7 +4213,7 @@ def llm_train_path(cfg, tr, args, dev, on_card, smi, run_phase,
     the unsharded run's losses, params after its steps and ms a step."""
     import torch
 
-    from repro_torch.common import counting
+    from repro_torch.checkpoint import layout
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -4178,57 +4232,105 @@ def llm_train_path(cfg, tr, args, dev, on_card, smi, run_phase,
         return out
 
     b, s = tr["batch"], tr["seq"]
-    t0 = time.perf_counter()
     opt = make_optimizer("adam", lr=tr["lr"])
-    run = {"params": registry.init_params(cfg, args.seed, dev), "step": 0}
-    run["opt"] = opt.init(run["params"])
-    step_fn = make_train_step(cfg, opt)
     batch = batch_of(cfg, b, s, args.seed)
+    flops, attn = train_step_flops(cfg, b, s)
 
-    def one_step():
-        run["params"], run["opt"], run["step"], m = step_fn(
-            run["params"], run["opt"], run["step"], batch)
-        return m
-
-    print(f"llm train: {cfg.arch_id} ({cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.dtype}, Adam lr {tr['lr']}) weights and "
-          f"state built in {time.perf_counter() - t0:.1f} s")
-    losses, secs, loss_tensors = [], [], []
-    for i in range(tr["steps"]):
-        if on_card and i == 1:
-            torch.cuda.reset_peak_memory_stats(dev)
-        label = f"llm train step {i} B={b} S={s}"
-        t0 = time.perf_counter()
-        m = run_phase(label, one_step)
-        secs.append(time.perf_counter() - t0)
-        losses.append(float(m["loss"]))
-        loss_tensors.append(m["loss"])
-        counts = phase_launches[label]
-        print(f"launches {label}: "
-              + ", ".join(f"{k} {counts[k]}" for k in FLASH_KERNELS))
+    def train(c, what):
+        """``tr["steps"]`` steps of ``c`` from the seed's weights: (the
+        run's state and one-step callable, loss tensors, seconds a step,
+        the peak allocation after the first step and its rise over what
+        was allocated before the run's weights were built)."""
         if on_card:
-            for name in FLASH_KERNELS:
-                check(counts[name] == cfg.n_layers,
-                      f"{label}: {name} launched {counts[name]} times, want "
-                      f"one per layer ({cfg.n_layers})")
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        run = {"params": registry.init_params(c, args.seed, dev), "step": 0}
+        run["opt"] = opt.init(run["params"])
+        step_fn = make_train_step(c, opt)
+
+        def one_step():
+            run["params"], run["opt"], run["step"], m = step_fn(
+                run["params"], run["opt"], run["step"], batch)
+            return m
+
+        print(f"llm train{what}: {c.arch_id} ({c.n_layers} layers, d_model "
+              f"{c.d_model}, {c.dtype}, remat {c.remat} "
+              f"({c.remat_policy}), Adam lr {tr['lr']}) weights and state "
+              f"built in {time.perf_counter() - t0:.1f} s")
+        want = train_launches(c)
+        losses, secs = [], []
+        for i in range(tr["steps"]):
+            if on_card and i == 1:
+                torch.cuda.reset_peak_memory_stats(dev)
+            label = f"llm train{what} step {i} B={b} S={s}"
+            t0 = time.perf_counter()
+            m = run_phase(label, one_step)
+            secs.append(time.perf_counter() - t0)
+            losses.append(m["loss"])
+            counts = phase_launches[label]
+            print(f"launches {label}: "
+                  + ", ".join(f"{k} {counts[k]}" for k in FLASH_KERNELS))
+            if on_card:
+                for name in FLASH_KERNELS:
+                    check(counts[name] == want[name],
+                          f"{label}: {name} launched {counts[name]} times, "
+                          f"want {want[name]} ({c.n_layers} layers, remat "
+                          f"{c.remat})")
+        peak = (torch.cuda.max_memory_allocated(dev), base) if on_card \
+            else None
+        return run, one_step, losses, secs, peak
+
+    def report(what, losses, secs, peak):
+        ms = 1e3 * sum(secs[1:]) / len(secs[1:])
+        rate = (f"{flops / ms / 1e9:.1f} TFLOP/s" if on_card
+                else "TFLOP/s not measured (no card)")
+        mem = (f"{peak[0] / 2**30:.2f} GiB ({(peak[0] - peak[1]) / 2**30:.2f}"
+               " GiB above what was allocated before the run's weights)"
+               if on_card else "not measured (no card)")
+        print(f"llm train{what}: losses "
+              f"{', '.join(f'{float(x):.4f}' for x in losses)} | {ms:.2f} ms "
+              f"per step after the first (first {1e3 * secs[0]:.2f} ms) | "
+              f"{b * s / ms * 1e3:.0f} tokens/s | {rate} ({flops:.4e} FLOP a "
+              f"step: model_flops' 6 N T {flops - attn:.4e} + attention "
+              f"{attn:.4e}) | peak allocated {mem} | {smi}")
+        return ms
+
+    run, one_step, loss_tensors, secs, peak = train(cfg, "")
+    losses = [float(x) for x in loss_tensors]
     check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
           f"llm train: losses {losses} not finite and falling")
-    ms = 1e3 * sum(secs[1:]) / len(secs[1:])
+    ms = report("", loss_tensors, secs, peak)
     # for the 1 x 1 mesh phase: its steps must give these bits
     unsharded = {"losses": loss_tensors, "params": clone_tree(run["params"]),
                  "ms": ms, "step": one_step}
-    attn = (2 * (cfg.resolved_head_dim * 2) + 2 * (5 * cfg.resolved_head_dim)
-            ) * b * cfg.n_heads * attention_pairs(s, s, True, 0) * cfg.n_layers
-    flops = counting.model_flops(cfg, b * s, "train") + attn
-    rate = (f"{flops / ms / 1e9:.1f} TFLOP/s" if on_card
-            else "TFLOP/s not measured (no card)")
-    peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
-            if on_card else "not measured (no card)")
-    print(f"llm train: losses {', '.join(f'{x:.4f}' for x in losses)} | "
-          f"{ms:.2f} ms per step after the first (first {1e3 * secs[0]:.2f} "
-          f"ms) | {b * s / ms * 1e3:.0f} tokens/s | {rate} ({flops:.4e} FLOP "
-          f"a step: model_flops' 6 N T {flops - attn:.4e} + attention "
-          f"{attn:.4e}) | peak allocated {peak} | {smi}")
+
+    # the twin without remat: the same bits, another memory and time
+    twin, _, twin_losses, twin_secs, twin_peak = train(
+        cfg.replace(remat=False), " remat=False twin")
+    check(all(torch.equal(a, w) for a, w in zip(twin_losses, loss_tensors)),
+          f"llm train: the remat=False twin's losses "
+          f"{[float(x) for x in twin_losses]} differ from the remat run's "
+          f"{losses}")
+    twin_leaves = dict(layout.flatten_with_paths(twin["params"]))
+    differ = [path for path, w in layout.flatten_with_paths(
+        unsharded["params"]) if not torch.equal(twin_leaves[path], w)]
+    check(not differ, f"llm train: the remat=False twin's params differ from "
+          f"the remat run's at {differ[:5]}")
+    twin_ms = report(" remat=False twin", twin_losses, twin_secs, twin_peak)
+    print(f"llm train: remat ({cfg.remat_policy}) against the remat=False "
+          f"twin: losses and every leaf after {tr['steps']} steps bit for "
+          f"bit; {ms:.2f} / {twin_ms:.2f} ms a step "
+          f"({100 * (ms / twin_ms - 1):+.1f}%)"
+          + (f"; peak above the run's start "
+             f"{(peak[0] - peak[1]) / 2**30:.2f} / "
+             f"{(twin_peak[0] - twin_peak[1]) / 2**30:.2f} GiB"
+             if on_card else "") + f" | {smi}")
+    del twin
+    adam_slices_check(cfg, opt, run, batch, on_card, smi)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
 
     # the f32 oracle: K11 / K13 / K12 against autograd through the plain
     # flash, per leaf
@@ -4258,7 +4360,8 @@ def llm_train_path(cfg, tr, args, dev, on_card, smi, run_phase,
     finally:
         fa_ops.flash_attention = kernel_call
     if on_card:
-        check(all(n_kern[k] == cfg32.n_layers for k in FLASH_KERNELS)
+        want32 = train_launches(cfg32)
+        check(all(n_kern[k] == want32[k] for k in FLASH_KERNELS)
               and not any(n_plain[k] for k in FLASH_KERNELS),
               f"llm train oracle: launches {n_kern} through the kernels, "
               f"{n_plain} in the plain run")
@@ -4278,7 +4381,7 @@ def llm_train_path(cfg, tr, args, dev, on_card, smi, run_phase,
           f"llm train oracle: gradient {worst} rel {rels[worst]:.3e} >= "
           f"{ORACLE_REL}")
     print(f"llm train oracle (f32, {cfg32.n_layers} of {cfg.n_layers} "
-          f"layers, B={ob}, S={os_}): loss rel "
+          f"layers, remat {cfg32.remat}, B={ob}, S={os_}): loss rel "
           f"{rel(kern_loss, plain_loss):.3e}; {len(rels)} leaves' gradients "
           f"through K11 / K13 / K12 vs the plain flash, worst {worst} rel "
           f"{rels[worst]:.3e} (bound {ORACLE_REL})")
@@ -4506,9 +4609,9 @@ def mesh_train_path(cfg, tr, args, dev, on_card, smi, run_phase,
     (copies on a one-rank NCCL world), the gradients all-reduced and sliced
     back, Adam shard-local. Losses and the final params must equal the
     unsharded phase's bit for bit (``unsharded``: its losses, params after
-    its steps and ms a step); K11 / K13 / K12 exactly once per layer a
-    step. ms per step after the first, the gather copies' bytes a step, the
-    peak allocation."""
+    its steps and ms a step); K11 twice (with remat) and K13 / K12 once
+    per layer a step (:func:`train_launches`). ms per step after the
+    first, the gather copies' bytes a step, the peak allocation."""
     import torch
 
     from repro_torch.data.synthetic import lm_batches
@@ -4553,10 +4656,12 @@ def mesh_train_path(cfg, tr, args, dev, on_card, smi, run_phase,
         print(f"launches {label}: "
               + ", ".join(f"{k} {counts[k]}" for k in FLASH_KERNELS))
         if on_card:
+            want = train_launches(cfg)
             for name in FLASH_KERNELS:
-                check(counts[name] == cfg.n_layers,
+                check(counts[name] == want[name],
                       f"{label}: {name} launched {counts[name]} times, want "
-                      f"one per layer ({cfg.n_layers})")
+                      f"{want[name]} ({cfg.n_layers} layers, remat "
+                      f"{cfg.remat})")
     check(all(torch.equal(a, w) for a, w in zip(losses, unsharded["losses"])),
           f"mesh train: losses {[float(x) for x in losses]} differ from the "
           f"unsharded {[float(x) for x in unsharded['losses']]}")
@@ -4625,21 +4730,53 @@ DRYRUN_TIMED = 3
 # what the counter cannot see (cuBLAS workspaces made at a first call)
 DRYRUN_PEAK_RTOL = 0.02
 # the dry run's step in a subprocess (a fake world of one rank cannot open
-# beside this process's NCCL world): the report and the per-op counts
+# beside this process's NCCL world), once per config override: the report,
+# the per-op counts and, when asked, the counted peak of the forward and
+# backward alone (``steps.loss_and_grads``, unsharded)
 DRYRUN_CHILD = """
 import dataclasses, json, sys
 from repro_torch.common.config import InputShape
-from repro_torch.launch import dryrun_lib
+from repro_torch.launch import dryrun_lib, op_analysis, specs
 from repro_torch.models import registry
-arch, fields, smoke = json.loads(sys.argv[1])
-over = (dataclasses.asdict(registry.get_config(arch, smoke=True)) if smoke
-        else None)
-res, counter = dryrun_lib.measure(arch, InputShape(*fields),
-                                  mesh_shape=(1, 1), overrides=over)
-print("DRYRUN" + json.dumps({"report": res, "totals": counter.totals(),
-                             "ops": counter.ops, "kernels": counter.kernels},
-                            default=str))
+from repro_torch.train import steps
+arch, fields, smoke, overrides, alone = json.loads(sys.argv[1])
+base = (dataclasses.asdict(registry.get_config(arch, smoke=True)) if smoke
+        else {})
+shape = InputShape(*fields)
+for over in overrides:
+    over = {**base, **over}
+    res, counter = dryrun_lib.measure(arch, shape, mesh_shape=(1, 1),
+                                      overrides=over)
+    rec = {"report": res, "totals": counter.totals(), "ops": counter.ops,
+           "kernels": counter.kernels}
+    if alone:
+        cfg = registry.get_config(arch).replace(**over)
+        with op_analysis.Counter() as grads:
+            steps.loss_and_grads(cfg, registry.abstract_params(cfg),
+                                 specs.batch_specs(cfg, shape))
+        rec["grads_peak"] = grads.peak_bytes
+    print("DRYRUN" + json.dumps(rec, default=str), flush=True)
 """
+
+
+def dryrun_child(arch: str, fields, tiny: bool, overrides,
+                 alone: bool = False):
+    """:data:`DRYRUN_CHILD` on ``arch`` at ``fields`` (an ``InputShape``'s),
+    the smoke config in the rehearsal, once per dict of ``overrides``: one
+    record each, with ``"grads_peak"``, the counted peak of the forward and
+    backward alone, when ``alone``."""
+    import subprocess
+
+    child = subprocess.run(
+        [sys.executable, "-c", DRYRUN_CHILD, json.dumps(
+            [arch, list(fields), bool(tiny), list(overrides), alone])],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=_child_env(), timeout=600)
+    out = [json.loads(ln[len("DRYRUN"):]) for ln in child.stdout.splitlines()
+           if ln.startswith("DRYRUN")]
+    check(child.returncode == 0 and len(out) == len(overrides),
+          f"the dry run's subprocess failed:\n{child.stdout[-4000:]}")
+    return out
 
 
 def _child_env():
@@ -4741,10 +4878,9 @@ def dryrun_path(cfg, dr, args, dev, on_card, smi, run_phase, phase_launches,
                 rt):
     """Phase 3, the dry run (see the module's docstring, (a)-(c)), on the
     one-rank world ``rt``: full-width llama3.2-1b (its smoke config in the
-    rehearsal). The meta count runs in a subprocess after the card's
-    steps, so that nothing else loads the host while they are timed."""
-    import subprocess
-
+    rehearsal), its config's remat on. The meta count runs in a subprocess
+    after the card's steps, so that nothing else loads the host while they
+    are timed."""
     import torch
 
     from repro_torch.data.synthetic import lm_batches
@@ -4784,15 +4920,8 @@ def dryrun_path(cfg, dr, args, dev, on_card, smi, run_phase, phase_launches,
         if on_card:
             torch.cuda.synchronize()
         took.append(time.perf_counter() - t0)
-    child = subprocess.run(
-        [sys.executable, "-c", DRYRUN_CHILD, json.dumps(
-            [cfg.arch_id, list(fields), bool(args.tiny)])],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        env=_child_env(), timeout=600)
-    stdout = child.stdout
-    check(child.returncode == 0 and "DRYRUN" in stdout,
-          f"the dry run's subprocess failed:\n{stdout[-4000:]}")
-    meta = json.loads(stdout.split("DRYRUN", 1)[1])
+    meta, = dryrun_child(cfg.arch_id, fields, args.tiny, [
+        {"remat": cfg.remat, "remat_policy": cfg.remat_policy}])
     rep, want = meta["report"], meta["totals"]
     got = counter.totals()
     counts = phase_launches[label]
@@ -4858,6 +4987,172 @@ def dryrun_path(cfg, dr, args, dev, on_card, smi, run_phase, phase_launches,
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+
+
+def adam_slices_check(cfg, opt, run, batch, on_card, smi):
+    """One Adam update of the LLM training run's state (its gradients at
+    its params): updated in slices of ``optimizers.ADAM_CHUNK`` weights, as
+    every step updates, against the same update with ``ADAM_CHUNK`` above
+    the largest leaf, so that each leaf is one slice; every new param and
+    moment bit for bit. On the card a leaf must be past ``ADAM_CHUNK``."""
+    import torch
+
+    from repro_torch.checkpoint import layout
+    from repro_torch.optim import optimizers
+    from repro_torch.train.steps import loss_and_grads
+
+    _, _, grads = loss_and_grads(cfg, run["params"], batch)
+    numels = [p.numel() for _, p in layout.flatten_with_paths(run["params"])]
+    chunk = optimizers.ADAM_CHUNK
+    sliced = opt.update(grads, run["opt"], run["params"], run["step"])
+    optimizers.ADAM_CHUNK = max(numels) + 1
+    try:
+        whole = opt.update(grads, run["opt"], run["params"], run["step"])
+    finally:
+        optimizers.ADAM_CHUNK = chunk
+    past = sum(n > chunk for n in numels)
+    if on_card:
+        check(past > 0, f"llm train Adam: no leaf past ADAM_CHUNK {chunk} "
+              f"(largest {max(numels)})")
+    check(same_tree({"p": sliced[0], "s": sliced[1]},
+                    {"p": whole[0], "s": whole[1]}),
+          "llm train Adam: the update in slices of ADAM_CHUNK differs from "
+          "the update with every leaf in one slice")
+    print(f"llm train Adam: {len(numels)} leaves, {past} past ADAM_CHUNK "
+          f"{chunk} (largest {max(numels)} weights) updated in slices; new "
+          f"params and moments bit for bit the update with every leaf in "
+          f"one slice | {smi}")
+    del grads, sliced, whole
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def qwen_train_path(tr, args, dev, on_card, smi, run_phase, phase_launches,
+                    rt):
+    """Phase 3, qwen2.5-3b's train step at full width and depth (36
+    layers, bf16, its config as it stands: remat under ``"dots"``; the
+    smoke config with remat on in the rehearsal): the sharded ZeRO-1 step
+    (``make_train_step(cfg, adam, rt)``) on the one-rank world ``rt``, as
+    the dry run counts it, ``tr["steps"]`` steps on one batch of
+    ``lm_batches``. The loss finite and falling; K11 twice per layer a
+    step, K13 and K12 once (:func:`train_launches`); ms per step after the
+    first, tokens/s, TFLOP/s (:func:`train_step_flops`), peak allocation.
+    Each step's rise of ``max_memory_allocated`` over ``memory_allocated``
+    just before it must be within ``DRYRUN_PEAK_RTOL`` of
+    ``dryrun_lib.measure``'s meta count of the same step at (1, 1) less its
+    arguments (counted in :data:`DRYRUN_CHILD` after the card's steps).
+    The count with ``remat=False`` is printed beside it, reckoned and not
+    run, with both counts' peaks of the forward and backward alone."""
+    import torch
+
+    from repro_torch.configs import qwen25_3b
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.launch import sharding
+    from repro_torch.models import registry
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train import steps
+
+    cfg = (qwen25_3b.smoke().replace(remat=True) if args.tiny
+           else qwen25_3b.config())
+    b, s = tr["batch"], tr["seq"]
+    fields = ("chip_smoke_qwen_train", s, b, "train")
+    start = (f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB" if on_card
+             else "not measured (no card)")
+    t0 = time.perf_counter()
+    full = registry.init_params(cfg, args.seed, dev)
+    specs = sharding.param_shardings(cfg, registry.param_axes(cfg), full,
+                                     rt.mesh)
+    params = sharding.local_tree(full, specs, rt)
+    del full
+    opt = make_optimizer("adam", lr=tr["lr"])
+    state = steps.init_opt_state(cfg, opt, params, rt)
+    step_fn = steps.make_train_step(cfg, opt, rt)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(
+        lm_batches(cfg.vocab_size, b, s, 1, seed=args.seed)).items()}
+    print(f"qwen train: {cfg.arch_id} ({cfg.n_layers} of "
+          f"{qwen25_3b.config().n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.param_count() / 1e9:.3f} G weights, {cfg.dtype}, remat "
+          f"{cfg.remat} ({cfg.remat_policy}), ZeRO-1 Adam lr {tr['lr']} on "
+          f"the 1 x 1 mesh) weights and state built in "
+          f"{time.perf_counter() - t0:.1f} s; memory_allocated before them "
+          f"{start}")
+    want = train_launches(cfg)
+    losses, secs, rises = [], [], []
+    for i in range(tr["steps"]):
+        if on_card:
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        label = f"qwen train {cfg.arch_id} step {i} B={b} S={s}"
+        t0 = time.perf_counter()
+        params, state, _, m = run_phase(
+            label, lambda: step_fn(params, state, i, batch))
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        if on_card:
+            rises.append((torch.cuda.max_memory_allocated(dev) - before,
+                          torch.cuda.max_memory_allocated(dev)))
+        counts = phase_launches[label]
+        print(f"launches {label}: "
+              + ", ".join(f"{k} {counts[k]}" for k in FLASH_KERNELS))
+        if on_card:
+            for name in FLASH_KERNELS:
+                check(counts[name] == want[name],
+                      f"{label}: {name} launched {counts[name]} times, want "
+                      f"{want[name]} ({cfg.n_layers} layers, remat "
+                      f"{cfg.remat})")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"qwen train: losses {losses} not finite and falling")
+    del params, state
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    remat, plain = dryrun_child(cfg.arch_id, fields, args.tiny, [
+        {"remat": True, "remat_policy": cfg.remat_policy},
+        {"remat": False}], alone=True)
+
+    def counted(rec):  # (peak, arguments, the step's storages) in bytes
+        mem = rec["report"]["memory_per_device"]
+        return (int(mem["peak_bytes"]), int(mem["argument_bytes"]),
+                int(mem["peak_bytes"] - mem["argument_bytes"]))
+
+    peak, args_b, step_b = counted(remat)
+    plain_peak, _, _ = counted(plain)
+    check(remat["kernels"]["flash_attention"][0] == want["flash_attention"],
+          f"qwen train: the meta count books K11 "
+          f"{remat['kernels']['flash_attention'][0]} times, want "
+          f"{want['flash_attention']}")
+    ms = 1e3 * sum(secs[1:]) / len(secs[1:])
+    flops, attn = train_step_flops(cfg, b, s)
+    if on_card:
+        for i, (rise, _) in enumerate(rises[1:], 1):
+            check(abs(rise - step_b) <= DRYRUN_PEAK_RTOL * step_b,
+                  f"qwen train step {i}: the step added {rise} bytes to the "
+                  f"allocator's peak, the meta count's peak less its "
+                  f"arguments is {step_b} (rtol {DRYRUN_PEAK_RTOL})")
+        total = torch.cuda.get_device_properties(dev).total_memory
+        off = ", ".join(f"{100 * (r / step_b - 1):+.2f}%"
+                        for r, _ in rises[1:])
+        card = (f"{flops / ms / 1e9:.1f} TFLOP/s | peak allocated "
+                f"{max(p for _, p in rises) / 2**30:.2f} GiB of the card's "
+                f"{total / 2**30:.2f} GiB; each step's rise over "
+                f"memory_allocated before it "
+                f"{', '.join(f'{r / 2**30:.3f}' for r, _ in rises)} GiB "
+                f"against the count's {step_b / 2**30:.3f} GiB "
+                f"({off} after the first; rtol {DRYRUN_PEAK_RTOL})")
+    else:
+        card = "TFLOP/s and peak not measured (no card)"
+    gb = 1e9
+    print(f"qwen train: losses {', '.join(f'{x:.4f}' for x in losses)} | "
+          f"{ms:.2f} ms per step after the first (first {1e3 * secs[0]:.2f} "
+          f"ms) | {b * s / ms * 1e3:.0f} tokens/s | {card} | meta count at "
+          f"(1, 1): peak {peak / gb:.2f} GB = arguments {args_b / gb:.2f} + "
+          f"the step's {step_b / gb:.2f}, forward and backward alone "
+          f"{(args_b + remat['grads_peak']) / gb:.2f} GB; remat=False "
+          f"(reckoned, not run): peak {plain_peak / gb:.2f} GB, forward and "
+          f"backward alone {(args_b + plain['grads_peak']) / gb:.2f} GB | "
+          f"{smi}")
 
 
 def spec_bytes(specs) -> int:

@@ -5,6 +5,9 @@ the production mesh (port of ``repro/launch/dryrun.py``).
         --shape long_500k [--multi-pod] [--out experiments/dryrun_torch]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod]
 
+``--no-remat`` counts the steps with ``remat=False`` in place of each
+config's own (every full config sets ``remat``), to read what remat saves.
+
 Each combination runs rank 0's step on the meta device in a fake 256- (or
 512-, ``--multi-pod``) rank world that ``dryrun_lib.run_one`` opens itself:
 no environment variable, no card and no memory are needed. One summary
@@ -30,6 +33,8 @@ def main(argv=None) -> int:
                     help="2x16x16 (512-rank) mesh")
     ap.add_argument("--all", action="store_true",
                     help="run every supported combo")
+    ap.add_argument("--no-remat", action="store_true",
+                    help="count the steps with remat=False")
     ap.add_argument("--out", default="experiments/dryrun_torch")
     args = ap.parse_args(argv)
 
@@ -43,8 +48,9 @@ def main(argv=None) -> int:
     failures = 0
     for arch, shape in combos:
         try:
-            res = dryrun_lib.run_one(arch, shape, multi_pod=args.multi_pod,
-                                     out_dir=args.out)
+            res = dryrun_lib.run_one(
+                arch, shape, multi_pod=args.multi_pod, out_dir=args.out,
+                overrides={"remat": False} if args.no_remat else None)
             print(dryrun_lib.summarize(res), flush=True)
             if res.get("status") not in ("ok", "skipped"):
                 failures += 1

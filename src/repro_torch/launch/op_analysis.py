@@ -23,7 +23,20 @@ this rank:
   ``roofline.collective_stats`` counts XLA's; a group of one rank counts
   nothing.
 * **Peak live bytes**: each storage an op creates, from its creation until
-  it is freed, on top of what existed before the counter started.
+  it is freed, on top of what existed before the counter started. A
+  booked kernel call's storages count from the booking's end, those that
+  outlive it only (its outputs): on CPU tensors its plain version's
+  temporaries are not the kernel's. Under rematerialization
+  (``models/remat.py``) the products a region keeps count until the
+  recompute in the backward lets them go, and the recomputed values from
+  their creation, as they are held.
+
+A rematerialized step (``models/remat.py``) is counted as it runs: the
+ops of the recompute in the backward are dispatched again and counted,
+and a booked kernel in a region (K11) books once more; a product that a
+dots region kept is answered by ``remat.matmul``'s dispatch mode, entered
+after the counter and so above it, without reaching the counter: it is
+not counted twice.
 
 A hand kernel's cost is booked by its wrapper inside
 ``kernels/_build.booking``, which calls :func:`kernel` here while a counter
@@ -123,6 +136,7 @@ class Counter(TorchDispatchMode):
         self.peak_bytes = 0
         self._booking = 0
         self._storages = WeakIdKeyDictionary()
+        self._booked = WeakIdKeyDictionary()  # made in the open booking
 
     def __enter__(self):
         _build.counter_opened(+1)
@@ -161,17 +175,30 @@ class Counter(TorchDispatchMode):
     def _freed(self, nbytes: int) -> None:
         self.live_bytes -= nbytes
 
+    def _add(self, st) -> None:
+        nbytes = st.nbytes()
+        self._storages[st] = nbytes
+        weakref.finalize(st, self._freed, nbytes)
+        self.live_bytes += nbytes
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+
     def _track(self, out, inputs) -> None:
         seen = [t.untyped_storage() for t in inputs]
         for t in _tensors(out):
             st = t.untyped_storage()
-            if st in self._storages or any(st is s for s in seen):
+            if (st in self._storages or st in self._booked
+                    or any(st is s for s in seen)):
                 continue
-            nbytes = st.nbytes()
-            self._storages[st] = nbytes
-            weakref.finalize(st, self._freed, nbytes)
-            self.live_bytes += nbytes
-            self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+            if self._booking:
+                self._booked[st] = True
+            else:
+                self._add(st)
+
+    def _booking_closed(self) -> None:
+        """The storages made in the booking that outlive it."""
+        for st in list(self._booked.keys()):
+            self._add(st)
+        self._booked.clear()
 
     # -- costs -----------------------------------------------------------
 
@@ -253,6 +280,8 @@ def kernel(name: str, flops: int, nbytes: int):
     finally:
         for c in counters:
             c._booking -= 1
+            if not c._booking:
+                c._booking_closed()
 
 
 def check_launch(name: str) -> None:

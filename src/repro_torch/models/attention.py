@@ -37,6 +37,7 @@ import torch
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.common.pspec import ParamSpec, torch_dtype
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models import remat
 from repro_torch.models.layers import apply_rope, rms_norm
 
 Cache = Dict[str, torch.Tensor]
@@ -90,7 +91,7 @@ def gqa_specs(cfg) -> Dict[str, ParamSpec]:
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matmul."""
     d, h, k = w.shape
-    return torch.matmul(x, w.reshape(d, h * k)).unflatten(-1, (h, k))
+    return remat.matmul(x, w.reshape(d, h * k)).unflatten(-1, (h, k))
 
 
 def _project_qkv(cfg, p, x: torch.Tensor, positions: torch.Tensor):
@@ -110,7 +111,7 @@ def _project_qkv(cfg, p, x: torch.Tensor, positions: torch.Tensor):
 def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum("bshk,hkd->bsd") as one matmul."""
     h, k, d = wo.shape
-    return torch.matmul(o.flatten(-2), wo.reshape(h * k, d))
+    return remat.matmul(o.flatten(-2), wo.reshape(h * k, d))
 
 
 def gqa_forward(cfg, p, x: torch.Tensor, *, window: int = 0) -> torch.Tensor:
@@ -267,7 +268,7 @@ def mla_specs(cfg) -> Dict[str, ParamSpec]:
 def _mla_q(cfg, p, x: torch.Tensor, positions: torch.Tensor):
     """x (B, S, d) -> q_nope (B, S, H, nope), q_rope (B, S, H, rope) after
     RoPE."""
-    cq = rms_norm(torch.matmul(x, p["wdq"]), p["q_norm"])
+    cq = rms_norm(remat.matmul(x, p["wdq"]), p["q_norm"])
     q = _proj(cq, p["wuq"])
     nope = cfg.qk_nope_dim
     return q[..., :nope], apply_rope(q[..., nope:], positions, cfg.rope_theta)
@@ -276,8 +277,8 @@ def _mla_q(cfg, p, x: torch.Tensor, positions: torch.Tensor):
 def _mla_latent(cfg, p, x: torch.Tensor, positions: torch.Tensor):
     """x (B, S, d) -> ckv (B, S, kv_lora_rank), normed, and the shared rope
     key (B, S, rope) after RoPE (taken as one head, then squeezed)."""
-    ckv = rms_norm(torch.matmul(x, p["wdkv"]), p["kv_norm"])
-    k_rope = torch.matmul(x, p["wkr"])[:, :, None]  # (B, S, 1, rope)
+    ckv = rms_norm(remat.matmul(x, p["wdkv"]), p["kv_norm"])
+    k_rope = remat.matmul(x, p["wkr"])[:, :, None]  # (B, S, 1, rope)
     return ckv, apply_rope(k_rope, positions, cfg.rope_theta)[:, :, 0]
 
 

@@ -12,6 +12,11 @@ with ``causal=False`` (kernel K11 on the card): the encoder at Sq = Sk =
 S_src, the forward's cross-attention at Sq = S_tgt against Sk = S_src, and
 a decode step's at Sq = 1.
 
+Each encoder and decoder layer of the forward is one region of
+``models/remat.py`` (``cfg.remat``); a decoder layer's region holds its
+cross keys and values, computed from ``enc_out`` inside it, as in the JAX
+package.
+
 Parameters stay stacked over layers (``enc_layers`` and ``dec_layers``,
 ``(L, ...)`` as in the JAX package; each loop over layers takes them apart
 once with :func:`transformer.unstack`). The decode state is preallocated:
@@ -28,7 +33,7 @@ import torch
 from repro_torch.common import pspec
 from repro_torch.common.device import DeviceLike
 from repro_torch.common.pspec import torch_dtype
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, remat
 from repro_torch.models.transformer import unstack
 
 
@@ -83,14 +88,19 @@ def encode(cfg, params, frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, S_src, d_model) stub embeddings -> encoder states in
     ``cfg.dtype``."""
     x = frames.to(torch_dtype(cfg.dtype))
-    for lp in unstack(params["enc_layers"]):
+
+    def body(x, lp):
         a = lp["attn"]
         h = layers.apply_norm(cfg, lp["ln1"], x)
         q, k, v = (attention._proj(h, a[w]) for w in ("wq", "wk", "wv"))
         o = attention.flash_attention(q, k, v, causal=False)
         x = x + attention._out_proj(o, a["wo"])
-        x = x + layers.apply_ffn(cfg, lp["ffn"],
-                                 layers.apply_norm(cfg, lp["ln2"], x))
+        return x + layers.apply_ffn(cfg, lp["ffn"],
+                                    layers.apply_norm(cfg, lp["ln2"], x))
+
+    layer = remat.checkpointed(cfg, body)
+    for lp in unstack(params["enc_layers"]):
+        x = layer(x, lp)
     return layers.apply_norm(cfg, params["enc_ln_f"], x)
 
 
@@ -102,14 +112,19 @@ def forward(cfg, params, batch: Dict[str, torch.Tensor], *,
     enc_out = encode(cfg, params, batch["frames"])
     x = layers.embed_tokens(cfg, params["embed"], batch["tokens"]).to(
         torch_dtype(cfg.dtype))
-    for lp in unstack(params["dec_layers"]):
+
+    def body(x, enc_out, lp):
         h = layers.apply_norm(cfg, lp["ln1"], x)
         x = x + attention.gqa_forward(cfg, lp["self_attn"], h, window=w)
         h = layers.apply_norm(cfg, lp["ln_x"], x)
         k, v = _cross_kv(lp["cross"], enc_out)
         x = x + _cross_attend(lp["cross"], h, k, v)
-        x = x + layers.apply_ffn(cfg, lp["ffn"],
-                                 layers.apply_norm(cfg, lp["ln2"], x))
+        return x + layers.apply_ffn(cfg, lp["ffn"],
+                                    layers.apply_norm(cfg, lp["ln2"], x))
+
+    layer = remat.checkpointed(cfg, body)
+    for lp in unstack(params["dec_layers"]):
+        x = layer(x, enc_out, lp)
     if last_only:
         x = x[:, -1:]
     x = layers.apply_norm(cfg, params["ln_f"], x)

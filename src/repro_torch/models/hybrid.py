@@ -19,9 +19,10 @@ stacked as in the JAX package: ``mamba`` (n_super, P-1, ...), ``lora``
 apart once with ``transformer.unstack``. The decode state is preallocated and
 written in place: mamba states (n_super, P-1, B, ...), one KV cache per
 super-block (n_super, B, size, Kv, D), the tail's states (n_tail, B, ...);
-``pos`` is a Python int. The JAX ``forward``'s ``remat`` and ``rt`` are
-not ported: no caller of the port sets them (``last_only`` is, for the
-sharded prefill step).
+``pos`` is a Python int. Each super-block of the forward is one region
+of ``models/remat.py`` (``cfg.remat``); the tail blocks are not, as in the
+JAX package. The JAX ``forward``'s ``rt`` is not ported: no caller of the
+port passes it (``last_only`` is, for the sharded prefill step).
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ import torch
 from repro_torch.common import pspec
 from repro_torch.common.device import DeviceLike
 from repro_torch.common.pspec import ParamSpec, torch_dtype
-from repro_torch.models import attention, layers, ssm
+from repro_torch.models import attention, layers, remat, ssm
 from repro_torch.models.transformer import unstack
 
 
@@ -109,12 +110,14 @@ def _shared_block(cfg, sp, lora, x: torch.Tensor, x0: torch.Tensor,
     ``attn_fn(sp, normed h)`` and the FFN, each residual, then ``w_proj``
     added to x."""
     xin = torch.cat([x, x0], dim=-1)
-    h = torch.matmul(xin, sp["w_concat"])
-    h = h + torch.einsum("bsd,dr,rf->bsf", xin, lora["a"], lora["b"])
+    h = remat.matmul(xin, sp["w_concat"])
+    # einsum("bsd,dr,rf->bsf") in the order the JAX package's einsum
+    # contracts it: two no-batch products, each kept under remat
+    h = h + remat.matmul(remat.matmul(xin, lora["a"]), lora["b"])
     h = h + attn_fn(sp, layers.apply_norm(cfg, sp["ln1"], h))
     h = h + layers.apply_ffn(cfg, sp["ffn"],
                              layers.apply_norm(cfg, sp["ln2"], h))
-    return x + torch.matmul(h, sp["w_proj"])
+    return x + remat.matmul(h, sp["w_proj"])
 
 
 def forward(cfg, params, tokens: torch.Tensor, *,
@@ -129,12 +132,16 @@ def forward(cfg, params, tokens: torch.Tensor, *,
     def attn_fn(sp, h):
         return attention.gqa_forward(cfg, sp["attn"], h, window=w)
 
+    def super_body(x, x0, shared, blocks, lora):
+        for lp in unstack(blocks):
+            x = _mamba_block(cfg, lp, x)
+        return _shared_block(cfg, shared, lora, x, x0, attn_fn)
+
+    super_block = remat.checkpointed(cfg, super_body)
     x = x0
     for blocks, lora in zip(unstack(params["mamba"]),
                             unstack(params["lora"])):
-        for lp in unstack(blocks):
-            x = _mamba_block(cfg, lp, x)
-        x = _shared_block(cfg, shared, lora, x, x0, attn_fn)
+        x = super_block(x, x0, shared, blocks, lora)
     for lp in _tail(cfg, params):
         x = _mamba_block(cfg, lp, x)
     if last_only:

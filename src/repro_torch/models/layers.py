@@ -17,6 +17,7 @@ from typing import Dict
 import torch
 
 from repro_torch.common.pspec import ParamSpec, torch_dtype
+from repro_torch.models.remat import matmul
 
 
 def _unported(what: str):
@@ -98,13 +99,13 @@ def ffn_specs(cfg, d_ff: int | None = None) -> Dict[str, ParamSpec]:
 
 def apply_ffn(cfg, p, x: torch.Tensor) -> torch.Tensor:
     _check_act(cfg)
-    h = torch.matmul(x, p["wi"])
+    h = matmul(x, p["wi"])
     if cfg.act == "swiglu":
-        g = torch.matmul(x, p["wg"])
+        g = matmul(x, p["wg"])
         h = h * torch.nn.functional.silu(g.float()).to(h.dtype)
     else:  # relu, in the activation dtype (jnp.maximum(h, 0))
         h = torch.relu(h)
-    return torch.matmul(h, p["wo"])
+    return matmul(h, p["wo"])
 
 
 # ---------------------------------------------------------------------------

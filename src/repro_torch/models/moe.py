@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.common import runtime
 from repro_torch.common.pspec import ParamSpec, torch_dtype
-from repro_torch.models import layers
+from repro_torch.models import layers, remat
 
 EXPERT_LEAVES = ("wi", "wg", "wo")  # the leaves split over the model axis
 
@@ -65,7 +65,7 @@ def _expert_ffn(cfg, p, h: torch.Tensor) -> torch.Tensor:
 
 def _router(cfg, router_w: torch.Tensor, x: torch.Tensor):
     """x: (T, d) -> weights (T, k), expert ids (T, k), probabilities (T, E)."""
-    logits = torch.matmul(x.float(), router_w.float())
+    logits = remat.matmul(x.float(), router_w.float())
     probs = torch.softmax(logits, dim=-1)
     w, ids = torch.topk(probs, cfg.top_k, dim=-1)
     w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)

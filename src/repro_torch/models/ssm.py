@@ -18,9 +18,10 @@ is ``logaddexp(x, 0)`` (:func:`softplus`), not torch's thresholded one.
 Parameters stay stacked over layers (``(L, ...)``; each loop over layers
 takes them apart once with ``transformer.unstack``); the decode state is
 preallocated (``conv`` (L, B, d_conv-1, conv_dim) in ``cfg.dtype``, ``ssm``
-(L, B, H, N, P) in f32) and written in place; ``pos`` is a Python int. The
-JAX ``forward``'s ``remat`` and ``rt`` are not ported: no caller of the
-port sets them (``last_only`` is, for the sharded prefill step).
+(L, B, H, N, P) in f32) and written in place; ``pos`` is a Python int.
+Each block of the forward is one region of ``models/remat.py``
+(``cfg.remat``). The JAX ``forward``'s ``rt`` is not ported: no caller of
+the port passes it (``last_only`` is, for the sharded prefill step).
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ import torch
 from repro_torch.common import pspec
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.common.pspec import ParamSpec, torch_dtype
-from repro_torch.models import layers
+from repro_torch.models import layers, remat
 from repro_torch.models.transformer import unstack
 
 State = Dict[str, torch.Tensor]
@@ -69,11 +70,11 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 def _project_in(cfg, p, x: torch.Tensor):
     g, n = cfg.ssm_ngroups, cfg.ssm_state
-    z = torch.matmul(x, p["w_z"])
-    xc = torch.matmul(x, p["w_x"])
-    bc = torch.matmul(x, p["w_bc"])
+    z = remat.matmul(x, p["w_z"])
+    xc = remat.matmul(x, p["w_x"])
+    bc = remat.matmul(x, p["w_bc"])
     bm, cm = bc[..., : g * n], bc[..., g * n:]
-    dt = torch.matmul(x, p["w_dt"])
+    dt = remat.matmul(x, p["w_dt"])
     return z, xc, bm, cm, dt
 
 
@@ -154,7 +155,7 @@ def _gate_norm_out(p, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     the out projection."""
     y = layers.rms_norm(y * torch.nn.functional.silu(z.float()).to(y.dtype),
                         p["norm"])
-    return torch.matmul(y, p["w_out"])
+    return remat.matmul(y, p["w_out"])
 
 
 def mamba_forward(cfg, p, x: torch.Tensor) -> torch.Tensor:
@@ -250,9 +251,14 @@ def forward(cfg, params, tokens: torch.Tensor, *,
     loss; ``window`` is taken and unused, as in the JAX package."""
     x = layers.embed_tokens(cfg, params["embed"], tokens).to(
         torch_dtype(cfg.dtype))
+
+    def body(x, lp):
+        return x + mamba_forward(cfg, lp["mixer"],
+                                 layers.apply_norm(cfg, lp["ln"], x))
+
+    block = remat.checkpointed(cfg, body)
     for lp in unstack(params["layers"]):
-        x = x + mamba_forward(cfg, lp["mixer"],
-                              layers.apply_norm(cfg, lp["ln"], x))
+        x = block(x, lp)
     if last_only:
         x = x[:, -1:]
     x = layers.apply_norm(cfg, params["ln_f"], x)

@@ -21,7 +21,7 @@ import torch
 from repro_torch.common import pspec
 from repro_torch.common.device import DeviceLike
 from repro_torch.common.pspec import torch_dtype
-from repro_torch.models import attention, layers, moe
+from repro_torch.models import attention, layers, moe, remat
 
 
 def _check(cfg) -> None:
@@ -106,19 +106,25 @@ def forward(cfg, params, tokens: torch.Tensor, rt=None, *,
     ``common/runtime.py``) ``tokens`` are this rank's rows and the MoE
     layers may run expert-parallel. ``last_only`` cuts the final hidden
     state to the last position before the unembedding: logits (B, 1,
-    padded_vocab), as the prefill step needs (no (B, S, V) logits)."""
+    padded_vocab), as the prefill step needs (no (B, S, V) logits). Each
+    layer is one region of ``models/remat.py`` (``cfg.remat``), which
+    returns only ``(x, aux)``: the layer's k and v are not held."""
     _check(cfg)
     w = cfg.sliding_window if window is None else window
     positions = _positions(tokens)
     x = layers.embed_tokens(cfg, params["embed"], tokens).to(
         torch_dtype(cfg.dtype))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in unstack(params["layers"]):
+
+    def body(x, aux, lp):
         if rt is not None:
             x = rt.seq_shard(x, cfg)
         x, a, _, _ = _layer_fwd(cfg, lp, x, positions, w, aux=True, rt=rt)
-        if a is not None:
-            aux = aux + a
+        return x, (aux if a is None else aux + a)
+
+    layer = remat.checkpointed(cfg, body)
+    for lp in unstack(params["layers"]):
+        x, aux = layer(x, aux, lp)
     if last_only:
         x = x[:, -1:]
     x = layers.apply_norm(cfg, params["ln_f"], x)

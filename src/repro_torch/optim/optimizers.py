@@ -43,6 +43,15 @@ def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=like.device)
 
 
+# the most weights of one leaf that Adam updates at once: each leaf is
+# updated in slices along its first dim, of as many rows as fit in this many
+# weights (one row at least), into its new tensors, so that the f32
+# temporaries (the gradient, the corrected moments, the step) are a
+# slice's, not the leaf's (the layer stacks: qwen2.5-3b's FFN leaf holds
+# 0.81 G weights); elementwise, the bits do not depend on the slicing
+ADAM_CHUNK = 1 << 26
+
+
 def adam(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
          eps: float = 1e-8, weight_decay: float = 0.0) -> Optimizer:
     def init(params):
@@ -51,20 +60,34 @@ def adam(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
         return {"m": _map(zeros, params), "v": _map(zeros, params)}
 
     def update(grads, state, params, step):
-        def upd(g, m, v, p):
-            t = torch.as_tensor(step, device=p.device).to(torch.float32) + 1.0
+        def upd(g, m, v, p, c1, c2, out_p, out_m, out_v):
+            """Writes the new p, m and v into ``out_p`` / ``out_m`` /
+            ``out_v``; ``c1`` / ``c2`` the bias corrections."""
             g = g.to(torch.float32)
-            m = b1 * m + (1 - b1) * g
-            v = b2 * v + (1 - b2) * g * g
-            mhat = m / (1 - torch.pow(_scalar(b1, p), t))
-            vhat = v / (1 - torch.pow(_scalar(b2, p), t))
-            delta = mhat / (torch.sqrt(vhat) + eps)
+            m = torch.add(b1 * m, (1 - b1) * g, out=out_m)
+            v = torch.add(b2 * v, (1 - b2) * g * g, out=out_v)
+            delta = (m / c1) / (torch.sqrt(v / c2) + eps)
             if weight_decay:
                 delta = delta + weight_decay * p.to(torch.float32)
-            return (p.to(torch.float32) - lr * delta).to(p.dtype), m, v
+            # computed in f32, rounded to p's dtype as it is written
+            torch.sub(p.to(torch.float32), lr * delta, out=out_p)
+
+        def leaf(g, m, v, p):
+            t = torch.as_tensor(step, device=p.device).to(torch.float32) + 1.0
+            c1 = 1 - torch.pow(_scalar(b1, p), t)
+            c2 = 1 - torch.pow(_scalar(b2, p), t)
+            new = (torch.empty_like(p), torch.empty_like(m),
+                   torch.empty_like(v))
+            rows = [x if x.dim() else x[None] for x in (g, m, v, p) + new]
+            n = rows[3].shape[0]
+            per = max(1, ADAM_CHUNK // max(1, p.numel() // max(1, n)))
+            for i in range(0, n, per):
+                upd(*(x[i:i + per] for x in rows[:4]), c1, c2,
+                    *(x[i:i + per] for x in rows[4:]))
+            return new
 
         new_p, new_m, new_v = _unzip(
-            _map(upd, grads, state["m"], state["v"], params), 3)
+            _map(leaf, grads, state["m"], state["v"], params), 3)
         return new_p, {"m": new_m, "v": new_v}
 
     return Optimizer(init, update)

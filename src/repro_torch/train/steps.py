@@ -10,7 +10,6 @@ rank on its rows of the batch (``sharding.batch_spec``), the train step's
 optimizer state held in ZeRO-1 slices (:func:`init_opt_state`) and the
 decode state in ``decode_state_shardings``' slices. The dry run
 (``launch/dryrun_lib.py``) counts these steps at the production meshes.
-``cfg.remat`` is not ported: it saves memory and changes no number.
 """
 from __future__ import annotations
 

@@ -60,11 +60,12 @@ def _seed_constant_leaves(node, rng):
             node[name] = (c + noise).astype(leaf.dtype)
 
 
-def setup(arch):
+def setup(arch, **overrides):
     """(JAX config, JAX params, port config, port params on the CPU, batch
-    as numpy arrays)."""
-    jcfg = j_registry.get_config(arch, smoke=True)
-    cfg = registry.get_config(arch, smoke=True)
+    as numpy arrays); ``overrides`` replace config fields on both sides
+    (``remat``, ``remat_policy``)."""
+    jcfg = j_registry.get_config(arch, smoke=True).replace(**overrides)
+    cfg = registry.get_config(arch, smoke=True).replace(**overrides)
     tree = jax.tree_util.tree_map(
         np.asarray, j_registry.init_params(jcfg, jax.random.PRNGKey(SEED)))
     _seed_constant_leaves(tree, np.random.default_rng(7))
@@ -101,10 +102,11 @@ def _router_gaps(cfg, probs):
     return top[:, cfg.top_k - 1] - top[:, cfg.top_k], float(top.max())
 
 
-def check_loss_and_grads(arch, monkeypatch):
+def check_loss_and_grads(arch, monkeypatch, **overrides):
     """``registry.loss_fn``'s loss, ce and aux and every leaf's gradient
-    (autograd) against ``jax.value_and_grad`` of JAX's ``loss_fn``."""
-    jcfg, jp, cfg, tp, batch = setup(arch)
+    (autograd) against ``jax.value_and_grad`` of JAX's ``loss_fn``, both
+    configs with ``overrides``."""
+    jcfg, jp, cfg, tp, batch = setup(arch, **overrides)
     routed = []
     router = moe._router
 
@@ -118,6 +120,7 @@ def check_loss_and_grads(arch, monkeypatch):
     for t in leaves.values():
         t.requires_grad_()
     loss, metrics = registry.loss_fn(cfg, tp, _torch_batch(batch))
+    forward_routed = list(routed)  # a remat backward routes again
     grads = torch.autograd.grad(loss, list(leaves.values()),
                                 allow_unused=True)
     assert _build.launches == before  # CPU tensors: no kernel
@@ -135,8 +138,8 @@ def check_loss_and_grads(arch, monkeypatch):
         assert float(metrics["aux"].detach()) > 0
         # every routed token stands away from a tie between its k-th and
         # (k+1)-th expert, so equal routing means something
-        assert len(routed) == cfg.n_layers
-        for _, _, probs in routed:
+        assert len(forward_routed) == cfg.n_layers
+        for _, _, probs in forward_routed:
             gaps, top = _router_gaps(cfg, probs.detach().numpy())
             assert float(gaps.min()) > 2 * TOL * top, gaps.min()
     jleaves = dict(_leaves(jp))

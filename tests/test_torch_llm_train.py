@@ -101,6 +101,34 @@ def test_adam_matches(step):
                                        atol=1e-7)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("weight_decay", [0.0, 0.1])
+def test_adam_updates_large_leaves_in_slices_bit_for_bit(dtype, weight_decay,
+                                                        monkeypatch):
+    """A leaf past ``ADAM_CHUNK`` weights is updated slice by slice along
+    its first dim into its new tensors: the same bits as the update of the
+    leaf in one slice (a strided leaf slices the same way, a row past
+    ``ADAM_CHUNK`` is a slice of its own)."""
+    from repro_torch.optim import optimizers
+    g = torch.Generator().manual_seed(3)
+    base = torch.randn(6, 41, generator=g)
+    params = {"a": base.to(dtype), "b": {"c": torch.randn(
+        9, generator=g).to(dtype), "t": base.T.to(dtype)}}
+    grads = optimizers._map(lambda p: torch.randn(
+        p.shape, generator=g).to(dtype), params)
+    state = {"m": optimizers._map(lambda p: torch.randn(
+                 p.shape, generator=g), params),
+             "v": optimizers._map(lambda p: torch.rand(
+                 p.shape, generator=g), params)}
+    opt = make_optimizer("adam", lr=1e-3, weight_decay=weight_decay)
+    want = opt.update(grads, state, params, 5)
+    monkeypatch.setattr(optimizers, "ADAM_CHUNK", 16)
+    got = opt.update(grads, state, params, 5)
+    for w, t in zip(jax.tree_util.tree_leaves(want),
+                    jax.tree_util.tree_leaves(got)):
+        assert t.dtype == w.dtype and torch.equal(t, w)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_lm_batches_match_reference(seed):
     got = list(lm_batches(vocab=300, batch=3, seq=20, n=3, seed=seed))
